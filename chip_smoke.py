@@ -1,14 +1,20 @@
-"""Drive the PyTorch / CUDA port's FX receive step once on one NVIDIA H100.
+"""Drive the PyTorch / CUDA port's FX receive step and X-Engine path once
+on one NVIDIA H100.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card   — require a Hopper card; print its name and power limit.
-2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout.
+2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
+   one ``nvcc`` per source, all started together.
 3. kernels — each kernel against its plain torch form on the card, TF32
-   off, at the main path's shapes (tolerance 1e-4 × max|plain|: float32
-   sums in another order), with kernel and plain times from CUDA events.
+   off, at the main paths' shapes, with kernel and plain times from CUDA
+   events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
+   (the FX kernels, B.1 and its flat entry B.1b, and B.2; the Gram kernel
+   B.4 in bfloat16); the int8 Gram must be bit-exact, at the X-Engine's
+   full width (F=256, T=8192, S·P=128) in both of its output modes and at
+   k = 4 lane blocks (S·P=512, F=16).
 4. main path — launch counts reset, then the fused step at full width
    (4 antennas × 2^23 samples, 16 channels, 400 taps) for 3 chained steps
    in f32 and int8 ingest, and the planar step at the entry shape (2^17);
@@ -17,6 +23,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    step held to the complex64 torch.fft pipeline on a small input.
 5. ingest — ``HostIngest`` feeds 8 host frames through the fused step;
    device step time, kernel and plain times and end-to-end MSPS.
+6. flat FX path — counts reset, 3 chained frames of 4 × 2^23 through
+   ``fx_correlate_streams`` with the history carried; counts read; every
+   step held to the plain form.
+7. X-Engine path — counts reset, a ``Flowgraph`` holding ``XEngine`` at
+   the reference configuration (64 stations × 2 pols, 256 channels, 8192
+   frames, raw IChar bytes, channel-major, triangular output,
+   pipeline_integration=2) driven for 3 integrations; counts read; the
+   emitted matrix must equal the plain ``xengine_correlate_stacked`` of
+   the same two integrations bit for bit, and the third integration must
+   sit in the accumulator.  Device step time and host-to-product time
+   per integration.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -35,6 +52,9 @@ A, M, N_FULL = 4, 16, 1 << 23
 N_ENTRY = 1 << 17
 STEPS = 3
 INGEST_FRAMES = 8
+# the X-Engine's reference configuration: stations, pols, channels, frames
+XE_S, XE_P, XE_F, XE_T = 64, 2, 256, 8192
+XE_STEPS = 3
 DEVICE = ("cuda", 0)
 
 
@@ -94,6 +114,168 @@ def frames(torch, gen, dtype, shape, device):
         return torch.randint(-127, 128, shape, generator=gen, device=device,
                              dtype=torch.int8)
     return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def gram_phase(torch, hk, gen, dev) -> dict:
+    """B.4 against its plain form in all three output forms; returns the
+    bfloat16 error and the kernel and plain times."""
+    res = {"bf16_err": 0.0}
+    cases = [("int8", torch.int8, XE_F, XE_S * XE_P),
+             ("int8 k=4", torch.int8, 16, 512),
+             ("bf16", torch.bfloat16, XE_F, XE_S * XE_P)]
+    for label, dt, f, sp in cases:
+        zr, zi = (frames(torch, gen, dt, (f, XE_T, sp), dev) for _ in range(2))
+        shape = f"[{f}x{XE_T}x{sp}]"
+        for form in ("xengine_gram_stacked_tri", "xengine_gram_stacked_blocks",
+                     "xengine_gram_stacked"):
+            got = getattr(hk, form)(zr, zi)[:2]
+            torch.cuda.synchronize()
+            want = getattr(hk, form + "_plain")(zr, zi)[:2]
+            if dt == torch.int8:
+                for g, w in zip(got, want):
+                    if not torch.equal(g, w):
+                        err = float((g.double() - w.double()).abs().max())
+                        fail(f"{form} {label} {shape}: not bit-exact "
+                             f"(max abs err {err})")
+                phase("check", f"{form} {label} {shape}: bit-exact")
+            else:
+                res["bf16_err"] = max(res["bf16_err"], check(
+                    torch, f"{form} {label} {shape}", got, want))
+        if label != "int8 k=4":
+            key = label
+            res[key] = (
+                time_ms(torch, lambda: hk.xengine_gram_stacked_tri(zr, zi)),
+                time_ms(torch, lambda: hk.xengine_gram_stacked_tri_plain(
+                    zr, zi), reps=3, warmup=1))
+            phase("time", f"xengine_gram_stacked_tri {label} {shape}: kernel "
+                          f"{res[key][0]:.4f} ms, plain {res[key][1]:.4f} ms")
+        del zr, zi, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def flat_fx_phase(torch, hk, gen, dev, taps) -> tuple[int, float]:
+    """The flat-layout entry of the fused kernel over 3 chained frames,
+    the history carried as the last W·m − 1 samples; (launches, max err)."""
+    hl = taps.shape[0] * M - 1
+    comps = [torch.randn((2 * A, N_FULL), generator=gen, device=dev)
+             for _ in range(STEPS)]
+    hist0 = torch.randn((2 * A, hl), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    hist, outs = hist0, []
+    for c in comps:
+        outs.append(hk.fx_correlate_streams(c, hist, taps, A, M))
+        hist = c[:, -hl:].contiguous()
+    torch.cuda.synchronize()
+    launches = hk.fx_correlate_streams.launches
+    phase("flat", f"fx_correlate_streams {2 * A}x{N_FULL}, hist {hl}, "
+                  f"{STEPS} chained frames; launches {launches}")
+    if launches < 1:
+        fail("fx_correlate_streams was not launched on its path")
+    worst, hist = 0.0, hist0
+    for k, c in enumerate(comps):
+        want = hk.fx_correlate_streams_plain(c, hist, taps, A, M)
+        worst = max(worst, check(torch, f"flat step {k}", outs[k], want))
+        hist = c[:, -hl:]
+    return launches, worst
+
+
+def xengine_phase(torch, hk, gen, dev) -> dict:
+    """The X-Engine flowgraph at full width, counted and checked, then
+    timed per integration."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import xengine as X
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    xe = blocks.XEngine(data_type=5, polarization=XE_P, num_inputs=XE_S,
+                        num_channels=XE_F, integration=XE_T,
+                        pipeline_integration=2, planar=True)
+    g = Flowgraph()
+    for s in range(XE_S):
+        g.external_input(xe, s)
+    r = g.compile(xe.quantum, device=dev)
+    msgs = []
+    r.on_message("xengine.xcorr", msgs.append)
+    feeds = [[torch.randint(-128, 128, (xe.quantum,), generator=gen,
+                            device=dev, dtype=torch.int8)
+              for _ in range(XE_S)] for _ in range(XE_STEPS)]
+    torch.cuda.synchronize()
+
+    hk.reset_launch_counts()
+    for fr in feeds:
+        r.step(*fr)
+    torch.cuda.synchronize()
+    launches = hk.gram_launches()
+    phase("xengine", f"Flowgraph/XEngine S={XE_S} P={XE_P} F={XE_F} "
+                     f"T={XE_T} IChar, {XE_STEPS} integrations, "
+                     f"pipeline_integration=2; launches {launches}")
+    if launches < 1:
+        fail("the Gram kernel was not launched on the X-Engine path")
+
+    def marshal(fr):
+        """IChar bytes [S][T·F·P·2] → channel-major int8 (zr, zi)."""
+        raw = torch.stack(fr).view(XE_S, XE_T, XE_F, XE_P, 2)
+        return tuple(raw[..., c].permute(2, 1, 0, 3).reshape(XE_F, XE_T, -1)
+                     for c in (0, 1))
+
+    plain = [X.xengine_correlate_stacked(*marshal(fr), npol=XE_P,
+                                         scale=1.0 / 127.0 ** 2,
+                                         use_kernel=False) for fr in feeds]
+    if [bool(m["valid"]) for m in msgs] != [False, True, False]:
+        fail(f"emission flags {[m['valid'] for m in msgs]}")
+    out = msgs[1]["matrix"]
+    nb = XE_S * (XE_S + 1) // 2
+    if tuple(out.re.shape) != (XE_F, nb, XE_P * XE_P):
+        fail(f"matrix shape {tuple(out.re.shape)}")
+    want = (plain[0].re + plain[1].re, plain[0].im + plain[1].im)
+    if not (torch.equal(out.re, want[0]) and torch.equal(out.im, want[1])):
+        err = float(max((out.re - want[0]).abs().max(),
+                        (out.im - want[1]).abs().max()))
+        fail(f"X-Engine emission differs from the plain engine ({err})")
+    if not bool(torch.isfinite(out.re).all() and torch.isfinite(out.im).all()):
+        fail("X-Engine emission is not finite")
+    for k in (0, 2):
+        if msgs[k]["matrix"].re.any() or msgs[k]["matrix"].im.any():
+            fail(f"integration {k}: held-back output is not zero")
+    st = r.states[0]
+    if not (st.count == 1 and torch.equal(st.accum.re, plain[2].re)
+            and torch.equal(st.accum.im, plain[2].im)):
+        fail("the third integration is not the carried accumulator")
+    phase("check", f"X-Engine [{XE_F}, {nb}, {XE_P * XE_P}] emission = plain "
+                   f"engine over the same two integrations, bit-exact; "
+                   f"third integration carried")
+
+    # device step: feeds already on the card, one integration per call
+    step_ms = time_ms(torch, lambda: r.step(*feeds[0]), reps=6, warmup=2)
+    # host to product: numpy bytes in, the emitted matrix back on the host
+    host = [[f.cpu().numpy() for f in fr] for fr in feeds[:2]]
+    products = []
+
+    def fetch(m):
+        if m["valid"]:
+            products.append((m["matrix"].re.cpu(), m["matrix"].im.cpu()))
+
+    r.reset()
+    r.on_message("xengine.xcorr", fetch)
+    n = 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
+        r.step(*host[k % 2])
+    torch.cuda.synchronize()
+    h2p_ms = (time.perf_counter() - t0) / n * 1e3
+    if len(products) != n // 2:
+        fail(f"{len(products)} products from {n} host integrations")
+    if not (torch.equal(products[0][0], out.re.cpu())
+            and torch.equal(products[0][1], out.im.cpu())):
+        fail("the host-fed run differs from the device-fed one")
+    in_mb = XE_S * xe.quantum / 2 ** 20
+    phase("xengine", f"device step {step_ms:.4f} ms per integration "
+                     f"({XE_S * XE_T * XE_F / step_ms / 1e3:.1f} MSPS in all);"
+                     f" host-to-product {h2p_ms:.2f} ms per integration "
+                     f"({in_mb:.0f} MiB of bytes in)")
+    return {"launches": launches, "step_ms": step_ms, "h2p_ms": h2p_ms}
 
 
 def main() -> None:
@@ -192,6 +374,23 @@ def main() -> None:
                         y, hrt, A, M)))
     phase("time", f"pfb_packed: kernel {times['pfb'][0]:.3f} ms, plain "
                   f"{times['pfb'][1]:.3f} ms")
+    del y, hrt, got, comps
+    hl = taps.shape[0] * M - 1
+    comps = torch.randn((2 * A, N_FULL), generator=gen, device=dev)
+    hist = torch.randn((2 * A, hl), generator=gen, device=dev)
+    got = hk.fx_correlate_streams(comps, hist, taps, A, M)
+    torch.cuda.synchronize()
+    errs["fx1"] = check(torch, f"fx_correlate_streams [{2 * A}x{N_FULL}, "
+                               f"hist {hl}]", got,
+                        hk.fx_correlate_streams_plain(comps, hist, taps, A, M))
+    times["fx1"] = (
+        time_ms(torch, lambda: hk.fx_correlate_streams(comps, hist, taps, A, M)),
+        time_ms(torch, lambda: hk.fx_correlate_streams_plain(
+            comps, hist, taps, A, M), reps=3, warmup=1))
+    phase("time", f"fx_correlate_streams: kernel {times['fx1'][0]:.3f} ms, "
+                  f"plain {times['fx1'][1]:.3f} ms")
+    del comps, hist, got
+    gram_res = gram_phase(torch, hk, gen, dev)
 
     # 4. the main path, counted
     runs = {}
@@ -334,6 +533,16 @@ def main() -> None:
                     f"{N_FULL / step_ms / 1e3:.1f} MSPS per antenna; fused "
                     f"kernel {times['fx f32'][0]:.3f} ms, plain "
                     f"{times['fx f32'][1]:.3f} ms")
+    del ing, fetched, host, dr, di, pin, src
+    torch.cuda.empty_cache()
+
+    # 6. the flat-layout FX path, counted
+    flat_launches, errs["fx1 path"] = flat_fx_phase(torch, hk, gen, dev, taps)
+    torch.cuda.empty_cache()
+
+    # 7. the X-Engine path, counted
+    xe = xengine_phase(torch, hk, gen, dev)
+    phase("xengine", f"on {card}")
     print(card, flush=True)
 
     record = {"kernels": [
@@ -347,9 +556,25 @@ def main() -> None:
          "replaces": "clenabled_tpu/dsp/pallas_kernels.py:1654",
          "launches": launches["pfb"], "max_abs_err": errs["pfb"],
          "ms": times["pfb"][0], "plain_ms": times["pfb"][1]},
+        {"name": "fx_correlate_streams", "route": "cuda",
+         "source": "clenabled_tpu_torch/csrc/fx_correlate.cu",
+         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:817",
+         "launches": flat_launches,
+         "max_abs_err": max(errs["fx1"], errs["fx1 path"]),
+         "ms": times["fx1"][0], "plain_ms": times["fx1"][1]},
+        {"name": "xengine_gram_stacked", "route": "cuda",
+         "source": "clenabled_tpu_torch/csrc/xengine_gram.cu",
+         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:2068",
+         "launches": xe["launches"], "max_abs_err": 0.0,
+         "ms": gram_res["int8"][0], "plain_ms": gram_res["int8"][1]},
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
-        "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1]}
+        "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
+        "gram_bf16_ms": gram_res["bf16"][0],
+        "gram_bf16_plain_ms": gram_res["bf16"][1],
+        "gram_bf16_max_abs_err": gram_res["bf16_err"],
+        "xengine_step_ms": xe["step_ms"],
+        "xengine_host_to_product_ms": xe["h2p_ms"]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

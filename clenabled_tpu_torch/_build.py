@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ctypes: each C function takes device
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` (all started together)
+and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes: each C function takes device
 pointers, sizes and a stream, launches on that stream and returns
 ``cudaGetLastError()``.  The library is built at first use into
 ``clenabled_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "clen_fx_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "clen_pfb_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "clen_pfb_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "clen_xengine_gram": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -69,6 +71,17 @@ def _nvcc() -> str:
                        "CUDA_HOME")
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands concurrently; wait for every one of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    done = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        done.append(subprocess.CompletedProcess(cmd, p.returncode, out, err))
+    return done
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
@@ -78,19 +91,32 @@ def build(verbose: bool = False) -> Path:
         last_build.update(path=str(path), built=False, seconds=0.0, log="")
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    srcs = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    extra = ("-Xptxas", "-v") if verbose else ()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        done = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(srcs, objs)])
+        if all(p.returncode == 0 for p in done):
+            done += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)]])
+        for proc in done:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(proc.args)}"
+                    f"\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    last_build.update(path=str(path), built=True, seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
+    last_build.update(path=str(path), built=True,
+                      seconds=time.perf_counter() - t0,
+                      log="".join(p.stdout + p.stderr for p in done))
     return path
 
 

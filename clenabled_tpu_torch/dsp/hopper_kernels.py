@@ -1,28 +1,36 @@
-"""Hand-written Hopper kernels of the FX receive step, with their plain forms.
+"""Hand-written Hopper kernels, with their plain forms.
 
-The counterpart of ``clenabled_tpu.dsp.pallas_kernels`` for the two kernels
-on the port's main path:
+The counterpart of ``clenabled_tpu.dsp.pallas_kernels`` for the kernels
+ported so far:
 
 - ``fx_correlate_streams_v2`` (``csrc/fx_correlate.cu``): the fused step —
   critically sampled PFB, M-point inverse DFT, FD cross-correlation
   magnitude sums and X-Engine Gram sums, reading each input sample once.
+  ``fx_correlate_streams`` is the same kernel fed the JAX function's
+  history-concatenated flat layout.
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
   branch sums plus per-group inverse DFT of the planar pipeline.
+- ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
+  (``csrc/xengine_gram.cu``): the X-Engine's per-channel stacked Gram,
+  lower block-triangle only, int8 exact.
 
 Each wrapper keeps the JAX function's argument order, shapes and outputs.
-Given CPU tensors it runs its plain torch form (``*_plain``, built from the
-channelizer's branch sums and ``planar.ifft_unscaled``); given CUDA tensors
+Given CPU tensors it runs its plain torch form (``*_plain``: the
+channelizer's branch sums and ``planar.ifft_unscaled`` for the FX kernels,
+batched products for the Gram); given CUDA tensors
 it launches its kernel or raises — it never falls back.  Each wrapper
 counts its kernel launches in its ``launches`` attribute.
 
 The TPU engine selectors of the JAX functions (``tile_rows``/``tile``,
-``mxu_dtype``, ``branch_mxu``, ``karatsuba``, ``deep_strategy``,
-``precision``, ``interpret``) have no counterpart: the kernels pick their
-own tiles and always multiply and accumulate in float32.
+``t_tile``, ``mxu_dtype``, ``branch_mxu``, ``karatsuba``,
+``deep_strategy``, ``precision``, ``interpret``) have no counterpart: the
+kernels pick their own tiles; the FX kernels multiply and accumulate in
+float32, the Gram kernel in int32 (int8) or float32 (bfloat16).
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -163,6 +171,36 @@ def _check_fx(xr, xi, tail_r, tail_i, taps, a: int, m: int):
     return w, n, h
 
 
+def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
+               xe_pairs):
+    """Launch ``csrc/fx_correlate.cu`` on CUDA tensors; (fd_sum, gram)."""
+    dev = xr.device
+    taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
+    taps = taps.contiguous()
+    _require_cuda(xr, xi, tail_r, tail_i, taps)
+    w, n, h = _check_fx(xr, xi, tail_r, tail_i, taps, a, m)
+    fd, xe = _default_pairs(fd_pairs, xe_pairs, a)
+    nfd, nb = len(fd), len(xe)
+    fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
+    xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
+    tile = max(1, 512 // m)             # output vectors per block
+    nblk = -(-(n // m) // tile)
+    width = nfd * m + 2 * nb * m
+    partial = torch.empty((nblk, width), dtype=torch.float32, device=dev)
+    out = torch.empty(width, dtype=torch.float32, device=dev)
+    lib = _load()
+    err = lib.clen_fx_correlate(
+        xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
+        _DTYPE_CODE[xr.dtype], taps.data_ptr(), _twiddles(m, dev).data_ptr(),
+        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile,
+        partial.data_ptr(), out.data_ptr(), _stream(dev))
+    if err != 0:
+        smem = lib.clen_fx_smem_bytes(a, m, w, tile)
+        raise RuntimeError(f"fx_correlate launch failed: CUDA error {err} "
+                           f"({smem} B of shared memory per block)")
+    return out[: nfd * m].view(nfd, m), out[nfd * m:].view(nb, 2 * m)
+
+
 def fx_correlate_streams_v2_plain(xr, xi, tail_r, tail_i, taps_rm,
                                   num_antennas: int, m: int, *,
                                   fd_pairs=None, xe_pairs=None):
@@ -213,36 +251,67 @@ def fx_correlate_streams_v2(xr, xi, tail_r, tail_i, taps_rm,
         return fx_correlate_streams_v2_plain(
             xr, xi, tail_r, tail_i, taps_rm, num_antennas, m,
             fd_pairs=fd_pairs, xe_pairs=xe_pairs)
-    a = num_antennas
-    dev = xr.device
-    taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
-    taps = taps.contiguous()
-    _require_cuda(xr, xi, tail_r, tail_i, taps)
-    w, n, h = _check_fx(xr, xi, tail_r, tail_i, taps, a, m)
-    fd, xe = _default_pairs(fd_pairs, xe_pairs, a)
-    nfd, nb = len(fd), len(xe)
-    fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
-    xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
-    tile = max(1, 512 // m)             # output vectors per block
-    nblk = -(-(n // m) // tile)
-    width = nfd * m + 2 * nb * m
-    partial = torch.empty((nblk, width), dtype=torch.float32, device=dev)
-    out = torch.empty(width, dtype=torch.float32, device=dev)
-    lib = _load()
-    err = lib.clen_fx_correlate(
-        xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
-        _DTYPE_CODE[xr.dtype], taps.data_ptr(), _twiddles(m, dev).data_ptr(),
-        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile,
-        partial.data_ptr(), out.data_ptr(), _stream(dev))
-    if err != 0:
-        smem = lib.clen_fx_smem_bytes(a, m, w, tile)
-        raise RuntimeError(f"fx_correlate launch failed: CUDA error {err} "
-                           f"({smem} B of shared memory per block)")
+    out = _launch_fx(xr, xi, tail_r, tail_i, taps_rm, num_antennas, m,
+                     fd_pairs, xe_pairs)
     fx_correlate_streams_v2.launches += 1
-    return out[: nfd * m].view(nfd, m), out[nfd * m:].view(nb, 2 * m)
+    return out
 
 
 fx_correlate_streams_v2.launches = 0
+
+
+def _split_flat(comps, hist, a: int, m: int, w: int, tile_rows: int):
+    """The flat layout's argument checks (those of the JAX function), then
+    its [2A, ·] arrays as the (re, im) row halves of the v2 layout."""
+    n = comps.shape[-1]
+    if comps.shape[0] != 2 * a:
+        raise ValueError(f"expected {2 * a} component streams")
+    if tuple(hist.shape) != (2 * a, w * m - 1):
+        raise ValueError(f"hist shape {tuple(hist.shape)} != "
+                         f"{(2 * a, w * m - 1)}")
+    if n % (LANES * tile_rows):
+        raise ValueError(
+            f"frame length {n} must be a multiple of {LANES * tile_rows}")
+    return comps[:a], comps[a:], hist[:a], hist[a:]
+
+
+def fx_correlate_streams_plain(comps, hist, taps_rm, num_antennas: int,
+                               m: int, tile_rows: int = 64, *, fd_pairs=None,
+                               xe_pairs=None):
+    """Plain torch form of ``fx_correlate_streams`` (any device)."""
+    parts = _split_flat(comps, hist, num_antennas, m, len(taps_rm), tile_rows)
+    return fx_correlate_streams_v2_plain(*parts, taps_rm, num_antennas, m,
+                                         fd_pairs=fd_pairs, xe_pairs=xe_pairs)
+
+
+def fx_correlate_streams(comps, hist, taps_rm, num_antennas: int, m: int,
+                         tile_rows: int = 64, *, fd_pairs=None,
+                         xe_pairs=None):
+    """The flat-layout entry of the fused FX step: the same kernel
+    (``csrc/fx_correlate.cu``) as ``fx_correlate_streams_v2``, fed the
+    history-concatenated layout of the JAX function of this name.
+
+    Args:
+      comps: [2A, n] float32 — this frame's samples, stream re parts then
+        im parts.  n must be a multiple of 128·tile_rows (``tile_rows`` is
+        kept only for this check, which the JAX function makes).
+      hist: [2A, W·m − 1] — the carried stream history.
+      taps_rm, fd_pairs, xe_pairs: as for ``fx_correlate_streams_v2``.
+
+    Returns (fd_sum [len(fd_pairs), m], gram [len(xe_pairs), 2m]) over the
+    n/m output vectors of hist ++ comps: the v2 step with a tail of exactly
+    the tap reach, so its outputs do not lag the frame."""
+    if comps.device.type == "cpu":
+        return fx_correlate_streams_plain(comps, hist, taps_rm, num_antennas,
+                                          m, tile_rows, fd_pairs=fd_pairs,
+                                          xe_pairs=xe_pairs)
+    parts = _split_flat(comps, hist, num_antennas, m, len(taps_rm), tile_rows)
+    out = _launch_fx(*parts, taps_rm, num_antennas, m, fd_pairs, xe_pairs)
+    fx_correlate_streams.launches += 1
+    return out
+
+
+fx_correlate_streams.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -308,9 +377,196 @@ def pfb_channelize_packed(y_packed, hr, num_antennas: int, m: int):
 pfb_channelize_packed.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Kernel 4: the X-Engine stacked Gram
+# --------------------------------------------------------------------------
+
+_GRAM_DTYPES = {torch.int8: 0, torch.bfloat16: 1}
+
+
+def _check_gram(zr, zi):
+    """The JAX launcher's checks; returns (f, t, sp, kb, tri_blocks)."""
+    if zr.dim() != 3 or zi.shape != zr.shape:
+        raise ValueError("zr/zi must be [F, T, S·P] of one shape")
+    f, t, sp = zr.shape
+    if sp % LANES:
+        raise ValueError(f"S·P must be a multiple of {LANES} (got {sp})")
+    if zr.dtype != zi.dtype:
+        raise ValueError("zr/zi dtypes must match")
+    sub = 32 if zr.dtype == torch.int8 else 16
+    if t < sub or t % sub:
+        raise ValueError(f"T={t} not tileable at {zr.dtype} granularity")
+    kb = sp // LANES
+    return f, t, sp, kb, tuple((i, j) for i in range(kb) for j in range(i + 1))
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """float32 matmuls without TF32 on the card, restored afterwards."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def gram_products(zr, zi):
+    """(a, b) = (zr·zrᵀ + zi·ziᵀ, zi·zrᵀ) per channel over T, [F, SP, SP]:
+    int32 for integer inputs, else float32 — the plain form of the Gram.
+    Integer sums are exact: int64 on the CPU; float64 on the card (exact
+    below 2^53), which has no integer batched matmul.  Float inputs are
+    multiplied in float32 (bf16 products are exact there) without TF32."""
+    integer = not zr.dtype.is_floating_point
+    if integer:
+        wt = torch.int64 if zr.device.type == "cpu" else torch.float64
+    else:
+        wt = torch.float32
+    r, i = zr.to(wt), zi.to(wt)
+    with _full_f32():
+        a = (torch.einsum("ftk,ftl->fkl", r, r)
+             + torch.einsum("ftk,ftl->fkl", i, i))
+        b = torch.einsum("ftk,ftl->fkl", i, r)
+    out = torch.int32 if integer else torch.float32
+    return a.to(out), b.to(out)
+
+
+def _to_blocks(g, kb: int) -> torch.Tensor:
+    """[F, SP, SP] → [F, kb, kb, 128, 128] with g[bi·128+r, bj·128+c] =
+    blocks[bi, bj, r, c]."""
+    f = g.shape[0]
+    return g.reshape(f, kb, LANES, kb, LANES).transpose(2, 3)
+
+
+def _lower(blocks, tri) -> torch.Tensor:
+    """The tri_blocks-order lower blocks [F, nbt, 128, 128]."""
+    i = torch.as_tensor([ij[0] for ij in tri], device=blocks.device)
+    j = torch.as_tensor([ij[1] for ij in tri], device=blocks.device)
+    return blocks[:, i, j]
+
+
+def xengine_gram_stacked_blocks_plain(zr, zi):
+    """Plain torch form of ``xengine_gram_stacked_blocks`` (any device)."""
+    *_, kb, tri = _check_gram(zr, zi)
+    a, b = gram_products(zr, zi)
+    return (_lower(_to_blocks(a, kb), tri),
+            _to_blocks(b, kb).contiguous(), tri)
+
+
+def xengine_gram_stacked_tri_plain(zr, zi):
+    """Plain torch form of ``xengine_gram_stacked_tri`` (any device)."""
+    *_, kb, tri = _check_gram(zr, zi)
+    a, b = gram_products(zr, zi)
+    gi = b - b.transpose(-1, -2)
+    return (_lower(_to_blocks(a, kb), tri), _lower(_to_blocks(gi, kb), tri),
+            tri)
+
+
+def xengine_gram_stacked_plain(zr, zi):
+    """Plain torch form of ``xengine_gram_stacked`` (any device)."""
+    _check_gram(zr, zi)
+    return gram_products(zr, zi)
+
+
+def _launch_gram(zr, zi, emit_gi: bool):
+    """Launch ``csrc/xengine_gram.cu``; (a_blk, b_blk or gi_blk, tri)."""
+    _require_cuda(zr, zi)
+    f, t, sp, kb, tri = _check_gram(zr, zi)
+    if zr.dtype not in _GRAM_DTYPES:
+        raise ValueError(f"the Gram kernel takes int8 or bfloat16, not "
+                         f"{zr.dtype}")
+    if f > 65535:
+        raise ValueError(f"at most 65535 channels per launch (got {f})")
+    if zr.data_ptr() % 16 or zi.data_ptr() % 16:
+        raise ValueError("zr/zi must start on a 16-byte boundary")
+    dev = zr.device
+    acc = torch.int32 if zr.dtype == torch.int8 else torch.float32
+    nbt = len(tri)
+    a_blk = torch.empty((f, nbt, LANES, LANES), dtype=acc, device=dev)
+    b_shape = (f, nbt) if emit_gi else (f, kb, kb)
+    b_blk = torch.empty(b_shape + (LANES, LANES), dtype=acc, device=dev)
+    err = _load().clen_xengine_gram(
+        zr.data_ptr(), zi.data_ptr(), _GRAM_DTYPES[zr.dtype], f, t, sp,
+        int(emit_gi), a_blk.data_ptr(), b_blk.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"xengine_gram launch failed: CUDA error {err}")
+    return a_blk, b_blk, tri
+
+
+def xengine_gram_stacked_blocks(zr, zi):
+    """The block layout of the stacked Gram (``csrc/xengine_gram.cu`` on
+    CUDA): (a_blk [F, nbt, 128, 128], b_blk [F, kb, kb, 128, 128],
+    tri_blocks).  a_blk holds the lower-triangle (i ≥ j) blocks of
+    a = zr·zrᵀ + zi·ziᵀ in tri_blocks order; b = zi·zrᵀ is the full block
+    grid, b[bi·128+r, bj·128+c] = b_blk[bi, bj, r, c]."""
+    if zr.device.type == "cpu":
+        return xengine_gram_stacked_blocks_plain(zr, zi)
+    out = _launch_gram(zr, zi, emit_gi=False)
+    xengine_gram_stacked_blocks.launches += 1
+    return out
+
+
+xengine_gram_stacked_blocks.launches = 0
+
+
+def xengine_gram_stacked_tri(zr, zi):
+    """The triangular-consumer form (``csrc/xengine_gram.cu`` on CUDA):
+    (a_blk [F, nbt, 128, 128], gi_blk [F, nbt, 128, 128], tri_blocks),
+    gi_blk holding the lower-triangle blocks of gi = b − bᵀ."""
+    if zr.device.type == "cpu":
+        return xengine_gram_stacked_tri_plain(zr, zi)
+    out = _launch_gram(zr, zi, emit_gi=True)
+    xengine_gram_stacked_tri.launches += 1
+    return out
+
+
+xengine_gram_stacked_tri.launches = 0
+
+
+def xengine_gram_stacked(zr, zi):
+    """Stacked-Gram X-Engine contraction (``csrc/xengine_gram.cu`` on CUDA).
+
+    Args:
+      zr, zi: [F, T, S·P] int8 or bfloat16 channel-major spectra, S·P a
+        multiple of 128, T a multiple of 32 (int8) or 16 (bfloat16).
+
+    Returns (a, b): a = zr·zrᵀ + zi·ziᵀ and b = zi·zrᵀ, each [F, S·P, S·P]
+    (int32 for int8 inputs — exact — else float32).  The Gram's re/im
+    parts are gr = a, gi = b − bᵀ.  The kernel forms only the lower
+    block-triangle of a; the upper blocks are its mirror."""
+    if zr.device.type == "cpu":
+        return xengine_gram_stacked_plain(zr, zi)
+    a_blk, b_blk, tri = _launch_gram(zr, zi, emit_gi=False)
+    xengine_gram_stacked.launches += 1
+    f, _, sp = zr.shape
+    kb = sp // LANES
+    b = b_blk.transpose(2, 3).reshape(f, sp, sp)
+    if kb == 1:
+        return a_blk[:, 0], b
+    idx = {ij: n for n, ij in enumerate(tri)}
+    rows = [torch.cat([a_blk[:, idx[(i, j)]] if j <= i
+                       else a_blk[:, idx[(j, i)]].transpose(-1, -2)
+                       for j in range(kb)], dim=-1) for i in range(kb)]
+    return torch.cat(rows, dim=-2), b
+
+
+xengine_gram_stacked.launches = 0
+
+
+def gram_launches() -> int:
+    """Launches of the Gram kernel through any of its three wrappers."""
+    return (xengine_gram_stacked.launches
+            + xengine_gram_stacked_blocks.launches
+            + xengine_gram_stacked_tri.launches)
+
+
 def reset_launch_counts() -> None:
     fx_correlate_streams_v2.launches = 0
+    fx_correlate_streams.launches = 0
     pfb_channelize_packed.launches = 0
+    xengine_gram_stacked.launches = 0
+    xengine_gram_stacked_blocks.launches = 0
+    xengine_gram_stacked_tri.launches = 0
 
 
 def _load():

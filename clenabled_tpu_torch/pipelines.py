@@ -244,6 +244,17 @@ def carry_from_reference(tail_r, tail_i, dtype=None, device="cpu"):
             _tensor_from_reference(tail_i, dtype, device))
 
 
+def xengine_state_from_reference(accum_re, accum_im, count, device="cpu"):
+    """A JAX ``XEngineState`` of the planar / channel-major X-Engine
+    (its accumulator's re and im parts and its count, as numpy arrays) as
+    the port's, so an integration begun in the JAX package continues in
+    the port."""
+    accum = planar.PC(_tensor_from_reference(accum_re, torch.float32, device),
+                      _tensor_from_reference(accum_im, torch.float32, device))
+    return dsp_xengine.XEngineState(accum=accum,
+                                    count=int(np.asarray(count)))
+
+
 def taps_from_reference(taps_rm) -> torch.Tensor:
     """The JAX package's branch-major taps [W, m] as a float32 tensor."""
     return torch.from_numpy(np.array(taps_rm, np.float32))

@@ -238,7 +238,10 @@ def test_port_imports_no_jax():
     mods = ["clenabled_tpu_torch", "clenabled_tpu_torch.pipelines",
             "clenabled_tpu_torch.streaming.ingest",
             "clenabled_tpu_torch.runtime.device", "clenabled_tpu_torch._build",
-            "clenabled_tpu_torch.dsp.hopper_kernels"]
+            "clenabled_tpu_torch.dsp.hopper_kernels",
+            "clenabled_tpu_torch.dsp.xengine", "clenabled_tpu_torch.blocks",
+            "clenabled_tpu_torch.streaming.graph",
+            "clenabled_tpu_torch.tools.test_clxengine"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' "

@@ -1,4 +1,5 @@
-"""Port parity: the two Hopper kernels of the FX step.
+"""Port parity: the two Hopper kernels of the FX step (B.1 with its flat
+entry B.1b, and B.2).
 
 On the CPU each wrapper runs its plain torch form, which is held to the
 JAX package's Pallas kernel run in interpret mode with float32 MXU
@@ -194,3 +195,68 @@ def test_pfb_packed_kernel_matches_plain_on_card(card):
     torch.cuda.synchronize()
     assert hk.pfb_channelize_packed.launches == before + 1
     close(got, hk.pfb_channelize_packed_plain(y, hr, a, m), REL_CARD)
+
+
+# (id, fd_pairs, xe_pairs) for the flat-layout entry (B.1b)
+FLAT_CASES = [("default", None, None),
+              ("pairs", [(0, 3)], [(0, 1), (2, 3), (1, 1)])]
+
+
+def _flat_inputs(n, seed, a=4, m=16):
+    taps_rm, ntaps = _taps(m)
+    rng = np.random.default_rng(seed)
+    comps = rng.standard_normal((2 * a, n)).astype(np.float32)
+    hist = rng.standard_normal((2 * a, ntaps - 1)).astype(np.float32)
+    return comps, hist, taps_rm, a, m
+
+
+@pytest.mark.parametrize("case", FLAT_CASES, ids=[c[0] for c in FLAT_CASES])
+def test_fx_flat_entry_matches_jax(ref, case):
+    """fx_correlate_streams: the JAX kernel in interpret mode against the
+    port's wrapper on the CPU, which is the v2 plain form fed the row
+    halves of the flat layout."""
+    _, fdp, xep = case
+    comps, hist, taps_rm, a, m = _flat_inputs(512 * 16, seed=7)
+    want = j_pk.fx_correlate_streams(comps, hist, taps_rm, a, m, tile_rows=8,
+                                     interpret=True, fd_pairs=fdp,
+                                     xe_pairs=xep)
+    hk.reset_launch_counts()
+    c, h = torch.from_numpy(comps), torch.from_numpy(hist)
+    got = hk.fx_correlate_streams(c, h, taps_rm, a, m, tile_rows=8,
+                                  fd_pairs=fdp, xe_pairs=xep)
+    assert hk.fx_correlate_streams.launches == 0
+    plain = hk.fx_correlate_streams_v2_plain(c[:a], c[a:], h[:a], h[a:],
+                                             taps_rm, a, m, fd_pairs=fdp,
+                                             xe_pairs=xep)
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p)
+        close(g, w, REL_CPU)
+
+
+def test_fx_flat_entry_checks():
+    comps, hist, taps_rm, a, m = _flat_inputs(1024, seed=8)
+    c, h = torch.from_numpy(comps), torch.from_numpy(hist)
+    with pytest.raises(ValueError, match="component streams"):
+        hk.fx_correlate_streams(c[:a], h, taps_rm, a, m, tile_rows=8)
+    with pytest.raises(ValueError, match="hist shape"):
+        hk.fx_correlate_streams(c, h[:, 1:], taps_rm, a, m, tile_rows=8)
+    with pytest.raises(ValueError, match="multiple of 8192"):
+        hk.fx_correlate_streams(c, h, taps_rm, a, m)     # tile_rows=64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLAT_CASES, ids=[c[0] for c in FLAT_CASES])
+def test_fx_flat_entry_kernel_matches_plain_on_card(card, case):
+    _, fdp, xep = case
+    comps, hist, taps_rm, a, m = _flat_inputs(1 << 16, seed=9)
+    c, h = torch.from_numpy(comps).to(card), torch.from_numpy(hist).to(card)
+    taps = torch.from_numpy(taps_rm).to(card)
+    before = hk.fx_correlate_streams.launches
+    got = hk.fx_correlate_streams(c, h, taps, a, m, fd_pairs=fdp,
+                                  xe_pairs=xep)
+    torch.cuda.synchronize()
+    assert hk.fx_correlate_streams.launches == before + 1
+    want = hk.fx_correlate_streams_plain(c, h, taps, a, m, fd_pairs=fdp,
+                                         xe_pairs=xep)
+    for g, w in zip(got, want):
+        close(g, w, REL_CARD)
