@@ -1,5 +1,5 @@
-"""Drive the PyTorch / CUDA port's FX receive step and X-Engine path once
-on one NVIDIA H100.
+"""Drive the PyTorch / CUDA port's FX receive step, X-Engine path and FM
+receive path once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -34,6 +34,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    the same two integrations bit for bit, and the third integration must
    sit in the accumulator.  Device step time and host-to-product time
    per integration.
+8. FM kernels — the direct FIR (B.7: 241 and 1601 taps, decimation
+   1 and 4, both planar components in one launch), the overlap-save
+   filter (B.6: 49, 241 and 1601 taps, and a frame of exactly one
+   quantum) and the quadrature demodulator (B.8: 2^21 samples and an
+   odd length) against their plain forms
+   at 2^21 samples, tolerance 1e-4 × max|plain|, with kernel and plain
+   times.
+9. FM paths — counts reset, then a ``Flowgraph`` of
+   ``LowPassFilter(1, 1.0, 10e6, 1.5e6, 500e3, planar=True)`` (49 taps,
+   the ``examples/streaming_ingest.py`` configuration) → ``QuadratureDemod
+   (1.0, planar=True)`` driven for 8 frames of 2^21 samples, once in the
+   time domain (the FIR kernel) and once in the frequency domain (the
+   overlap-save kernel), with ``Runner.set_taps`` to new 49-tap taps
+   after frame 4; counts read (one filter and one demod launch per frame).
+   The filtered stream and the carried states are held to the same chain
+   on the plain forms on the card, retune included, within 1e-4 ×
+   max|plain|; the audio to the plain demodulator of the path's own
+   filtered stream (an angle's error is the filter's over the sample's
+   magnitude, so the stages are held apart).  Per frame: the step on
+   CUDA events, the device's busy time from ``torch.profiler`` and the
+   wall time, in MSPS.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -55,6 +76,8 @@ INGEST_FRAMES = 8
 # the X-Engine's reference configuration: stations, pols, channels, frames
 XE_S, XE_P, XE_F, XE_T = 64, 2, 256, 8192
 XE_STEPS = 3
+# the FM receive path: BENCH_TPU's block-layer frame, 8 chained frames
+FM_N, FM_FRAMES, FM_RETUNE_AT = 1 << 21, 8, 4
 DEVICE = ("cuda", 0)
 
 
@@ -276,6 +299,206 @@ def xengine_phase(torch, hk, gen, dev) -> dict:
                      f" host-to-product {h2p_ms:.2f} ms per integration "
                      f"({in_mb:.0f} MiB of bytes in)")
     return {"launches": launches, "step_ms": step_ms, "h2p_ms": h2p_ms}
+
+
+def fm_taps():
+    """(49-tap low-pass of the FM path, the retune's 49-tap low-pass,
+    test_clfilter's 241-tap RRC, a 1601-tap windowed sinc)."""
+    import numpy as np
+
+    from clenabled_tpu_torch.dsp import firdes
+
+    lpf = firdes.low_pass(1.0, 10e6, 1.5e6, 500e3)
+    retune = firdes.low_pass(1.0, 10e6, 1.0e6, 500e3)
+    rrc = firdes.root_raised_cosine(1.0, 10e6, 10e6 / (241 / 11 + 2), 0.22, 241)
+    deep = (np.sinc(np.linspace(-8, 8, 1601)) * np.hanning(1601)).astype(
+        np.float32)
+    if not (len(lpf) == len(retune) == 49 and len(rrc) == 241):
+        fail(f"FM tap designs have {len(lpf)}/{len(retune)}/{len(rrc)} taps")
+    return lpf, retune, rrc, deep
+
+
+def fm_times(torch, label: str, kernel, plain) -> tuple:
+    """(kernel, plain) device time per call from ``torch.profiler`` — the
+    launches' own time, which a host slower than the card hides from CUDA
+    events — and (kernel, plain) time per call on CUDA events around 10
+    back-to-back calls; the device times fall back to the event times
+    where the profiler records none."""
+    call = (time_ms(torch, kernel), time_ms(torch, plain))
+    busy = (device_busy_ms(torch, kernel, 10), device_busy_ms(torch, plain, 10))
+    dev = tuple(c if b is None else b for b, c in zip(busy, call))
+    shown = ("not measured" if b is None else f"{b:.4f} ms" for b in busy)
+    phase("time", f"{label}: device kernel {next(shown)}, plain "
+                  f"{next(shown)}; per call (events) kernel {call[0]:.4f} ms, "
+                  f"plain {call[1]:.4f} ms")
+    return dev + call
+
+
+def fm_kernel_phase(torch, hk, gen, dev) -> dict:
+    """B.6-B.8 against their plain forms at 2^21 samples; returns the
+    largest errors and the kernel and plain times."""
+    from clenabled_tpu_torch.dsp import planar
+
+    lpf, _, rrc, deep = fm_taps()
+    n = FM_N
+    x = torch.randn((2, n), generator=gen, device=dev)
+    pc = planar.PC(x[0], x[1])
+    res = {"fir": 0.0, "ofs": 0.0, "qd": 0.0}
+    for name, taps in (("49", lpf), ("241", rrc), ("1601", deep)):
+        t = torch.as_tensor(taps, device=dev)
+        h = torch.randn((2, len(taps) - 1), generator=gen, device=dev)
+        hist = planar.PC(h[0], h[1])
+        for d in ((1,) if name == "49" else (1, 4)):
+            got = hk.fir_direct(pc, t, decimation=d, history=hist)
+            torch.cuda.synchronize()
+            want = hk.fir_direct_plain(pc, t, decimation=d, history=hist)
+            res["fir"] = max(res["fir"], check(
+                torch, f"fir_direct {name} taps D={d} [2x{n}]", got, want))
+        res[f"fir {name}"] = fm_times(
+            torch, f"fir_direct {name} taps [2x{n}]",
+            lambda: hk.fir_direct(pc, t, history=hist),
+            lambda: hk.fir_direct_plain(pc, t, history=hist))
+
+        plan = hk.OfsPlan(taps)
+        tr, ti = torch.randn((2, plan.tail_len), generator=gen, device=dev)
+        sizes = (n, plan.quantum) if name == "49" else (n,)
+        for m in sizes:
+            for d in ((1,) if m != n or name == "49" else (1, 4)):
+                args = (x[0, :m], x[1, :m], tr, ti, plan)
+                got = hk.ofs_filter_planar(*args, decimation=d)
+                torch.cuda.synchronize()
+                want = hk.ofs_filter_planar_plain(*args, decimation=d)
+                res["ofs"] = max(res["ofs"], check(
+                    torch, f"ofs_filter_planar {name} taps D={d} [{m}], "
+                           f"P={plan.fft_size}", got, want))
+        args = (x[0], x[1], tr, ti, plan)
+        res[f"ofs {name}"] = fm_times(
+            torch, f"ofs_filter_planar {name} taps [{n}], P={plan.fft_size}",
+            lambda: hk.ofs_filter_planar(*args),
+            lambda: hk.ofs_filter_planar_plain(*args))
+
+    last = torch.randn((2, 1), generator=gen, device=dev)
+    for m in (n, 1_000_001):
+        args = (x[0, :m], x[1, :m], last[0], last[1], 1.0)
+        got = hk.qdemod_fused(*args)
+        torch.cuda.synchronize()
+        res["qd"] = max(res["qd"], check(
+            torch, f"qdemod_fused [{m}]", [got], [hk.qdemod_fused_plain(*args)]))
+    args = (x[0], x[1], last[0], last[1], 1.0)
+    res["qd time"] = fm_times(torch, f"qdemod_fused [{n}]",
+                              lambda: hk.qdemod_fused(*args),
+                              lambda: hk.qdemod_fused_plain(*args))
+    return res
+
+
+def device_busy_ms(torch, fn, steps: int) -> float | None:
+    """The device's busy time per call of ``fn`` (the sum of its kernels'
+    and copies' times), from ``torch.profiler``; None when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():        # device events: kernels, copies
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(evt, "self_device_time_total",
+                          getattr(evt, "self_cuda_time_total", 0.0))
+    return us / steps / 1e3 if us > 0 else None
+
+
+def fm_path_phase(torch, hk, gen, dev, use_time: bool) -> dict:
+    """The planar LowPass → QuadratureDemod flowgraph at 2^21-sample
+    frames, retuned mid-stream, counted, held to the same chain on the
+    plain forms, and timed."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    label = "TD" if use_time else "FD"
+    taps_a, taps_b, _, _ = fm_taps()
+    lpf = blocks.LowPassFilter(1, 1.0, 10e6, 1.5e6, 500e3, use_time=use_time,
+                               planar=True)
+    qd = blocks.QuadratureDemod(1.0, planar=True)
+    g = Flowgraph()
+    g.external_input(lpf)
+    g.connect(lpf, qd)
+    ty = g.tap(lpf, name="filtered")
+    ta = g.tap(qd, name="audio")
+    r = g.compile(FM_N, device=dev)
+    kind = "td" if use_time else "ofs"
+    if lpf._state_kind != kind:
+        fail(f"{label} LowPassFilter took the {lpf._state_kind} form")
+    feeds = [planar.PC(*torch.randn((2, FM_N), generator=gen, device=dev))
+             for _ in range(FM_FRAMES)]
+    torch.cuda.synchronize()
+
+    hk.reset_launch_counts()
+    outs = []
+    for k, f in enumerate(feeds):
+        if k == FM_RETUNE_AT:
+            r.set_taps(lpf, taps_b)
+        outs.append(r.step(f))
+    torch.cuda.synchronize()
+    filt = hk.fir_direct if use_time else hk.ofs_filter_planar
+    launches = {filt.__name__: filt.launches,
+                "qdemod_fused": hk.qdemod_fused.launches}
+    phase("fm", f"{label} Flowgraph LowPass(49 taps) -> QuadratureDemod, "
+                f"{FM_FRAMES} frames of {FM_N}, set_taps after frame "
+                f"{FM_RETUNE_AT}; launches {launches}")
+    if launches != {filt.__name__: FM_FRAMES, "qdemod_fused": FM_FRAMES}:
+        fail(f"{label}: expected one filter and one demod launch per frame")
+
+    # the same chain on the plain forms, state threaded by hand
+    taps = [torch.as_tensor(t, device=dev) for t in (taps_a, taps_b)]
+    plans = [hk.OfsPlan(t) for t in (taps_a, taps_b)]
+    keep = len(taps_a) - 1 if use_time else plans[0].tail_len
+    st = torch.zeros((2, keep), device=dev)
+    last = torch.zeros((2, 1), device=dev)         # the path's own
+    last_plain = last
+    worst = 0.0
+    for k, (f, o) in enumerate(zip(feeds, outs)):
+        new = int(k >= FM_RETUNE_AT)
+        if use_time:
+            y = hk.fir_direct_plain(f, taps[new], history=planar.PC(*st))
+        else:
+            y = planar.PC(*hk.ofs_filter_planar_plain(f.re, f.im, st[0],
+                                                      st[1], plans[new]))
+        got = o[ty]
+        worst = max(worst, check(torch, f"{label} frame {k} filtered",
+                                 list(got), list(y)))
+        audio = hk.qdemod_fused_plain(got.re, got.im, last[0], last[1], 1.0)
+        worst = max(worst, check(torch, f"{label} frame {k} audio",
+                                 [o[ta]], [audio]))
+        st = torch.stack([f.re[-keep:], f.im[-keep:]])
+        last = torch.stack([got.re[-1:], got.im[-1:]])
+        last_plain = torch.stack([y.re[-1:], y.im[-1:]])
+    fst, qst = r.states
+    if not (torch.equal(fst[0], st[0]) and torch.equal(fst[1], st[1])):
+        fail(f"{label}: the filter's carried state is not the last frame's "
+             f"input")
+    check(torch, f"{label} carried demod sample", list(qst), list(last_plain))
+
+    step_ms = time_ms(torch, lambda: r.step(feeds[0]), reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds + feeds:
+        r.step(f)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / (2 * len(feeds)) * 1e3
+    busy_ms = device_busy_ms(torch, lambda: r.step(feeds[1]), steps=5)
+    busy = "not measured" if busy_ms is None else (
+        f"{busy_ms:.4f} ms ({busy_ms / step_ms:.0%} of the step)")
+    phase("fm", f"{label} per frame of {FM_N}: step {step_ms:.4f} ms "
+                f"({FM_N / step_ms / 1e3:.1f} MSPS, CUDA events), device busy "
+                f"{busy}, wall {wall_ms:.4f} ms ({FM_N / wall_ms / 1e3:.1f} "
+                f"MSPS)")
+    return {"launches": launches, "err": worst, "step_ms": step_ms,
+            "busy_ms": busy_ms, "wall_ms": wall_ms}
 
 
 def main() -> None:
@@ -543,6 +766,16 @@ def main() -> None:
     # 7. the X-Engine path, counted
     xe = xengine_phase(torch, hk, gen, dev)
     phase("xengine", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 8. the FM kernels against their plain forms
+    fmk = fm_kernel_phase(torch, hk, gen, dev)
+    torch.cuda.empty_cache()
+
+    # 9. the FM receive paths, counted
+    fm = {label: fm_path_phase(torch, hk, gen, dev, use_time)
+          for label, use_time in (("td", True), ("fd", False))}
+    phase("fm", f"on {card}")
     print(card, flush=True)
 
     record = {"kernels": [
@@ -567,6 +800,24 @@ def main() -> None:
          "replaces": "clenabled_tpu/dsp/pallas_kernels.py:2068",
          "launches": xe["launches"], "max_abs_err": 0.0,
          "ms": gram_res["int8"][0], "plain_ms": gram_res["int8"][1]},
+        {"name": "ofs_filter_planar", "route": "cuda",
+         "source": "clenabled_tpu_torch/csrc/ofs_filter.cu",
+         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:1886",
+         "launches": fm["fd"]["launches"]["ofs_filter_planar"],
+         "max_abs_err": fmk["ofs"],
+         "ms": fmk["ofs 49"][0], "plain_ms": fmk["ofs 49"][1]},
+        {"name": "fir_direct", "route": "cuda",
+         "source": "clenabled_tpu_torch/csrc/fir_direct.cu",
+         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:235+101",
+         "launches": fm["td"]["launches"]["fir_direct"],
+         "max_abs_err": fmk["fir"],
+         "ms": fmk["fir 49"][0], "plain_ms": fmk["fir 49"][1]},
+        {"name": "qdemod_fused", "route": "cuda",
+         "source": "clenabled_tpu_torch/csrc/qdemod.cu",
+         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:337",
+         "launches": sum(fm[p]["launches"]["qdemod_fused"] for p in fm),
+         "max_abs_err": fmk["qd"],
+         "ms": fmk["qd time"][0], "plain_ms": fmk["qd time"][1]},
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
@@ -574,7 +825,13 @@ def main() -> None:
         "gram_bf16_plain_ms": gram_res["bf16"][1],
         "gram_bf16_max_abs_err": gram_res["bf16_err"],
         "xengine_step_ms": xe["step_ms"],
-        "xengine_host_to_product_ms": xe["h2p_ms"]}
+        "xengine_host_to_product_ms": xe["h2p_ms"],
+        "fir_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
+                            if k.startswith("fir ")},
+        "ofs_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
+                            if k.startswith("ofs ")},
+        "fm_path": {p: {k: fm[p][k] for k in ("err", "step_ms", "busy_ms",
+                                               "wall_ms")} for p in fm}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

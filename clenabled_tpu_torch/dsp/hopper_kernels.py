@@ -13,19 +13,28 @@ ported so far:
 - ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
   (``csrc/xengine_gram.cu``): the X-Engine's per-channel stacked Gram,
   lower block-triangle only, int8 exact.
+- ``fir_direct`` (``csrc/fir_direct.cu``), also bound as
+  ``fir_direct_mxu``: the real-tap direct FIR of both planar components in
+  one launch, decimating in the kernel.
+- ``ofs_filter_planar`` with ``OfsPlan`` (``csrc/ofs_filter.cu``): the
+  overlap-save FFT filter with complex taps and a carried input tail.
+- ``qdemod_fused`` (``csrc/qdemod.cu``): the quadrature demodulator with one
+  carried sample.
 
 Each wrapper keeps the JAX function's argument order, shapes and outputs.
 Given CPU tensors it runs its plain torch form (``*_plain``: the
 channelizer's branch sums and ``planar.ifft_unscaled`` for the FX kernels,
-batched products for the Gram); given CUDA tensors
-it launches its kernel or raises — it never falls back.  Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+batched products for the Gram, ``conv1d`` for the FIR, ``torch.fft``
+overlap-save for the OFS filter, ``torch.atan2`` for the demodulator);
+given CUDA tensors it launches its kernel or raises — it never falls back.
+Each wrapper counts its kernel launches in its ``launches`` attribute.
 
 The TPU engine selectors of the JAX functions (``tile_rows``/``tile``,
 ``t_tile``, ``mxu_dtype``, ``branch_mxu``, ``karatsuba``,
 ``deep_strategy``, ``precision``, ``interpret``) have no counterpart: the
-kernels pick their own tiles; the FX kernels multiply and accumulate in
-float32, the Gram kernel in int32 (int8) or float32 (bfloat16).
+kernels pick their own tiles; the FX, FIR and OFS kernels multiply and
+accumulate in float32, the Gram kernel in int32 (int8) or float32
+(bfloat16).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from clenabled_tpu_torch.dsp import channelizer, planar, xengine
+from clenabled_tpu_torch.dsp import channelizer, demod, fir_filter, planar, xengine
+from clenabled_tpu_torch.runtime.device import per_device
 
 LANES = 128
 
@@ -402,13 +412,17 @@ def _check_gram(zr, zi):
 
 @contextlib.contextmanager
 def _full_f32():
-    """float32 matmuls without TF32 on the card, restored afterwards."""
-    old = torch.backends.cuda.matmul.allow_tf32
+    """float32 matmuls and convolutions without TF32 on the card, restored
+    afterwards."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
 
 
 def gram_products(zr, zi):
@@ -560,6 +574,284 @@ def gram_launches() -> int:
             + xengine_gram_stacked_tri.launches)
 
 
+# --------------------------------------------------------------------------
+# Kernels 7 and 8: the direct FIR (one kernel for both TPU engines)
+# --------------------------------------------------------------------------
+
+def _fir_args(x, taps, decimation: int, history):
+    """The JAX function's checks; returns (components, histories or None,
+    float32 taps on the components' device, frame length n)."""
+    pc = isinstance(x, planar.PC)
+    comps = list(x) if pc else [x]
+    hists = None if history is None else (list(history) if pc else [history])
+    if taps.is_complex() if torch.is_tensor(taps) else np.iscomplexobj(taps):
+        raise ValueError("the direct FIR takes real taps only")
+    t = torch.as_tensor(taps, dtype=torch.float32, device=comps[0].device)
+    if t.dim() != 1 or t.shape[0] < 1:
+        raise ValueError("taps must be one non-empty row")
+    k = t.shape[0]
+    if any(c.dim() != 1 or c.shape != comps[0].shape for c in comps):
+        raise ValueError("x must be one row per component, of one length")
+    if hists is None:
+        n = comps[0].shape[0] - (k - 1)
+    else:
+        if any(tuple(h.shape) != (k - 1,) for h in hists):
+            raise ValueError(f"history must be [{k - 1}] per component")
+        n = comps[0].shape[0]
+    if n <= 0 or decimation < 1 or n % decimation:
+        raise ValueError(f"frame length {n} must be a positive multiple of "
+                         f"the decimation {decimation}")
+    return comps, hists, t, n
+
+
+def fir_direct_plain(x, taps, *, decimation: int = 1, history=None):
+    """Plain torch form of ``fir_direct`` (any device): ``conv1d``."""
+    comps, hists, t, _ = _fir_args(x, taps, decimation, history)
+    ys = [fir_filter._conv_valid_real(
+        c if hists is None else torch.cat([hists[i], c]), t, decimation)
+        for i, c in enumerate(comps)]
+    return planar.PC(*ys) if isinstance(x, planar.PC) else ys[0]
+
+
+def fir_direct(x, taps, *, decimation: int = 1, history=None):
+    """Direct-form FIR y[n] = Σ_k taps[k]·v[n+K−1−k] with real taps
+    (``csrc/fir_direct.cu`` on CUDA); also bound as ``fir_direct_mxu``.
+
+    Args:
+      x: [K−1 + n] float32 with the K−1 history samples in front (the JAX
+        function's contract) — or, with ``history``, the frame [n] alone —
+        or a ``planar.PC`` of two such rows, filtered in one launch.
+      taps: [K] real taps.
+      decimation: keep every D-th output (the kernel computes only those);
+        n must be a multiple of D.
+      history: [K−1] (or a ``planar.PC`` pair): the samples before ``x``;
+        the kernel reads history ++ x without a concatenation.
+
+    Returns [n // D] float32 (a ``planar.PC`` for planar ``x``)."""
+    comps, hists, t, n = _fir_args(x, taps, decimation, history)
+    dev = comps[0].device
+    if dev.type == "cpu":
+        return fir_direct_plain(x, taps, decimation=decimation,
+                                history=history)
+    k = t.shape[0]
+    if hists is None:
+        hists = [c[: k - 1] for c in comps]
+        comps = [c[k - 1:] for c in comps]
+    _require_cuda(*comps, *hists, t)
+    if any(c.dtype != torch.float32 for c in comps + hists):
+        raise ValueError("the FIR kernel takes float32 streams")
+    ys = [torch.empty(n // decimation, dtype=torch.float32, device=dev)
+          for _ in comps]
+    ptrs = [(h.data_ptr(), c.data_ptr(), y.data_ptr())
+            for h, c, y in zip(hists, comps, ys)]
+    second = ptrs[1] if len(ptrs) > 1 else (None, None, None)
+    lib = _load()
+    err = lib.clen_fir_direct(*ptrs[0], *second, len(comps), t.data_ptr(), k,
+                              n, decimation, _stream(dev))
+    if err != 0:
+        smem = lib.clen_fir_smem_bytes(k, decimation)
+        raise RuntimeError(f"fir_direct launch failed: CUDA error {err} "
+                           f"({smem} B of shared memory per block)")
+    fir_direct.launches += 1
+    return planar.PC(*ys) if isinstance(x, planar.PC) else ys[0]
+
+
+fir_direct.launches = 0
+fir_direct_mxu = fir_direct
+
+
+# --------------------------------------------------------------------------
+# Kernel 6: the overlap-save FFT filter
+# --------------------------------------------------------------------------
+
+_OFS_MAX_P = 16384       # 12·P bytes of shared memory: 192 KiB
+
+
+@lru_cache(maxsize=None)
+def _bitrev(p: int) -> np.ndarray:
+    bits = p.bit_length() - 1
+    idx = np.arange(p)
+    rev = np.zeros(p, np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+class OfsPlan:
+    """Design-time constants of the overlap-save filter.
+
+    The sizing callers see is the JAX package's (``pallas_kernels.OfsPlan``),
+    so frames, tails and outputs line up with it: ``ov_rows`` = ⌈(K−1)/128⌉
+    rows of carried input, ``tail_len`` = ov_rows·128 samples, ``quantum``
+    = stride·t·128 (32768 for every design from 49 to 1601 taps), and
+    ``decimation`` (1 until the caller sets it).  The TPU's MXU matrices have
+    no counterpart.  The kernel picks its own transform: ``fft_size`` P, a
+    power of two ≥ 4(K−1) between 256 and 16384 (larger only when K is, and
+    then the card refuses it), giving ``valid`` = P − (K−1) outputs per
+    chunk; ``spectrum`` is the taps' P-point FFT."""
+
+    def __init__(self, taps):
+        taps = np.asarray(taps, np.complex64)
+        ntaps = int(taps.shape[-1])
+        if ntaps < 2:
+            raise ValueError("ofs kernel needs >= 2 taps")
+        ov_rows = max(1, -(-(ntaps - 1) // LANES))
+        stride = 4
+        while stride < 3 * ov_rows:
+            stride *= 2
+        n2 = stride + ov_rows
+        t = 1                             # the TPU's chunks per tile
+        while 2 * t * n2 <= 512:
+            t *= 2
+        self.ntaps, self.ov_rows, self.stride, self.t = ntaps, ov_rows, stride, t
+        self.quantum = stride * t * LANES
+        self.tail_len = ov_rows * LANES
+        self.decimation = 1
+        p = 256
+        while p < 4 * (ntaps - 1) and p < _OFS_MAX_P:
+            p *= 2
+        while p < 2 * ntaps:
+            p *= 2
+        self.fft_size, self.valid = p, p - (ntaps - 1)
+        padded = np.zeros(p, np.complex128)
+        padded[:ntaps] = taps
+        spec = np.fft.fft(padded)
+        self.spectrum = spec.astype(np.complex64)
+        # the kernel's forms: the spectrum in its transforms' bit-reversed
+        # order with the inverse's 1/P folded in, and the twiddles
+        self._consts = [per_device(a.astype(np.complex64)) for a in (
+            spec, (spec / p)[_bitrev(p)],
+            np.exp(-2j * np.pi * np.arange(p // 2) / p))]
+
+    def consts(self, device: torch.device):
+        """(spectrum [P], kernel spectrum [P], twiddles exp(−2πik/P) [P/2])
+        as complex64 tensors on ``device``, uploaded once per device."""
+        return tuple(get(device) for get in self._consts)
+
+
+def _check_ofs(xr, xi, tail_r, tail_i, plan: OfsPlan, decimation: int) -> int:
+    n = xr.shape[-1]
+    if xr.dim() != 1 or xi.shape != xr.shape:
+        raise ValueError("xr/xi must be one row each, of one length")
+    if n % plan.quantum:
+        raise ValueError(f"frame length {n} must be a multiple of "
+                         f"{plan.quantum}")
+    if tuple(tail_r.shape) != (plan.tail_len,) or tail_i.shape != tail_r.shape:
+        raise ValueError(f"tail must be [{plan.tail_len}]")
+    if decimation < 1 or n % decimation:
+        raise ValueError(f"frame length {n} is not a multiple of the "
+                         f"decimation {decimation}")
+    return n
+
+
+def ofs_filter_planar_plain(xr, xi, tail_r, tail_i, plan: OfsPlan, *,
+                            decimation: int = 1):
+    """Plain torch form of ``ofs_filter_planar`` (any device): overlap-save
+    with ``torch.fft`` at the plan's transform size."""
+    n = _check_ofs(xr, xi, tail_r, tail_i, plan, decimation)
+    k, p, valid = plan.ntaps, plan.fft_size, plan.valid
+    spec = plan.consts(xr.device)[0]
+    v = torch.complex(torch.cat([tail_r, xr]), torch.cat([tail_i, xi]))
+    v = v[plan.tail_len - (k - 1):]                    # n + K − 1 samples
+    nch = -(-n // valid)
+    v = torch.cat([v, v.new_zeros((nch - 1) * valid + p - v.shape[0])])
+    z = torch.fft.ifft(torch.fft.fft(v.unfold(0, p, valid)) * spec)
+    y = z[:, k - 1:].reshape(-1)[:n]
+    if decimation > 1:
+        y = y[::decimation]
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def ofs_filter_planar(xr, xi, tail_r, tail_i, plan: OfsPlan, *,
+                      decimation: int = 1):
+    """Overlap-save FFT filter step (``csrc/ofs_filter.cu`` on CUDA).
+
+    xr/xi: [n] float32, n a multiple of ``plan.quantum``; tail_r/tail_i:
+    [plan.tail_len] float32 — the previous frame's last samples (zeros
+    initially).  Returns (yr, yi): y[p] = Σ_k taps[k]·x[p−k] with x reaching
+    back into the tail — the overlap-add path's samples — for p < n, or
+    every ``decimation``-th of them (the JAX function returns full rate and
+    leaves the slice to its caller; here the kernel writes only those)."""
+    if xr.device.type == "cpu":
+        return ofs_filter_planar_plain(xr, xi, tail_r, tail_i, plan,
+                                       decimation=decimation)
+    n = _check_ofs(xr, xi, tail_r, tail_i, plan, decimation)
+    dev = xr.device
+    _, kspec, tw = plan.consts(dev)
+    _require_cuda(xr, xi, tail_r, tail_i, kspec, tw)
+    if any(t.dtype != torch.float32 for t in (xr, xi, tail_r, tail_i)):
+        raise ValueError("the OFS kernel takes float32 streams and tails")
+    yr = torch.empty(n // decimation, dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = _load()
+    err = lib.clen_ofs_filter(
+        xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
+        kspec.data_ptr(), tw.data_ptr(), yr.data_ptr(), yi.data_ptr(), n,
+        plan.tail_len, plan.ntaps, plan.fft_size, decimation, _stream(dev))
+    if err != 0:
+        smem = lib.clen_ofs_smem_bytes(plan.fft_size)
+        raise RuntimeError(f"ofs_filter launch failed: CUDA error {err} "
+                           f"({smem} B of shared memory per block)")
+    ofs_filter_planar.launches += 1
+    return yr, yi
+
+
+ofs_filter_planar.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 9: the quadrature demodulator
+# --------------------------------------------------------------------------
+
+def _check_qdemod(xr, xi, last_r, last_i) -> tuple:
+    """The leading shape (one carried sample per row)."""
+    if xr.dim() < 1 or xi.shape != xr.shape or xr.shape[-1] < 1:
+        raise ValueError("xr/xi must share one shape with >= 1 sample per row")
+    lead = tuple(xr.shape[:-1])
+    rows = int(np.prod(lead, dtype=np.int64))
+    if last_r.numel() != rows or last_i.numel() != rows:
+        raise ValueError(f"one carried sample per row: expected {rows}")
+    return lead
+
+
+def qdemod_fused_plain(xr, xi, last_r, last_i, gain: float):
+    """Plain torch form of ``qdemod_fused`` (any device): the JAX package's
+    XLA form with ``torch.atan2``."""
+    lead = _check_qdemod(xr, xi, last_r, last_i)
+    return demod._qdemod_xla(xr, xi, last_r.reshape(lead + (1,)),
+                             last_i.reshape(lead + (1,)), gain)
+
+
+def qdemod_fused(xr, xi, last_r, last_i, gain: float):
+    """FM discriminator y[n] = gain·atan2 of x[n]·conj(x[n−1]) over planar
+    rows (``csrc/qdemod.cu`` on CUDA).
+
+    xr/xi: [..., n] float32, any n ≥ 1; last_r/last_i: one carried sample
+    per row (the previous frame's last; a scalar for a 1-D frame).  Returns
+    y [..., n] float32.  atan2 keeps IEEE signed zeros, as the JAX
+    package's XLA form does (its Pallas kernel's polynomial maps −0.0 to
+    +0.0)."""
+    if xr.device.type == "cpu":
+        return qdemod_fused_plain(xr, xi, last_r, last_i, gain)
+    lead = _check_qdemod(xr, xi, last_r, last_i)
+    rows = int(np.prod(lead, dtype=np.int64))
+    lr, li = last_r.reshape(rows), last_i.reshape(rows)
+    _require_cuda(xr, xi, lr, li)
+    if any(t.dtype != torch.float32 for t in (xr, xi, lr, li)):
+        raise ValueError("the demod kernel takes float32 samples")
+    y = torch.empty_like(xr)
+    err = _load().clen_qdemod(xr.data_ptr(), xi.data_ptr(), lr.data_ptr(),
+                              li.data_ptr(), y.data_ptr(), rows,
+                              xr.shape[-1], float(gain), _stream(xr.device))
+    if err != 0:
+        raise RuntimeError(f"qdemod launch failed: CUDA error {err}")
+    qdemod_fused.launches += 1
+    return y
+
+
+qdemod_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     fx_correlate_streams_v2.launches = 0
     fx_correlate_streams.launches = 0
@@ -567,6 +859,9 @@ def reset_launch_counts() -> None:
     xengine_gram_stacked.launches = 0
     xengine_gram_stacked_blocks.launches = 0
     xengine_gram_stacked_tri.launches = 0
+    fir_direct.launches = 0
+    ofs_filter_planar.launches = 0
+    qdemod_fused.launches = 0
 
 
 def _load():

@@ -16,6 +16,10 @@ The TPU engine selectors of the JAX pipelines (``mxu_dtype``,
 ``precision``) have no counterpart: the port always multiplies and
 accumulates in float32.  The sharded pipelines are not ported yet
 (ROADMAP.md A.4).
+
+The ``*_from_reference`` functions hand state over from the JAX package:
+the FX step's tails, an X-Engine integration, and a whole ``Runner``'s
+carried states (``runner_state_from_reference``).
 """
 
 from __future__ import annotations
@@ -253,6 +257,58 @@ def xengine_state_from_reference(accum_re, accum_im, count, device="cpu"):
                       _tensor_from_reference(accum_im, torch.float32, device))
     return dsp_xengine.XEngineState(accum=accum,
                                     count=int(np.asarray(count)))
+
+
+def _state_from_reference(ref, like, where: str):
+    """``ref`` (numpy leaves) rebuilt in the containers of ``like`` with
+    its leaves' dtypes and devices; raises where the two trees differ."""
+    if isinstance(like, (tuple, list)):
+        if not isinstance(ref, (tuple, list)) or len(ref) != len(like):
+            raise ValueError(f"{where}: the state trees differ")
+        items = [_state_from_reference(r, x, f"{where}[{i}]")
+                 for i, (r, x) in enumerate(zip(ref, like))]
+        return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
+    arr = np.array(ref)                   # a writable copy of the leaf
+    if not torch.is_tensor(like):
+        return type(like)(arr)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{where}: shape {arr.shape} != {tuple(like.shape)}")
+    return _tensor_from_reference(arr, like.dtype, like.device)
+
+
+def runner_state_from_reference(runner, states, state_kinds):
+    """A JAX ``Runner``'s carried states as the port ``Runner``'s, for the
+    same flowgraph built in both packages, so a stream begun in the JAX
+    package continues in the port: ``runner.states = ...`` with the result.
+
+    Args:
+      runner: the port's ``Runner`` (its blocks, state layout and device).
+      states: the JAX Runner's ``states`` with numpy leaves (e.g.
+        ``jax.tree.map(np.asarray, jr.states)``); planar pairs may stay the
+        JAX package's ``planar.PC``.
+      state_kinds: per block in the JAX Runner's order, its filter state
+        kind (``block._state_kind``: "td", "ofa" or "ofs") or None.
+
+    Raises ValueError where the trees or a block's state kind differ —
+    always between an overlap-add (output-domain) and an overlap-save
+    (input-domain) filter tail, which have no mapping (the rule of
+    ``Filter.migrate_state``).  Filter taps are numpy designs that both
+    packages share, so only the states move."""
+    blocks = runner._order
+    if len(states) != len(blocks) or len(state_kinds) != len(blocks):
+        raise ValueError(f"expected the states of {len(blocks)} blocks")
+    for i, (b, kind) in enumerate(zip(blocks, state_kinds)):
+        mine = getattr(b, "_state_kind", None)
+        if kind == mine:
+            continue
+        if {kind, mine} == {"ofa", "ofs"}:
+            raise ValueError(
+                f"block {i} ({b}): an overlap-add tail does not map to an "
+                f"overlap-save one; build both filters in the same form "
+                f"(the port's make_fft_filter_planar(fused=...))")
+        raise ValueError(f"block {i} ({b}): state kind {kind!r} != {mine!r}")
+    return tuple(_state_from_reference(s, like, f"block {i}")
+                 for i, (s, like) in enumerate(zip(states, runner.states)))
 
 
 def taps_from_reference(taps_rm) -> torch.Tensor:

@@ -38,6 +38,21 @@ def require_hopper(device: torch.device | str = "cuda:0") -> tuple[int, int]:
     return cap
 
 
+def per_device(array):
+    """``get(device)``: the host ``array`` as a tensor on ``device``,
+    uploaded on the first request for that device and kept (a pageable
+    upload per call would stall the host behind the card)."""
+    on: dict = {}
+
+    def get(device) -> torch.Tensor:
+        key = torch.device(device)
+        if key not in on:
+            on[key] = torch.as_tensor(array, device=key)
+        return on[key]
+
+    return get
+
+
 def card_info() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     out = subprocess.run(

@@ -62,6 +62,17 @@ class Block:
     def init_state(self) -> Any:
         return ()
 
+    def migrate_state(self, old_state) -> Any:
+        """Map carried state across a live reconfiguration (Runner.refresh).
+
+        The reference rebuilds kernels/buffers at runtime while the
+        flowgraph keeps running (set_taps, lib/clFilter_impl.cc:417-479);
+        here a reconfigured block translates its old state tree into the
+        new configuration's shape.  Default: identity (unchanged blocks
+        keep their stream state).  Blocks whose reconfiguration changes the
+        state shape must override this (see blocks.filters.Filter)."""
+        return old_state
+
     def apply(self, state, inputs: Sequence) -> tuple[Any, tuple, dict]:
         """(state, inputs) -> (state', outputs, messages).
 

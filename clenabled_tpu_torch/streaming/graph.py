@@ -12,8 +12,8 @@ drives the step eagerly on the device named at ``compile(device=...)``:
   axis and message handlers are called once per frame, as in JAX.
 - ``precision`` and ``lowered_text`` are XLA's and have no counterpart;
   a debug block prints its item counts only.
-- ``set_taps`` / ``refresh`` (live retuning with state migration) wait for
-  the filter blocks (ROADMAP.md A.10).
+- ``refresh`` rebuilds the step closure where JAX re-traces and re-jits;
+  ``set_taps`` retunes a filter live, migrating its carried state.
 """
 
 from __future__ import annotations
@@ -459,6 +459,46 @@ class Runner:
     def reset(self) -> None:
         self.states = self._to_device(
             tuple(b.init_state() for b in self._order))
+
+    # ---- live reconfiguration (the reference's runtime set_taps,
+    # lib/clFilter_impl.cc:417-479: kernels/buffers rebuild while the
+    # flowgraph keeps running) -------------------------------------------
+
+    def refresh(self) -> None:
+        """Rebuild the step after block reconfiguration (e.g. set_taps) and
+        migrate every block's carried state into its new configuration
+        (Block.migrate_state) — the stream continues without a reset.
+
+        Raises if the new configuration is incompatible with the current
+        frame size (quantum/rate checks re-run)."""
+        order, step, frames, _ = self._graph._build(self.frame_size)
+        if [id(b) for b in order] != [id(b) for b in self._order]:
+            raise ValueError("refresh() cannot change the block set; "
+                             "build a new flowgraph instead")
+        states = tuple(b.migrate_state(st)
+                       for b, st in zip(self._order, self.states))
+        self._step_fn = step
+        self.frames = frames
+        self.states = self._to_device(states)
+
+    def set_taps(self, block, taps) -> None:
+        """Live filter retune: block.set_taps(taps) + refresh() in one call.
+        The filter's carried tail is translated, not reset — where old and
+        new taps agree the output stream is identical to an uninterrupted
+        run.
+
+        Atomic: if the new taps are incompatible with the running graph
+        (quantum/rate validation in refresh()), the block is rolled back to
+        its pre-call configuration and the stream keeps running on the old
+        taps — no half-applied retune."""
+        snapshot = dict(block.__dict__)
+        try:
+            block.set_taps(taps)
+            self.refresh()
+        except Exception:
+            block.__dict__.clear()
+            block.__dict__.update(snapshot)
+            raise
 
     # ---- checkpoint / resume -------------------------------------------
     # The whole flowgraph state is one tree, so streaming state (filter

@@ -241,7 +241,13 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.dsp.hopper_kernels",
             "clenabled_tpu_torch.dsp.xengine", "clenabled_tpu_torch.blocks",
             "clenabled_tpu_torch.streaming.graph",
-            "clenabled_tpu_torch.tools.test_clxengine"]
+            "clenabled_tpu_torch.tools.test_clxengine",
+            "clenabled_tpu_torch.dsp.fir_filter",
+            "clenabled_tpu_torch.dsp.fft_filter",
+            "clenabled_tpu_torch.dsp.demod",
+            "clenabled_tpu_torch.blocks.filters",
+            "clenabled_tpu_torch.blocks.demod",
+            "clenabled_tpu_torch.tools.test_clfilter"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' "
