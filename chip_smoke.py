@@ -1,5 +1,6 @@
-"""Drive the PyTorch / CUDA port's FX receive step, X-Engine path and FM
-receive path once on one NVIDIA H100.
+"""Drive the PyTorch / CUDA port's FX receive step, X-Engine path, FM
+receive path, oversampled channelizer, spectrum chain and carrier recovery
+once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -55,6 +56,43 @@ Phases, each printing its own lines; any failure exits non-zero:
    magnitude, so the stages are held apart).  Per frame: the step on
    CUDA events, the device's busy time from ``torch.profiler`` and the
    wall time, in MSPS.
+10. oversampled channelizer — the fused kernel (B.3) against its plain
+   form at 16 channels R=8 (2^23 samples, the path's shape), 64 channels
+   R=16 with a 1600-tap prototype (1792-sample tail), 32 channels R=4 and
+   a rotation offset, and a channel subset through the streaming form;
+   then counts reset, a ``Flowgraph`` of ``PolyphaseChannelizer(proto,
+   2**23, 16, 8, list(range(16)), planar=True, fused=True)`` (the 155-tap
+   ``firdes.low_pass(1.0, 16.0, 0.5, 0.25)`` zero-padded to 160) over 4
+   chained frames of 2^23, one launch per frame, held to the plain chain
+   within 1e-4 × max|plain|, tails bit-equal.
+11. spectrum chain — the FFT kernel (B.5) against its plain form at 256,
+   1024, 2048 and 16384 points, forward and inverse, windowed or not,
+   shifted or not, and beside ``torch.fft.fft`` (cuFFT); then counts
+   reset, ``SignalSource(1e6, 1, 250e3, 1.0, 2**21, planar=True)`` →
+   ``Fft(2048, window=blackman_harris(2048), shift=True)`` →
+   ``MultiplyConst(2.0)`` → ``ComplexToMag`` over 8 frames, one FFT launch
+   per frame, held to the plain chain within 1e-4 × max|plain|, the tone
+   in bin 1536 of every vector and the source within 5e-4 of float64
+   cos/sin.
+12. carrier recovery — the Costas kernel (B.9) against its plain form on
+   2^12 samples, order 2 on BPSK and order 4 on QPSK (bit for bit, or
+   within 5e-6); then counts reset, ``CostasLoop(0.00628, 2, planar=True,
+   scalar=True)`` over 8 chained frames of 2^16 of seeded BPSK with a
+   0.005 rad/sample carrier offset and noise, one launch per frame, equal
+   bit for bit to one kernel call over the joined stream (the seam check),
+   and locked (frequency within 5e-4 of the offset); the kernel held to
+   its plain form again on the path's first 2^16 frame.
+
+Phases 10-12 print the path's device time per frame (``torch.profiler``)
+and wall time per frame, and each kernel's device time beside its plain
+form's.  A profiler trace counts only when it holds an event for every
+launch the wrappers counted in it; it is taken again up to three times,
+and else the device time reads "not measured" (null in the record).
+The kernels record gives, for every kernel, the least time the
+card could take for its work at the measured shape (``bound_ms``: the
+larger of the bytes it must move at 3.35 TB/s and its operations at the
+published peak for their type), and the time of one PyTorch library call
+computing the same function where there is one.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -78,7 +116,27 @@ XE_S, XE_P, XE_F, XE_T = 64, 2, 256, 8192
 XE_STEPS = 3
 # the FM receive path: BENCH_TPU's block-layer frame, 8 chained frames
 FM_N, FM_FRAMES, FM_RETUNE_AT = 1 << 21, 8, 4
+# the oversampled channelizer: BENCH_TPU's 16-channel R=8 configuration
+OS_M, OS_R, OS_N, OS_FRAMES, OS_DEEP_N = 16, 8, 1 << 23, 4, 1 << 21
+# the spectrum chain: README's source → Fft → MultiplyConst → ComplexToMag
+SP_N, SP_FFT, SP_FRAMES = 1 << 21, 2048, 8
+# carrier recovery: the reference's loop bandwidth, BENCH_TPU's frame
+CO_BW, CO_N, CO_FRAMES, CO_CHECK_N, CO_OFFSET = 0.00628, 1 << 16, 8, 1 << 12, 0.005
 DEVICE = ("cuda", 0)
+# the H100 SXM's published rates (NVIDIA's data sheet): memory bytes/s,
+# FP32 outside the tensor cores, int8 and bf16 on the tensor cores
+HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
+# the __global__ functions of csrc/*.cu, one launched per counted wrapper call
+PORT_KERNELS = ("fx_tile_kernel", "pfb_packed_kernel", "gram_kernel",
+                "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
+                "pfb_os_kernel", "fft_batched_kernel", "costas_kernel")
+
+
+def bound(nbytes: float, ops: float, rate: float = FP32_OPS) -> tuple:
+    """(bound_ms, bound_by): the larger of ``nbytes`` at the memory rate and
+    ``ops`` at ``rate``."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def fail(msg: str) -> None:
@@ -358,6 +416,20 @@ def fm_kernel_phase(torch, hk, gen, dev) -> dict:
             torch, f"fir_direct {name} taps [2x{n}]",
             lambda: hk.fir_direct(pc, t, history=hist),
             lambda: hk.fir_direct_plain(pc, t, history=hist))
+        if name == "49":
+            # the library call for the same function: one conv1d over both
+            # components, history in front
+            v = torch.cat([h, x], dim=-1)[:, None, :]
+            wts = t.flip(0)[None, None, :]
+            conv = torch.nn.functional.conv1d
+            err = check(torch, f"conv1d {name} taps (library) vs fir_direct",
+                        list(hk.fir_direct(pc, t, history=hist)),
+                        list(conv(v, wts)[:, 0]))
+            res["fir"] = max(res["fir"], err)
+            res["conv1d 49"] = (device_busy_ms(torch, lambda: conv(v, wts), 10)
+                                or time_ms(torch, lambda: conv(v, wts)))
+            phase("time", f"conv1d {name} taps [2x{n}] (library): device "
+                          f"{res['conv1d 49']:.4f} ms")
 
         plan = hk.OfsPlan(taps)
         tr, ti = torch.randn((2, plan.tail_len), generator=gen, device=dev)
@@ -391,24 +463,49 @@ def fm_kernel_phase(torch, hk, gen, dev) -> dict:
     return res
 
 
-def device_busy_ms(torch, fn, steps: int) -> float | None:
+def device_busy_ms(torch, fn, steps: int, tries: int = 3) -> float | None:
     """The device's busy time per call of ``fn`` (the sum of its kernels'
-    and copies' times), from ``torch.profiler``; None when the profiler
-    records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    and copies' times over ``steps`` calls), from ``torch.profiler``.
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
+    Late in a long process the profiler can miss the first milliseconds of
+    device work in a trace, so each trace opens with at least 30 ms of
+    calls that are not counted, and only the device events that start in
+    the counted window are summed.  Those must hold an event for every
+    launch the port's wrappers counted in the window, else the trace is
+    taken again, up to ``tries`` times; None when no trace is whole or the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from clenabled_tpu_torch.dsp import hopper_kernels as hk
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():        # device events: kernels, copies
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(evt, "self_device_time_total",
-                          getattr(evt, "self_cuda_time_total", 0.0))
-    return us / steps / 1e3 if us > 0 else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.03:
+                fn()
+                torch.cuda.synchronize()
+            before = sum(hk.launch_counts().values())
+            with record_function("busy_window"):
+                for _ in range(steps):
+                    fn()
+                torch.cuda.synchronize()
+            launched = sum(hk.launch_counts().values()) - before
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.name == "busy_window")
+        window = [e for e in events      # kernels and copies, not the
+                  if e.device_type == cuda   # window's own device span
+                  and e.name != "busy_window" and e.time_range.start >= start]
+        us = sum(e.time_range.elapsed_us() for e in window)
+        recorded = sum(any(k in e.name for k in PORT_KERNELS) for e in window)
+        if recorded >= launched:
+            return us / steps / 1e3 if us > 0 else None
+        phase("profile", f"the trace holds {recorded} of the {launched} "
+                         f"kernel launches counted in it; taken again")
+    return None
 
 
 def fm_path_phase(torch, hk, gen, dev, use_time: bool) -> dict:
@@ -499,6 +596,336 @@ def fm_path_phase(torch, hk, gen, dev, use_time: bool) -> dict:
                 f"MSPS)")
     return {"launches": launches, "err": worst, "step_ms": step_ms,
             "busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
+def path_times(torch, label: str, step, samples: int) -> dict:
+    """A path's time per frame: the device's busy time (``torch.profiler``)
+    and the wall time over 8 chained steps ending in a synchronise."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 8 * 1e3
+    busy_ms = device_busy_ms(torch, step, steps=4)
+    busy = "not measured" if busy_ms is None else (
+        f"{busy_ms:.4f} ms ({busy_ms / wall_ms:.0%} of the wall time)")
+    phase("path", f"{label} per frame of {samples}: device busy {busy}, wall "
+                  f"{wall_ms:.4f} ms ({samples / wall_ms / 1e3:.1f} MSPS)")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
+def os_proto(m: int, ntaps: int | None = None):
+    """The oversampled path's prototype: ``firdes.low_pass(1.0, m, 0.5,
+    0.25)`` (test_scaling's), or an ``ntaps``-tap windowed sinc, zero-padded
+    to a multiple of m."""
+    import numpy as np
+
+    from clenabled_tpu_torch.dsp import firdes
+
+    if ntaps is None:
+        proto = firdes.low_pass(1.0, float(m), 0.5, 0.25)
+    else:
+        proto = (np.sinc(np.linspace(-ntaps / (2 * m), ntaps / (2 * m), ntaps))
+                 * np.hanning(ntaps)).astype(np.float32)
+    return np.concatenate([proto, np.zeros((-len(proto)) % m, np.float32)])
+
+
+def os_bound(n: int, h: int, m: int, r: int, w: int) -> tuple:
+    nout = n // r
+    return bound(4 * (2 * n + 2 * h + w * m + 2 * nout * m),
+                 4 * nout * m * w + 8 * nout * m * m)
+
+
+def os_phase(torch, hk, gen, dev) -> dict:
+    """B.3 against its plain form, then the oversampled channelizer path."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import channelizer as chan
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    res = {"err": 0.0}
+    cases = [("16ch R=8", OS_M, OS_R, None, OS_N, 0),
+             ("64ch R=16 1600 taps", 64, 16, 1600, OS_DEEP_N, 0),
+             ("32ch R=4 96 taps", 32, 4, 96, OS_DEEP_N, 0),
+             ("16ch R=8 i_offset 5", OS_M, OS_R, None, OS_DEEP_N, 5)]
+    for label, m, r, nt, n, ioff in cases:
+        proto = os_proto(m, nt)
+        taps_rm, ntaps = chan._pfb_constants(proto, m, r)
+        h = hk.os_tail_len(m, r, ntaps)
+        x = torch.randn((2, n), generator=gen, device=dev)
+        t = torch.randn((2, h), generator=gen, device=dev)
+        taps = torch.as_tensor(taps_rm, device=dev)
+        args = (x[0], x[1], t[0], t[1], taps, m, r, ioff)
+        got = hk.pfb_oversampled_fused(*args)
+        torch.cuda.synchronize()
+        want = hk.pfb_oversampled_fused_plain(*args)
+        res["err"] = max(res["err"], check(
+            torch, f"pfb_oversampled {label} [{n}], W={taps.shape[0]}, H={h}",
+            got, want))
+        if label == "16ch R=8":
+            res["time"] = fm_times(
+                torch, f"pfb_oversampled {label} [{n}]",
+                lambda: hk.pfb_oversampled_fused(*args),
+                lambda: hk.pfb_oversampled_fused_plain(*args))
+            res["bound"] = os_bound(n, h, m, r, taps.shape[0])
+        del x, t, got, want
+
+    # a channel subset through the streaming form
+    proto = os_proto(OS_M)
+    sub = [0, 3, 5, 15]
+    init, apply = chan.make_channelizer_fused_oversampled(
+        proto, OS_M, OS_R, sub, device=dev)
+    x = torch.randn((2, OS_DEEP_N), generator=gen, device=dev)
+    st, out = apply(init(), planar.PC(x[0], x[1]))
+    taps_rm, ntaps = chan._pfb_constants(proto, OS_M, OS_R)
+    z0 = torch.zeros(hk.os_tail_len(OS_M, OS_R, ntaps), device=dev)
+    wr, wi = hk.pfb_oversampled_fused_plain(x[0], x[1], z0, z0, taps_rm,
+                                            OS_M, OS_R)
+    res["err"] = max(res["err"], check(
+        torch, f"fused channelizer ch_map {sub} [{OS_DEEP_N}]",
+        list(out), [wr[:, sub], wi[:, sub]]))
+
+    # the path: Flowgraph → PolyphaseChannelizer(fused), counted
+    ch = blocks.PolyphaseChannelizer(proto, OS_N, OS_M, OS_R,
+                                     list(range(OS_M)), planar=True,
+                                     fused=True)
+    g = Flowgraph()
+    g.external_input(ch)
+    tap = g.tap(ch, name="channels")
+    r = g.compile(OS_N, device=dev)
+    feeds = [planar.PC(*torch.randn((2, OS_N), generator=gen, device=dev))
+             for _ in range(OS_FRAMES)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [r.step(f)[tap] for f in feeds]
+    torch.cuda.synchronize()
+    launches = hk.pfb_oversampled_fused.launches
+    phase("os", f"Flowgraph PolyphaseChannelizer({ntaps} taps, {OS_N}, "
+                f"{OS_M}, {OS_R}, fused), {OS_FRAMES} frames; launches "
+                f"{launches}")
+    if launches != OS_FRAMES:
+        fail(f"expected one pfb_oversampled launch per frame, got {launches}")
+    h = hk.os_tail_len(OS_M, OS_R, ntaps)
+    tr = ti = torch.zeros(h, device=dev)
+    for k, (f, o) in enumerate(zip(feeds, outs)):
+        wr, wi = hk.pfb_oversampled_fused_plain(f.re, f.im, tr, ti, taps_rm,
+                                                OS_M, OS_R)
+        res["err"] = max(res["err"], check(
+            torch, f"channelizer frame {k} [{OS_N // OS_R}x{OS_M}]",
+            list(o), [wr.reshape(-1), wi.reshape(-1)]))
+        tr, ti = f.re[-h:], f.im[-h:]
+    st = r.states[0]
+    if not (torch.equal(st[0], tr) and torch.equal(st[1], ti)):
+        fail("the channelizer's carried tail is not the last frame's input")
+    res["path"] = path_times(torch, "oversampled channelizer",
+                             lambda: r.step(feeds[0]), OS_N)
+    res["launches"] = launches
+    return res
+
+
+def fft_bound(n: int, size: int, windowed: bool) -> tuple:
+    import math
+
+    return bound(4 * (4 * n + (size if windowed else 0)),
+                 5 * n * math.log2(size) + (2 * n if windowed else 0))
+
+
+def spectrum_phase(torch, hk, gen, dev) -> dict:
+    """B.5 against its plain form and cuFFT, then the spectrum chain."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar, window
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    res = {"err": 0.0}
+    x = torch.randn((2, SP_N), generator=gen, device=dev)
+    for size in (256, 1024, SP_FFT, 16384):
+        win = torch.as_tensor(window.blackman_harris(size), device=dev)
+        for inv in (False, True):
+            for w, sh in ((None, False), (win, True), (win, False)):
+                args = (x[0], x[1], size, inv, w, sh)
+                got = hk.fft_batched_fused(*args)
+                torch.cuda.synchronize()
+                res["err"] = max(res["err"], check(
+                    torch, f"fft_batched {size} {'inv' if inv else 'fwd'} "
+                           f"window={w is not None} shift={sh} [{SP_N}]",
+                    got, hk.fft_batched_fused_plain(*args)))
+    win = torch.as_tensor(window.blackman_harris(SP_FFT), device=dev)
+    args = (x[0], x[1], SP_FFT, False, win, True)
+    res["time"] = fm_times(torch, f"fft_batched {SP_FFT} window shift [{SP_N}]",
+                           lambda: hk.fft_batched_fused(*args),
+                           lambda: hk.fft_batched_fused_plain(*args))
+    res["bound"] = fft_bound(SP_N, SP_FFT, True)
+    bare = (x[0], x[1], SP_FFT)
+    c = torch.complex(x[0], x[1]).reshape(-1, SP_FFT)
+    for key, fn in (("bare_ms", lambda: hk.fft_batched_fused(*bare)),
+                    ("library_ms", lambda: torch.fft.fft(c))):
+        res[key] = device_busy_ms(torch, fn, 10) or time_ms(torch, fn)
+    phase("time", f"fft_batched {SP_FFT} bare [{SP_N}]: device kernel "
+                  f"{res['bare_ms']:.4f} ms, library torch.fft.fft (cuFFT) "
+                  f"{res['library_ms']:.4f} ms")
+    res["err"] = max(res["err"], check(
+        torch, f"fft_batched {SP_FFT} vs torch.fft.fft",
+        hk.fft_batched_fused(*bare),
+        [torch.fft.fft(c).real.reshape(-1), torch.fft.fft(c).imag.reshape(-1)]))
+    del x, c
+
+    # the path: SignalSource → Fft → MultiplyConst → ComplexToMag, counted
+    src = blocks.SignalSource(1e6, 1, 250e3, 1.0, SP_N, planar=True)
+    fft = blocks.Fft(SP_FFT, window=window.blackman_harris(SP_FFT), shift=True)
+    mc = blocks.MultiplyConst(2.0)
+    mag = blocks.ComplexToMag()
+    g = Flowgraph()
+    g.connect(src, fft)
+    g.connect(fft, mc)
+    g.connect(mc, mag)
+    t_src, t_mag = g.tap(src, name="source"), g.tap(mag, name="magnitude")
+    r = g.compile(None, device=dev)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [r.step() for _ in range(SP_FRAMES)]
+    torch.cuda.synchronize()
+    launches = hk.fft_batched_fused.launches
+    phase("spectrum", f"Flowgraph SignalSource({SP_N}) -> Fft({SP_FFT}, "
+                      f"blackman_harris, shift) -> MultiplyConst(2) -> "
+                      f"ComplexToMag, {SP_FRAMES} frames; launches {launches}")
+    if launches != SP_FRAMES:
+        fail(f"expected one fft_batched launch per frame, got {launches}")
+    for k, o in enumerate(outs):
+        s = o[t_src]
+        y = planar.PC(*hk.fft_batched_fused_plain(s.re, s.im, SP_FFT, False,
+                                                  win, True))
+        want = planar.pabs(planar.scale(y, 2.0))
+        res["err"] = max(res["err"], check(
+            torch, f"spectrum frame {k} [{SP_N}]", [o[t_mag]], [want]))
+        peak = o[t_mag].reshape(-1, SP_FFT).argmax(dim=-1)
+        if not bool((peak == SP_FFT // 2 + SP_FFT // 4).all()):
+            fail(f"spectrum frame {k}: the 250 kHz tone is not in bin "
+                 f"{SP_FFT // 2 + SP_FFT // 4}")
+    t = np.arange(SP_N, dtype=np.float64)
+    ang = 2 * np.pi * 250e3 / 1e6 * t
+    s0 = outs[0][t_src]
+    src_err = max(float(np.abs(s0.re.cpu().numpy() - np.cos(ang)).max()),
+                  float(np.abs(s0.im.cpu().numpy() - np.sin(ang)).max()))
+    if not src_err <= 5e-4:
+        fail(f"SignalSource differs from float64 cos/sin by {src_err:.3e}")
+    phase("check", f"spectrum: tone in bin {SP_FFT * 3 // 4} of every "
+                   f"vector; source within {src_err:.3e} of float64 cos/sin")
+    res["path"] = path_times(torch, "spectrum chain", lambda: r.step(), SP_N)
+    res["launches"] = launches
+    return res
+
+
+def costas_stream(np, rng, n: int, order: int):
+    """Seeded BPSK (order 2) or QPSK (order 4) symbols at CO_OFFSET rad per
+    sample of carrier offset, with noise: float32 (re, im)."""
+    t = np.arange(n)
+    k = rng.integers(0, order, n)
+    sym = np.exp(1j * (np.pi * k if order == 2 else np.pi / 4 * (2 * k + 1)))
+    x = sym * np.exp(1j * (CO_OFFSET * t + 0.7))
+    x = x + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return np.stack([x.real, x.imag]).astype(np.float32)
+
+
+def costas_check(torch, label: str, got, want) -> float:
+    """Hold the Costas kernel's outputs and state to the plain form's: bit
+    for bit, or within 5e-6; returns the largest error."""
+    errs = [float((g.double() - w.double()).abs().max())
+            for g, w in zip(got, want)]
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not max(errs) <= 5e-6:
+        fail(f"{label}: max abs err {max(errs):.3e} > 5e-6")
+    phase("check", f"{label}: "
+                   f"{'bit-exact' if exact else f'max abs err {max(errs):.3e} <= 5e-6'}"
+                   f" (outputs and state)")
+    return max(errs)
+
+
+def costas_phase(torch, hk, dev) -> dict:
+    """B.9 against its plain form, then the carrier-recovery path."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import demod, planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    res = {"err": 0.0}
+    alpha, beta = demod.costas_gains(CO_BW)
+    rng = np.random.default_rng(0)
+    for order in (2, 4):
+        x = torch.as_tensor(costas_stream(np, rng, CO_CHECK_N, order),
+                            device=dev)
+        args = (x[0], x[1], 0.0, 0.0, 0.0, order, alpha, beta)
+        got = hk.costas_scalar(*args)
+        torch.cuda.synchronize()
+        res["err"] = max(res["err"], costas_check(
+            torch, f"costas_scalar order {order} [{CO_CHECK_N}]", got,
+            hk.costas_scalar_plain(*args)))
+
+    # the path: Flowgraph → CostasLoop(planar, scalar), counted
+    stream = torch.as_tensor(costas_stream(np, rng, CO_N * CO_FRAMES, 2),
+                             device=dev)
+    cl = blocks.CostasLoop(CO_BW, 2, planar=True, scalar=True)
+    g = Flowgraph()
+    g.external_input(cl)
+    tap = g.tap(cl, name="baseband")
+    r = g.compile(CO_N, device=dev)
+    feeds = [planar.PC(stream[0, k * CO_N:(k + 1) * CO_N],
+                       stream[1, k * CO_N:(k + 1) * CO_N])
+             for k in range(CO_FRAMES)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [r.step(f)[tap] for f in feeds]
+    torch.cuda.synchronize()
+    launches = hk.costas_scalar.launches
+    phase("costas", f"Flowgraph CostasLoop({CO_BW}, 2, planar, scalar), "
+                    f"{CO_FRAMES} frames of {CO_N}; launches {launches}")
+    if launches != CO_FRAMES:
+        fail(f"expected one costas launch per frame, got {launches}")
+    joined = hk.costas_scalar(stream[0], stream[1], 0.0, 0.0, 0.0, 2, alpha,
+                              beta)
+    st = r.states[0]
+    if not (torch.equal(torch.cat([o.re for o in outs]), joined[0])
+            and torch.equal(torch.cat([o.im for o in outs]), joined[1])
+            and torch.equal(torch.stack(list(st)), torch.stack(joined[2:]))):
+        fail("the 8 chained frames differ from one call over the joined stream")
+    freq = float(st.freq)
+    tail = float(outs[-1].im[-4096:].abs().mean())
+    if not (abs(freq - CO_OFFSET) < 5e-4 and tail < 0.1):
+        fail(f"the loop did not lock: freq {freq:.6f}, tail |im| {tail:.4f}")
+    phase("check", f"costas seam: {CO_FRAMES} chained frames = one call over "
+                   f"the joined stream, bit for bit; locked at freq {freq:.6f} "
+                   f"rad/sample (offset {CO_OFFSET}), tail |im| {tail:.4f}")
+    # the kernel against its plain form on the path's first frame (order 2,
+    # zero state): the plain call is timed once and its outputs checked
+    x = feeds[0]
+    args = (x.re, x.im, 0.0, 0.0, 0.0, 2, alpha, beta)
+    got = hk.costas_scalar(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = hk.costas_scalar_plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    res["err"] = max(res["err"], costas_check(
+        torch, f"costas_scalar order 2 [{CO_N}] (the path's first frame)",
+        got, want))
+    kern = lambda: hk.costas_scalar(*args)
+    events_ms = time_ms(torch, kern, reps=5)
+    res["time"] = (device_busy_ms(torch, kern, 5) or events_ms, plain_ms)
+    phase("time", f"costas_scalar [{CO_N}]: device kernel {res['time'][0]:.4f}"
+                  f" ms ({CO_N / res['time'][0] / 1e3:.2f} MSPS; events "
+                  f"{events_ms:.4f} ms), plain {plain_ms:.1f} ms")
+    res["bound"] = bound(4 * (4 * CO_N + 6), 30 * CO_N)
+    res["path"] = path_times(torch, "carrier recovery",
+                             lambda: r.step(feeds[0]), CO_N)
+    res["launches"] = launches
+    return res
 
 
 def main() -> None:
@@ -776,54 +1203,93 @@ def main() -> None:
     fm = {label: fm_path_phase(torch, hk, gen, dev, use_time)
           for label, use_time in (("td", True), ("fd", False))}
     phase("fm", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 10. the oversampled channelizer, kernels and path
+    osr = os_phase(torch, hk, gen, dev)
+    torch.cuda.empty_cache()
+
+    # 11. the spectrum chain, kernels and path
+    spr = spectrum_phase(torch, hk, gen, dev)
+    torch.cuda.empty_cache()
+
+    # 12. carrier recovery, kernel and path
+    cor = costas_phase(torch, hk, dev)
+    phase("new paths", f"on {card}")
     print(card, flush=True)
 
+    # the least time the card could take for each kernel's work at the
+    # shapes measured above
+    nfd, nb = A - 1, A * (A + 1) // 2
+    h32 = hk.fx_tail_len(torch.float32, M, ntaps)
+    w = taps.shape[0]
+
+    def fx_ops(n):
+        return (4 * A * n * w + 8 * A * n * M
+                + nfd * (n // M) * (10 * M + 8 * M * M) + nb * n * 8)
+
+    gm, nout_p = 2 * A * M, N_ENTRY // M
+    sp = XE_S * XE_P
+    nbt = (sp // 128) * (sp // 128 + 1) // 2
+    plan49 = hk.OfsPlan(fm_taps()[0])
+    k49, p49 = plan49.ntaps, plan49.fft_size
+    bounds = {
+        "fx": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL)),
+        "pfb": bound(4 * ((nout_p + w - 1) * gm + w * gm + nout_p * gm),
+                     2 * nout_p * gm * w + 8 * A * nout_p * M * M),
+        "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
+        "gram": bound(2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
+                      6 * XE_F * sp * sp * XE_T, INT8_OPS),
+        "ofs": bound(4 * (4 * FM_N + 2 * plan49.tail_len) + 8 * p49,
+                     -(-FM_N // plan49.valid) * (10 * p49 * 8 + 6 * p49)),
+        "fir": bound(4 * 2 * (2 * FM_N + k49 - 1) + 4 * k49,
+                     2 * 2 * FM_N * k49),
+        "qd": bound(4 * (3 * FM_N + 2), 7 * FM_N),
+    }
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"clenabled_tpu_torch/csrc/{source}",
+                "replaces": f"clenabled_tpu/dsp/pallas_kernels.py:{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     record = {"kernels": [
-        {"name": "fx_correlate_streams_v2", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/fx_correlate.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:1042",
-         "launches": launches["fx"], "max_abs_err": errs["fx"],
-         "ms": times["fx f32"][0], "plain_ms": times["fx f32"][1]},
-        {"name": "pfb_channelize_packed", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/pfb_packed.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:1654",
-         "launches": launches["pfb"], "max_abs_err": errs["pfb"],
-         "ms": times["pfb"][0], "plain_ms": times["pfb"][1]},
-        {"name": "fx_correlate_streams", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/fx_correlate.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:817",
-         "launches": flat_launches,
-         "max_abs_err": max(errs["fx1"], errs["fx1 path"]),
-         "ms": times["fx1"][0], "plain_ms": times["fx1"][1]},
-        {"name": "xengine_gram_stacked", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/xengine_gram.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:2068",
-         "launches": xe["launches"], "max_abs_err": 0.0,
-         "ms": gram_res["int8"][0], "plain_ms": gram_res["int8"][1]},
-        {"name": "ofs_filter_planar", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/ofs_filter.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:1886",
-         "launches": fm["fd"]["launches"]["ofs_filter_planar"],
-         "max_abs_err": fmk["ofs"],
-         "ms": fmk["ofs 49"][0], "plain_ms": fmk["ofs 49"][1]},
-        {"name": "fir_direct", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/fir_direct.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:235+101",
-         "launches": fm["td"]["launches"]["fir_direct"],
-         "max_abs_err": fmk["fir"],
-         "ms": fmk["fir 49"][0], "plain_ms": fmk["fir 49"][1]},
-        {"name": "qdemod_fused", "route": "cuda",
-         "source": "clenabled_tpu_torch/csrc/qdemod.cu",
-         "replaces": "clenabled_tpu/dsp/pallas_kernels.py:337",
-         "launches": sum(fm[p]["launches"]["qdemod_fused"] for p in fm),
-         "max_abs_err": fmk["qd"],
-         "ms": fmk["qd time"][0], "plain_ms": fmk["qd time"][1]},
+        entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
+              launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
+        entry("pfb_channelize_packed", "pfb_packed.cu", 1678, launches["pfb"],
+              errs["pfb"], *times["pfb"], bounds["pfb"]),
+        entry("fx_correlate_streams", "fx_correlate.cu", 876, flat_launches,
+              max(errs["fx1"], errs["fx1 path"]), *times["fx1"],
+              bounds["fx1"]),
+        entry("xengine_gram_stacked", "xengine_gram.cu", 2142,
+              xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
+        entry("ofs_filter_planar", "ofs_filter.cu", 1909,
+              fm["fd"]["launches"]["ofs_filter_planar"], fmk["ofs"],
+              *fmk["ofs 49"][:2], bounds["ofs"], fmk["conv1d 49"]),
+        entry("fir_direct", "fir_direct.cu", "280+128",
+              fm["td"]["launches"]["fir_direct"], fmk["fir"],
+              *fmk["fir 49"][:2], bounds["fir"], fmk["conv1d 49"]),
+        entry("qdemod_fused", "qdemod.cu", 358,
+              sum(fm[p]["launches"]["qdemod_fused"] for p in fm), fmk["qd"],
+              *fmk["qd time"][:2], bounds["qd"]),
+        entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
+              osr["launches"], osr["err"], *osr["time"][:2], osr["bound"]),
+        entry("fft_batched_fused", "fft_batched.cu", 505, spr["launches"],
+              spr["err"], *spr["time"][:2], spr["bound"], spr["library_ms"]),
+        entry("costas_scalar", "costas.cu", 2287, cor["launches"], cor["err"],
+              *cor["time"], cor["bound"]),
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
         "gram_bf16_ms": gram_res["bf16"][0],
         "gram_bf16_plain_ms": gram_res["bf16"][1],
         "gram_bf16_max_abs_err": gram_res["bf16_err"],
+        "gram_bf16_bound_ms": bound(
+            2 * 2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
+            6 * XE_F * sp * sp * XE_T, BF16_OPS)[0],
         "xengine_step_ms": xe["step_ms"],
         "xengine_host_to_product_ms": xe["h2p_ms"],
         "fir_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
@@ -831,7 +1297,10 @@ def main() -> None:
         "ofs_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
                             if k.startswith("ofs ")},
         "fm_path": {p: {k: fm[p][k] for k in ("err", "step_ms", "busy_ms",
-                                               "wall_ms")} for p in fm}}
+                                               "wall_ms")} for p in fm},
+        "fft_bare_ms": spr["bare_ms"],
+        "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
+                  "costas": cor["path"]}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

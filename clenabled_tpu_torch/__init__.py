@@ -4,11 +4,13 @@ The same streaming SDR library, written for an NVIDIA Hopper GPU:
 
 - ``runtime``   — explicit device selection and the sm_90 probe.
 - ``dsp``       — windows and firdes designers (NumPy, copied from the JAX
-                  package), planar complex arithmetic, the critically
-                  sampled polyphase channelizer, the FD correlator, the
-                  X-Engine (unpacking, time-major, channel-major and
-                  stacked engines, pipeline integration), the FIR and FFT
-                  filters and the quadrature demodulator in torch, and
+                  package), planar complex arithmetic, the polyphase
+                  channelizer (critically sampled, oversampled and fused),
+                  the FD correlator, the X-Engine (unpacking, time-major,
+                  channel-major and stacked engines, pipeline
+                  integration), the FFT, the FIR and FFT filters, the
+                  quadrature demodulator and the Costas loop, the signal
+                  source and the elementwise math in torch, and
                   ``hopper_kernels``: the wrappers of the hand-written CUDA
                   kernels beside their plain torch versions.
 - ``pipelines`` — the 4-antenna FX receive step in its complex64, planar
@@ -16,11 +18,15 @@ The same streaming SDR library, written for an NVIDIA Hopper GPU:
 - ``streaming`` — the block protocol, ``Flowgraph`` and its ``Runner``
                   (with the live ``set_taps`` retune), and ``HostIngest``,
                   the pinned-memory host feed.
-- ``blocks``    — the ported named blocks: the ``Filter`` family,
-                  ``QuadratureDemod``, ``XEngine`` and
+- ``blocks``    — the ported named blocks: the core math blocks
+                  (``SignalSource``, ``Fft``, ``MathOp`` and its forms,
+                  the constants and conversions, ``Log``, ``SNRHelper``),
+                  the ``Filter`` family, ``PolyphaseChannelizer``,
+                  ``QuadratureDemod``, ``CostasLoop``, ``XEngine`` and
                   ``XCorrelateFFTVCF``.
-- ``tools``     — ``test_clxengine`` and ``test_clfilter``, the X-Engine
-                  and filter benchmarks.
+- ``tools``     — ``test_clxengine``, ``test_clfilter`` and
+                  ``test_clenabled_fft``, the X-Engine, filter and FFT
+                  benchmarks.
 
 The kernels in ``csrc/`` are compiled by ``_build`` at their first launch,
 never at import: importing this package touches no GPU.

@@ -6,23 +6,55 @@ device-selection tuple, which each constructor accepts and ignores
 (``_legacy.strip_legacy_kwargs``); the device is the Runner's.
 
 Reference block → class (ported so far):
+  clSignalSource            → SignalSource
+  clFFT (fwd/rev)           → Fft
+  clMultiply/clAdd/...      → Multiply, Add, Subtract, MultiplyConjugate,
+                              ComplexConjugate, MathOp
+  clMultConst/clAddConst    → MultiplyConst, AddConst
   clFilter (+GRC wrappers)  → Filter, LowPassFilter, HighPassFilter,
                               BandPassFilter, BandRejectFilter,
                               RootRaisedCosineFilter, FIRTapFilter
   clComplexFilter           → ComplexFilter
+  clPolyphaseChannelizer    → PolyphaseChannelizer
   clQuadratureDemod         → QuadratureDemod
+  clCostasLoop              → CostasLoop (exact sequential shapes)
+  clComplexToMag/Arg/...    → ComplexToMag, ComplexToArg, ComplexToMagPhase,
+                              MagPhaseToComplex
+  clLog/clLog10             → Log
+  clSNR                     → SNRHelper
   clxcorrelate_fft_vcf      → XCorrelateFFTVCF
   clXEngine                 → XEngine (message port "xcorr")
 
-The other blocks (core math, PolyphaseChannelizer, CostasLoop, XCorrelate,
-the typed and interpolating FIRs) wait their turn (ROADMAP.md A.11).
+Kernel1To1/Kernel2To1, XCorrelate, InterpFirFilter and the typed FIRs wait
+their turn (ROADMAP.md A.11).
 """
 
+from clenabled_tpu_torch.blocks.core import (  # noqa: F401
+    SignalSource,
+    Fft,
+    MathOp,
+    Multiply,
+    Add,
+    Subtract,
+    MultiplyConjugate,
+    ComplexConjugate,
+    MultiplyConst,
+    AddConst,
+    ComplexToMag,
+    ComplexToArg,
+    ComplexToMagPhase,
+    MagPhaseToComplex,
+    Log,
+    SNRHelper,
+)
 from clenabled_tpu_torch.blocks.correlators import (  # noqa: F401
     XCorrelateFFTVCF,
     XEngine,
 )
-from clenabled_tpu_torch.blocks.demod import QuadratureDemod  # noqa: F401
+from clenabled_tpu_torch.blocks.demod import (  # noqa: F401
+    CostasLoop,
+    QuadratureDemod,
+)
 from clenabled_tpu_torch.blocks.filters import (  # noqa: F401
     Filter,
     ComplexFilter,
@@ -32,9 +64,21 @@ from clenabled_tpu_torch.blocks.filters import (  # noqa: F401
     BandRejectFilter,
     RootRaisedCosineFilter,
     FIRTapFilter,
+    PolyphaseChannelizer,
 )
 
 # Reference-name aliases for one-to-one discoverability.
+clSignalSource = SignalSource
+clFFT = Fft
+clMathOp = MathOp
+clMultiply = Multiply
+clAdd = Add
+clSubtract = Subtract
+clMultiplyConjugate = MultiplyConjugate
+clComplexConjugate = ComplexConjugate
+clMathConst = MultiplyConst
+clMultConst = MultiplyConst
+clAddConst = AddConst
 clFilter = Filter
 clComplexFilter = ComplexFilter
 clLowPassFilter = LowPassFilter
@@ -43,6 +87,15 @@ clBandPassFilter = BandPassFilter
 clBandRejectFilter = BandRejectFilter
 clRootRaisedCosine = RootRaisedCosineFilter
 clFIRTapFilter = FIRTapFilter
+clPolyphaseChannelizer = PolyphaseChannelizer
 clQuadratureDemod = QuadratureDemod
+clCostasLoop = CostasLoop
+clComplexToMag = ComplexToMag
+clComplexToArg = ComplexToArg
+clComplexToMagPhase = ComplexToMagPhase
+clMagPhaseToComplex = MagPhaseToComplex
+clLog = Log
+clLog10 = Log
+clSNR = SNRHelper
 clxcorrelate_fft_vcf = XCorrelateFFTVCF
 clXEngine = XEngine

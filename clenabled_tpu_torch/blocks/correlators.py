@@ -126,7 +126,7 @@ class XEngine(Block):
                 npol=self.npol, integration_time=integration,
                 output_format=output_format,
                 pipeline_integration=pipeline_integration,
-                compute_dtype=compute_dtype, scale=scale,
+                compute_dtype=compute_dtype, scale=scale, device="cpu",
             )
         else:
             self._init, self._apply = dsp_xengine.make_xengine(
@@ -134,6 +134,7 @@ class XEngine(Block):
                 npol=self.npol, integration_time=integration,
                 output_format=output_format,
                 pipeline_integration=pipeline_integration, planar=planar,
+                device="cpu",
             )
 
     def init_state(self):

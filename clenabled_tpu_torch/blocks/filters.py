@@ -5,8 +5,9 @@ hand-written kernels on a CUDA Runner: the time-domain ``Filter`` with real
 taps on ``hopper_kernels.fir_direct``, the frequency-domain one on
 ``hopper_kernels.ofs_filter_planar`` (the overlap-save form, taken when a
 CUDA card is visible, as JAX takes it on a non-CPU backend).
-``PolyphaseChannelizer``, ``InterpFirFilter`` and ``FirFilterSCC``/``FSF``
-are not ported yet (ROADMAP.md A.11).
+``PolyphaseChannelizer(fused=True)`` with R < M runs
+``hopper_kernels.pfb_oversampled_fused``.  ``InterpFirFilter`` and
+``FirFilterSCC``/``FSF`` are not ported yet (ROADMAP.md A.8, A.11).
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import numpy as np
 import torch
 
 from clenabled_tpu_torch.blocks._legacy import strip_legacy_kwargs
+from clenabled_tpu_torch.dsp import channelizer as dsp_chan
 from clenabled_tpu_torch.dsp import fft_filter as dsp_ofa
 from clenabled_tpu_torch.dsp import fir_filter as dsp_fir
 from clenabled_tpu_torch.dsp import firdes
+from clenabled_tpu_torch.dsp import planar as pl_mod
 from clenabled_tpu_torch.streaming.block import Block
 
 
@@ -207,3 +210,58 @@ def FIRTapFilter(decimation, taps, use_time=False, planar=False,
     """clFIRTapFilter: general user-supplied taps."""
     return Filter(decimation, taps, use_time=use_time, planar=planar,
                   name=name, **legacy)
+
+
+class PolyphaseChannelizer(Block):
+    """clPolyphaseChannelizer (lib/clPolyphaseChannelizer_impl.cc): M-channel
+    PFB with oversampling (ninputs_per_iter ≤ M) and output channel map.
+
+    Output stream: interleaved selected channels, the reference's
+    [sample-group][ch_map] order (out rate = len(ch_map)/R).  With
+    ``fused=True`` and R < M (planar only) the step is the fused kernel
+    (``hopper_kernels.pfb_oversampled_fused``): its output stream equals
+    the unfused one for an input delayed by os_tail_len(M, R, ntaps) −
+    ntaps + 1 samples, and its state is that tail rather than the ntaps−1
+    history (the two never have the same length)."""
+
+    def __init__(self, taps, buf_items: int, num_channels: int,
+                 ninputs_per_iter: int, ch_map, planar: bool = False,
+                 fused: bool = False, name: str = "", **legacy):
+        strip_legacy_kwargs(legacy, self)
+        if buf_items % num_channels:
+            raise ValueError("buf_items must be a multiple of num_channels")
+        if buf_items % ninputs_per_iter:
+            raise ValueError("buf_items must be a multiple of ninputs_per_iter")
+        self.name = name
+        self.num_channels = num_channels
+        self.ninputs_per_iter = ninputs_per_iter
+        self.ch_map = list(ch_map)
+        self.quantum = buf_items
+        self.rate = Fraction(len(self.ch_map), ninputs_per_iter)
+        self.planar = planar
+        self.fused = fused and ninputs_per_iter < num_channels
+        if self.fused:
+            if not planar:
+                raise ValueError("fused oversampled channelizer is planar-only")
+            if buf_items % 1024:
+                raise ValueError("fused path needs buf_items % 1024 == 0")
+            self._init, self._apply = \
+                dsp_chan.make_channelizer_fused_oversampled(
+                    taps, num_channels, ninputs_per_iter, self.ch_map,
+                    device="cpu")
+        else:
+            self._init, self._apply = dsp_chan.make_channelizer(
+                taps, num_channels, ninputs_per_iter, self.ch_map,
+                planar=planar, device="cpu")
+
+    def init_state(self):
+        """Zero history (or tail) on the CPU; the Runner moves it."""
+        return self._init()
+
+    def apply(self, state, inputs):
+        state, out = self._apply(state, inputs[0])  # [n, C]
+        if isinstance(out, pl_mod.PC):
+            flat = pl_mod.PC(out.re.reshape(-1), out.im.reshape(-1))
+        else:
+            flat = out.reshape(-1)
+        return state, (flat,), {}

@@ -1,17 +1,22 @@
 """DSP library: NumPy design-time code (window, firdes), planar complex
-arithmetic, the critically sampled channelizer, the FD correlator, the
-X-Engine, the FIR and FFT filters, the quadrature demodulator, and the
-Hopper kernels (FX step, Gram, FIR, overlap-save filter, demodulator) with
+arithmetic, the polyphase channelizer (critically sampled and
+oversampled), the FD correlator, the X-Engine, the FFT, the FIR and FFT
+filters, the demodulators (quadrature and Costas), the signal source, the
+elementwise math, and the Hopper kernels (FX step, packed and oversampled
+PFB, Gram, FFT, FIR, overlap-save filter, demodulator, Costas loop) with
 their plain forms."""
 
 from clenabled_tpu_torch.dsp import (  # noqa: F401
     channelizer,
     demod,
+    elementwise,
+    fft,
     fft_filter,
     fir_filter,
     firdes,
     hopper_kernels,
     planar,
+    siggen,
     window,
     xcorr,
     xengine,

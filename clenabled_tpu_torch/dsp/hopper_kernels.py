@@ -20,12 +20,21 @@ ported so far:
   overlap-save FFT filter with complex taps and a carried input tail.
 - ``qdemod_fused`` (``csrc/qdemod.cu``): the quadrature demodulator with one
   carried sample.
+- ``pfb_oversampled_fused`` (``csrc/pfb_oversampled.cu``): the oversampled
+  (R < M, R | M) PFB channelizer step — branch sums over the virtual stream
+  tail ++ frame, the output rotation and the unscaled inverse DFT.
+- ``fft_batched_fused`` (``csrc/fft_batched.cu``): the batched unscaled FFT
+  of the ``Fft`` block, windowed, in natural order.
+- ``costas_scalar`` (``csrc/costas.cu``): the exact sequential Costas loop,
+  its (phase, freq, error) state in a 3-float device tensor.
 
 Each wrapper keeps the JAX function's argument order, shapes and outputs.
 Given CPU tensors it runs its plain torch form (``*_plain``: the
-channelizer's branch sums and ``planar.ifft_unscaled`` for the FX kernels,
-batched products for the Gram, ``conv1d`` for the FIR, ``torch.fft``
-overlap-save for the OFS filter, ``torch.atan2`` for the demodulator);
+channelizer's branch sums and ``planar.ifft_unscaled`` for the FX kernels
+and the oversampled PFB, batched products for the Gram, ``conv1d`` for the
+FIR, ``torch.fft`` overlap-save for the OFS filter, ``torch.atan2`` for the
+demodulator, the two-stage DFT of ``dsp.fft.fft_planar`` for the FFT, a
+per-sample loop for the Costas recurrence);
 given CUDA tensors it launches its kernel or raises — it never falls back.
 Each wrapper counts its kernel launches in its ``launches`` attribute.
 
@@ -45,7 +54,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from clenabled_tpu_torch.dsp import channelizer, demod, fir_filter, planar, xengine
+from clenabled_tpu_torch.dsp import (channelizer, demod, fft as dsp_fft,
+                                     fir_filter, planar, xengine)
 from clenabled_tpu_torch.runtime.device import per_device
 
 LANES = 128
@@ -108,6 +118,19 @@ def fx_tail_len(dtype, m: int | None = None, ntaps: int | None = None) -> int:
         while rows < need:
             rows *= 2
     return rows * LANES
+
+
+OS_TAIL_LEN = 8 * LANES      # the fused oversampled PFB's default tail
+
+
+def os_tail_len(m: int, r: int, ntaps: int) -> int:
+    """Carried-tail samples of ``pfb_oversampled_fused`` for an (M, R,
+    ntaps) configuration: OS_TAIL_LEN (1024) unless the tap reach
+    (W−1)·M + (L−1)·R needs a deeper halo; always a multiple of 128.  The
+    JAX package's values, so that states and output latency line up."""
+    w = -(-ntaps // m)
+    reach = (w - 1) * m + (m // r - 1) * r
+    return max(OS_TAIL_LEN, (reach // LANES + 2) * LANES)
 
 
 def _default_pairs(fd_pairs, xe_pairs, a: int):
@@ -852,16 +875,308 @@ def qdemod_fused(xr, xi, last_r, last_i, gain: float):
 qdemod_fused.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Kernel 3: the fused oversampled PFB
+# --------------------------------------------------------------------------
+
+_OS_GROUPS = 2048          # outputs (groups × channels) per block, at most
+
+
+def os_window_fits(m: int, r: int, w: int, device) -> bool:
+    """Whether the oversampled kernel can run M=m, R=r with W=w tap rows on
+    ``device``: one output group's window, branch sums and twiddles must fit
+    the card's opt-in shared memory per block (``csrc/pfb_oversampled.cu``
+    sizes them).  The plain form on the CPU has no such limit."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return True
+    with torch.cuda.device(device):
+        fits = _load().clen_os_fits(m, r, w)
+    if fits < 0:
+        raise RuntimeError(f"cannot read {device}'s shared memory: CUDA "
+                           f"error {-fits}")
+    return bool(fits)
+
+
+def _check_os(xr, xi, tail_r, tail_i, taps, m: int, r: int):
+    """The JAX function's semantic checks; returns (W, n, H)."""
+    n = xr.shape[-1]
+    if m % r:
+        raise ValueError("fused oversampled kernel requires R | M")
+    ell = m // r
+    if ell < 2:
+        raise ValueError("use the critical-sampled kernels for R == M")
+    if LANES % m:
+        raise ValueError(f"m must divide {LANES}")
+    if xr.dim() != 1 or xi.shape != xr.shape:
+        raise ValueError("xr/xi must be one row each, of one length")
+    if tail_r.shape != tail_i.shape or tail_r.dim() != 1 \
+            or tail_r.shape[0] % LANES:
+        raise ValueError("tails must be 1-D, equal-length, multiple of 128")
+    if taps.dim() != 2 or taps.shape[1] != m:
+        raise ValueError(f"taps_rm must be [W, {m}]")
+    h = tail_r.shape[0]
+    w = taps.shape[0]
+    if n < m or n % m:
+        raise ValueError(f"frame length {n} must be a positive multiple of "
+                         f"R·L = {m}")
+    reach = (w - 1) * m + (ell - 1) * r
+    if reach // LANES + 2 > h // LANES:
+        raise ValueError(
+            f"tap reach (w={w}, m={m}, r={r}) exceeds the {h // LANES}-row "
+            f"halo — size state with os_tail_len(m, r, ntaps)")
+    return w, n, h
+
+
+def pfb_oversampled_fused_plain(xr, xi, tail_r, tail_i, taps_rm, m: int,
+                                r: int, i_offset: int = 0):
+    """Plain torch form of ``pfb_oversampled_fused`` (any device): the XLA
+    phase-split branch sums (``channelizer._pfb_oversampled_planar``) of the
+    virtual stream with the padded tap count W·M, then
+    ``planar.ifft_unscaled``."""
+    taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=xr.device)
+    w, n, _ = _check_os(xr, xi, tail_r, tail_i, taps, m, r)
+    vr = torch.cat([tail_r, xr]).float()
+    vi = torch.cat([tail_i, xi]).float()
+    acc = channelizer._pfb_oversampled_planar(vr, vi, taps, m, r, w * m,
+                                              n // r, i_offset)
+    z = planar.ifft_unscaled(planar.PC(*acc))
+    return z.re, z.im
+
+
+def pfb_oversampled_fused(xr, xi, tail_r, tail_i, taps_rm, m: int, r: int,
+                          i_offset: int = 0):
+    """Fused oversampled (R < M, R | M) PFB channelizer step
+    (``csrc/pfb_oversampled.cu`` on CUDA).
+
+    For the virtual stream v = tail ++ frame, output group i reads
+    v[i·R .. i·R + W·M − 1]: acc[i, j] = Σ_c taps[c·M + j] ·
+    v[i·R + W·M − 1 − j − c·M], rotated to channel (j + (i + i_offset)·
+    (M − R)) mod M and inverse-DFT'd unscaled — the reference pipeline
+    (clPolyphaseChannelizer_impl.cc:156-167, :208-225) without the ch_map
+    selection.  Outputs lag the frame end by the tail length.
+
+    Args:
+      xr, xi: [n] float32, n a multiple of M = R·L (a whole number of
+        rotation phases per call).
+      tail_r, tail_i: [os_tail_len(M, R, ntaps)] float32 — the previous
+        frame's last samples (zeros first).
+      taps_rm: [W, M] branch-major prototype taps.
+      i_offset: the global output-group index of the first group (the
+        rotation phase of time-sharded callers).
+
+    Returns (zr, zi) each [n/R, M] float32, in output-group order.  The
+    JAX function's TPU selectors (tile_rows, mxu_dtype, flat_output,
+    precision, deep_strategy, interpret) have no counterpart."""
+    if xr.device.type == "cpu":
+        return pfb_oversampled_fused_plain(xr, xi, tail_r, tail_i, taps_rm, m,
+                                           r, i_offset)
+    dev = xr.device
+    taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
+    taps = taps.contiguous()
+    tw = _twiddles(m, dev)
+    _require_cuda(xr, xi, tail_r, tail_i, taps, tw)
+    if any(t.dtype != torch.float32 for t in (xr, xi, tail_r, tail_i)):
+        raise ValueError("the oversampled PFB kernel takes float32 streams")
+    w, n, h = _check_os(xr, xi, tail_r, tail_i, taps, m, r)
+    nout = n // r
+    lib = _load()
+    zr = torch.empty((nout, m), dtype=torch.float32, device=dev)
+    zi = torch.empty_like(zr)
+    err = lib.clen_pfb_oversampled(
+        xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
+        taps.data_ptr(), tw.data_ptr(), zr.data_ptr(), zi.data_ptr(), n, h, m,
+        r, w, int(i_offset) % m, max(1, _OS_GROUPS // m), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"pfb_oversampled launch failed: CUDA error {err} "
+            f"({lib.clen_os_smem_bytes(m, r, w, 1)} B of shared memory for "
+            f"one output group)")
+    pfb_oversampled_fused.launches += 1
+    return zr, zi
+
+
+pfb_oversampled_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 5: the batched FFT
+# --------------------------------------------------------------------------
+
+FFT_MIN, FFT_MAX = 256, 16384      # n2·128 with n2 a power of two in [2, 128]
+
+
+def fft_size_covered(fft_size: int) -> bool:
+    """The JAX kernel's envelope: fft_size = n2·128, n2 a power of two in
+    [2, 128]."""
+    n2 = fft_size // LANES
+    return (fft_size % LANES == 0 and 2 <= n2 <= 128
+            and (n2 & (n2 - 1)) == 0)
+
+
+@lru_cache(maxsize=None)
+def _fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """exp(−2πi·k/n), k < n/2, complex64 from float64."""
+    tw = np.exp(-2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
+    return torch.as_tensor(tw, device=device)
+
+
+def _check_fft(xr, xi, fft_size: int, window):
+    if not fft_size_covered(fft_size):
+        raise ValueError("fft_size/128 must be a power of two in [2, 128]")
+    if xr.dim() != 1 or xi.shape != xr.shape:
+        raise ValueError("xr/xi must be one row each, of one length")
+    n = xr.shape[-1]
+    if n % fft_size:
+        raise ValueError("stream length must be a multiple of fft_size")
+    if window is not None:
+        window = torch.as_tensor(window, dtype=torch.float32, device=xr.device)
+        if tuple(window.shape) != (fft_size,):
+            raise ValueError(f"window length {tuple(window.shape)} != "
+                             f"fft_size {fft_size}")
+    return n, window
+
+
+def fft_batched_fused_plain(xr, xi, fft_size: int, inverse: bool = False,
+                            window=None, shift: bool = False):
+    """Plain torch form of ``fft_batched_fused`` (any device): the two-stage
+    DFT of ``dsp.fft.fft_planar`` over [n/fft_size, fft_size] vectors."""
+    n, window = _check_fft(xr, xi, fft_size, window)
+    x = planar.PC(xr.reshape(-1, fft_size), xi.reshape(-1, fft_size))
+    y = dsp_fft.fft_planar(x, dsp_fft.REVERSE if inverse else dsp_fft.FORWARD,
+                           window=window, shift=shift)
+    return y.re.reshape(n), y.im.reshape(n)
+
+
+def fft_batched_fused(xr, xi, fft_size: int, inverse: bool = False,
+                      window=None, shift: bool = False):
+    """Batched unscaled FFT over a planar stream chopped into fft_size
+    vectors (``csrc/fft_batched.cu`` on CUDA): optional window on load,
+    sign −1 forward and +1 inverse, natural-order output.
+
+    xr/xi: [n] float32, n a multiple of fft_size; fft_size = n2·128 with
+    n2 a power of two in [2, 128] (256 to 16384 points).  ``shift`` is the
+    ``Fft`` block's: forward, an fftshift of each output vector; inverse,
+    the input halves swapped before the window (lib/clFFT_impl.cc:544-607).
+    The JAX function leaves the shift to its caller; the kernel does it in
+    its load and store indices.  Returns (yr, yi) [n] float32."""
+    if xr.device.type == "cpu":
+        return fft_batched_fused_plain(xr, xi, fft_size, inverse, window,
+                                       shift)
+    n, window = _check_fft(xr, xi, fft_size, window)
+    dev = xr.device
+    tw = _fft_twiddles(fft_size, dev)
+    ins = (xr, xi, tw) if window is None else (xr, xi, tw, window.contiguous())
+    _require_cuda(*ins)
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise ValueError("the FFT kernel takes float32 streams")
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    lib = _load()
+    err = lib.clen_fft_batched(
+        xr.data_ptr(), xi.data_ptr(),
+        None if window is None else ins[3].data_ptr(), tw.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), n, fft_size, int(inverse), int(shift),
+        _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fft_batched launch failed: CUDA error {err} "
+                           f"({lib.clen_fft_smem_bytes(fft_size)} B of shared "
+                           f"memory per block)")
+    fft_batched_fused.launches += 1
+    return yr, yi
+
+
+fft_batched_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernel 10: the exact sequential Costas loop
+# --------------------------------------------------------------------------
+
+def _check_costas(xr, xi, order: int):
+    if order not in (2, 4):
+        raise ValueError("costas loop order must be 2 or 4")
+    if xr.dim() != 1 or xi.shape != xr.shape:
+        raise ValueError("xr/xi must be one row each, of one length")
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
+
+
+def costas_scalar_plain(xr, xi, phase, freq, error, order: int, alpha: float,
+                        beta: float, f_min: float = -1.0, f_max: float = 1.0):
+    """Plain torch form of ``costas_scalar`` (any device):
+    ``demod._costas_step_planar`` one sample at a time on 0-d float32
+    tensors.  One Python step per sample: for tests and checks."""
+    _check_costas(xr, xi, order)
+    dev = xr.device
+    step = demod._costas_step_planar(
+        order, *(_f32(v, dev) for v in (alpha, beta, f_min, f_max)))
+    carry = tuple(_f32(v, dev) for v in (phase, freq, error))
+    outs_r, outs_i = [], []
+    for t in range(xr.shape[0]):
+        carry, (o_r, o_i) = step(carry, (xr[t], xi[t]))
+        outs_r.append(o_r)
+        outs_i.append(o_i)
+    if not outs_r:
+        return (xr.new_zeros(0), xi.new_zeros(0)) + carry
+    return (torch.stack(outs_r), torch.stack(outs_i)) + carry
+
+
+def costas_scalar(xr, xi, phase, freq, error, order: int, alpha: float,
+                  beta: float, f_min: float = -1.0, f_max: float = 1.0):
+    """Exact sequential Costas loop over one planar frame
+    (``csrc/costas.cu`` on CUDA): the recurrence of
+    ``demod._costas_step_planar`` (GR control_loop semantics, reference
+    lib/clCostasLoop_impl.cc:151-312) with IEEE ``cosf``/``sinf``.
+
+    xr/xi: [n] float32, any n; phase, freq, error: the carried state
+    (0-d tensors or floats).  The state goes to the kernel as one 3-float
+    device tensor and comes back as one, so a stream of frames never waits
+    on the host.  Returns (o_r [n], o_i [n], phase', freq', error'), the
+    last three 0-d views of the kernel's state tensor.  The JAX function's
+    ``chunk`` and ``interpret`` have no counterpart."""
+    if xr.device.type == "cpu":
+        return costas_scalar_plain(xr, xi, phase, freq, error, order, alpha,
+                                   beta, f_min, f_max)
+    _check_costas(xr, xi, order)
+    dev = xr.device
+    st = torch.stack([_f32(v, dev) for v in (phase, freq, error)])
+    _require_cuda(xr, xi, st)
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise ValueError("the Costas kernel takes float32 samples")
+    o_r = torch.empty_like(xr)
+    o_i = torch.empty_like(xi)
+    st_out = torch.empty_like(st)
+    err = _load().clen_costas(
+        xr.data_ptr(), xi.data_ptr(), st.data_ptr(), st_out.data_ptr(),
+        o_r.data_ptr(), o_i.data_ptr(), xr.shape[0], order, float(alpha),
+        float(beta), float(f_min), float(f_max), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"costas launch failed: CUDA error {err}")
+    costas_scalar.launches += 1
+    return o_r, o_i, st_out[0], st_out[1], st_out[2]
+
+
+costas_scalar.launches = 0
+
+
+_COUNTED = (fx_correlate_streams_v2, fx_correlate_streams,
+            pfb_channelize_packed, xengine_gram_stacked,
+            xengine_gram_stacked_blocks, xengine_gram_stacked_tri, fir_direct,
+            ofs_filter_planar, qdemod_fused, pfb_oversampled_fused,
+            fft_batched_fused, costas_scalar)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's kernel launches since the last reset, by name."""
+    return {f.__name__: f.launches for f in _COUNTED}
+
+
 def reset_launch_counts() -> None:
-    fx_correlate_streams_v2.launches = 0
-    fx_correlate_streams.launches = 0
-    pfb_channelize_packed.launches = 0
-    xengine_gram_stacked.launches = 0
-    xengine_gram_stacked_blocks.launches = 0
-    xengine_gram_stacked_tri.launches = 0
-    fir_direct.launches = 0
-    ofs_filter_planar.launches = 0
-    qdemod_fused.launches = 0
+    for f in _COUNTED:
+        f.launches = 0
 
 
 def _load():

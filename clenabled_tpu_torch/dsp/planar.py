@@ -28,6 +28,39 @@ class PC(NamedTuple):
         return self.re.shape
 
 
+def from_complex(x, device=None) -> PC:
+    """Split a complex array or tensor into float32 (re, im) tensors, on
+    ``device`` (a tensor's own device by default; the CPU for arrays)."""
+    if torch.is_tensor(x):
+        dev = x.device if device is None else torch.device(device)
+        return PC(x.real.float().to(dev), x.imag.float().to(dev))
+    x = np.asarray(x)
+    dev = "cpu" if device is None else device
+    return PC(torch.as_tensor(x.real.astype(np.float32), device=dev),
+              torch.as_tensor(x.imag.astype(np.float32), device=dev))
+
+
+def to_complex(x: PC) -> torch.Tensor:
+    """Join (re, im) into a complex64 tensor on their device."""
+    return torch.complex(x.re.float(), x.im.float())
+
+
+def add(a: PC, b: PC) -> PC:
+    return PC(a.re + b.re, a.im + b.im)
+
+
+def sub(a: PC, b: PC) -> PC:
+    return PC(a.re - b.re, a.im - b.im)
+
+
+def conj(a: PC) -> PC:
+    return PC(a.re, -a.im)
+
+
+def scale(a: PC, s) -> PC:
+    return PC(a.re * s, a.im * s)
+
+
 def mul(a: PC, b: PC) -> PC:
     return PC(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re)
 
@@ -127,3 +160,8 @@ def ifft_unscaled(x: PC) -> PC:
     """Inverse kernel without 1/N — the reference's backward transform
     with scale forced 1.0."""
     return fft(x, inverse=True)
+
+
+def fftshift(x: PC, axis: int = -1) -> PC:
+    n = x.re.shape[axis]
+    return PC(torch.roll(x.re, n // 2, axis), torch.roll(x.im, n // 2, axis))

@@ -19,7 +19,7 @@ static index into it.  The engines, in the JAX package's order:
   (int8 sums exact: int64 on the CPU, float64 on the card).
 
 ``make_xengine`` / ``make_xengine_channel_major`` integrate on the device
-and emit every ``pipeline_integration`` calls (``_pipeline_emit``).  The
+they are given (the card unless the caller asks for the CPU) and emit every ``pipeline_integration`` calls (``_pipeline_emit``).  The
 integration count stays on the host (a Python int), so deciding whether a
 call emits never waits for the card.  Input unpacking matches CharToComplex
 (:831-858): signed-byte I/Q scaled by 1/127, packed 4-bit two's-complement
@@ -36,6 +36,7 @@ import torch
 
 from clenabled_tpu_torch import _tree
 from clenabled_tpu_torch.dsp import planar
+from clenabled_tpu_torch.runtime.device import get_device
 
 # output_format codes (lib/clXEngine_impl.h:28-29)
 CLXCORR_TRIANGULAR_ORDER = 1
@@ -369,7 +370,7 @@ def make_xengine_channel_major(num_inputs: int, num_channels: int, npol: int,
                                output_format: int = CLXCORR_TRIANGULAR_ORDER,
                                pipeline_integration: int = 0,
                                compute_dtype=None, scale: float = 1.0,
-                               device="cpu"):
+                               device=None):
     """Streaming channel-major X-Engine with pipeline integration:
     (init_state, apply).
 
@@ -377,13 +378,15 @@ def make_xengine_channel_major(num_inputs: int, num_channels: int, npol: int,
     returns (state', (out planar.PC, ready)): each call's correlation
     (``xengine_correlate_stacked``) is added to a float32 accumulator on
     ``device`` and emitted every ``pipeline_integration`` calls, zeros in
-    between.  init_state() allocates the accumulator on ``device``."""
+    between.  init_state() allocates the accumulator on ``device``:
+    ``None`` means ``cuda:0`` and raises when no card is visible; pass
+    ``device="cpu"`` for the host."""
     if npol not in (1, 2):
         raise ValueError("npol must be 1 or 2")
     out_shape = _out_shape(num_inputs, num_channels, npol, output_format)
     pipe = max(1, pipeline_integration)
     expected = (num_channels, integration_time, num_inputs * npol)
-    dev = torch.device(device)
+    dev = get_device("cuda") if device is None else torch.device(device)
 
     def init_state() -> XEngineState:
         z = torch.zeros(out_shape, dtype=torch.float32, device=dev)
@@ -408,14 +411,16 @@ def make_xengine(num_inputs: int, num_channels: int, npol: int,
                  integration_time: int,
                  output_format: int = CLXCORR_TRIANGULAR_ORDER,
                  pipeline_integration: int = 0, planar: bool = False,
-                 device="cpu"):
+                 device=None):
     """Streaming time-major X-Engine: (init_state, apply).
 
     apply(state, frames) with frames [integration_time, S, F, P] (complex64,
     or a planar.PC with ``planar``) returns (state', (out, ready)): the
     correlation each call when pipeline_integration ≤ 1, else the sum
     emitted every ``pipeline_integration`` calls (zeros and ready=False in
-    between)."""
+    between).  The accumulator lives on ``device``: ``None`` means
+    ``cuda:0`` and raises when no card is visible; pass ``device="cpu"``
+    for the host."""
     from clenabled_tpu_torch.dsp import planar as pl_mod
 
     if npol not in (1, 2):
@@ -423,7 +428,7 @@ def make_xengine(num_inputs: int, num_channels: int, npol: int,
     out_shape = _out_shape(num_inputs, num_channels, npol, output_format)
     pipe = max(1, pipeline_integration)
     expected = (integration_time, num_inputs, num_channels, npol)
-    dev = torch.device(device)
+    dev = get_device("cuda") if device is None else torch.device(device)
 
     def init_state() -> XEngineState:
         if planar:

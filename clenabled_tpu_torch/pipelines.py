@@ -19,7 +19,8 @@ accumulates in float32.  The sharded pipelines are not ported yet
 
 The ``*_from_reference`` functions hand state over from the JAX package:
 the FX step's tails, an X-Engine integration, and a whole ``Runner``'s
-carried states (``runner_state_from_reference``).
+carried states (``runner_state_from_reference``: filter tails, Costas
+loop and signal-source states, channelizer histories and fused tails).
 """
 
 from __future__ import annotations
@@ -232,7 +233,7 @@ def _tensor_from_reference(arr, dtype: torch.dtype | None,
         # ml_dtypes.bfloat16, which torch.from_numpy refuses: move the bits
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(arr, order="C"))   # a writable copy
     if dtype is not None:
         t = t.to(dtype)
     return t.to(torch.device(device)).contiguous()
@@ -289,11 +290,18 @@ def runner_state_from_reference(runner, states, state_kinds):
       state_kinds: per block in the JAX Runner's order, its filter state
         kind (``block._state_kind``: "td", "ofa" or "ofs") or None.
 
-    Raises ValueError where the trees or a block's state kind differ —
-    always between an overlap-add (output-domain) and an overlap-save
-    (input-domain) filter tail, which have no mapping (the rule of
-    ``Filter.migrate_state``).  Filter taps are numpy designs that both
-    packages share, so only the states move."""
+    Named tuples move into the port's own (a JAX ``CostasState`` becomes
+    the port's ``CostasState``, a ``SigGenState`` its ``SigGenState``) and
+    0-d leaves stay 0-d.  A ``PolyphaseChannelizer`` carries (re, im) of
+    its ntaps−1 history, or with ``fused=True`` of its os_tail_len tail;
+    the tail is always the longer (by at least 130 − R samples), so the
+    shape check refuses a hand-over between the two forms.
+
+    Raises ValueError where the trees, a leaf's shape or a block's state
+    kind differ — always between an overlap-add (output-domain) and an
+    overlap-save (input-domain) filter tail, which have no mapping (the
+    rule of ``Filter.migrate_state``).  Filter taps are numpy designs that
+    both packages share, so only the states move."""
     blocks = runner._order
     if len(states) != len(blocks) or len(state_kinds) != len(blocks):
         raise ValueError(f"expected the states of {len(blocks)} blocks")

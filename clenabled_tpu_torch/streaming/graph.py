@@ -325,7 +325,7 @@ class Runner:
         device; other leaves (ints, flags) as they are."""
         def move(x):
             if isinstance(x, np.ndarray):
-                x = torch.from_numpy(np.ascontiguousarray(x))
+                x = torch.from_numpy(np.ascontiguousarray(x).reshape(x.shape))
             if torch.is_tensor(x):
                 return x.to(self.device, non_blocking=True)
             return x

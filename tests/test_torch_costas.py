@@ -1,0 +1,277 @@
+"""Port parity: the exact sequential Costas loop (B.9) and its block.
+
+The port runs one recurrence (``demod._costas_step_planar``) for all three
+exact-sequential forms: on the card through ``csrc/costas.cu``, on the CPU
+through the kernel's plain form, a per-sample torch loop.  It is held to
+the JAX package's forms within JAX's own tolerances
+(tests/test_siggen_demod.py:279-286): 5e-6 on the outputs, 1e-5 on the
+carried phase and 1e-6 on the carried frequency — the scan form (exact
+``cos``/``sin``), the complex form and the Pallas scalar kernel in
+interpret mode (1-ulp polynomial sin/cos).  Flowgraphs over 3 frames are
+held to JAX's within 1e-4 × max|ref|.  On a card (``cuda`` marker; skipped
+without one) the kernel is held to its plain form bit for bit or within
+5e-6.  Frames stay at or below 4096 samples: the plain loop costs one
+Python step per sample.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+
+    from clenabled_tpu import blocks as j_blocks
+    from clenabled_tpu.dsp import demod as j_demod
+    from clenabled_tpu.dsp import pallas_kernels as j_pk
+    from clenabled_tpu.dsp import planar as j_planar
+    from clenabled_tpu.streaming import Flowgraph as JFlowgraph
+except ImportError:  # a card machine without JAX runs the card tests only
+    jnp = None
+
+from clenabled_tpu_torch import blocks
+from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch.dsp import demod
+from clenabled_tpu_torch.dsp import hopper_kernels as hk
+from clenabled_tpu_torch.dsp import planar
+from clenabled_tpu_torch.streaming import Flowgraph
+
+OUT_TOL, PHASE_TOL, FREQ_TOL = 5e-6, 1e-5, 1e-6
+FLOW_TOL = 1e-4
+
+
+def np_of(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+@pytest.fixture
+def ref():
+    if jnp is None:
+        pytest.skip("needs JAX, the reference")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", 0)
+
+
+def stream(n, order, seed, omega=0.02, noise=0.01):
+    """The JAX test's signal: BPSK (order 2) or QPSK (order 4) symbols at
+    ``omega`` rad/sample of carrier offset, with noise, as float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    k = rng.integers(0, order, n)
+    sym = np.exp(1j * (np.pi * k if order == 2 else np.pi / 4 * (2 * k + 1)))
+    sig = sym * np.exp(1j * (omega * t + 0.3))
+    sig = sig + noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return sig.real.astype(np.float32), sig.imag.astype(np.float32)
+
+
+def close(got, want, tol):
+    err = float(np.abs(np_of(got).astype(np.float64) - np_of(want)).max())
+    assert err <= tol, err
+    return err
+
+
+def test_gains_and_init_match_jax(ref):
+    for bw in (0.00628, 0.02, 0.1):
+        assert demod.costas_gains(bw) == j_demod.costas_gains(bw)
+    st = demod.costas_init(device="cpu")
+    assert [float(v) for v in st] == [0.0, 0.0, 0.0]
+    assert all(v.dtype == torch.float32 and v.dim() == 0 for v in st)
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_planar_forms_match_jax_scan(ref, order):
+    """make_costas_loop_planar and _scalar (plain on the CPU) against JAX's
+    scan form over two frames, the state carried across the seam."""
+    xr, xi = stream(4096, order, seed=9)
+    j_run = j_demod.make_costas_loop_planar(0.02, order)
+    j_st = j_demod.costas_init()
+    runs = {"planar": demod.make_costas_loop_planar(0.02, order),
+            "scalar": demod.make_costas_loop_scalar(0.02, order)}
+    sts = {k: demod.costas_init(device="cpu") for k in runs}
+    for lo, hi in ((0, 2048), (2048, 4096)):
+        j_st, j_out = j_run(j_st, j_planar.PC(jnp.asarray(xr[lo:hi]),
+                                               jnp.asarray(xi[lo:hi])))
+        for k, run in runs.items():
+            sts[k], out = run(sts[k], planar.PC(torch.from_numpy(xr[lo:hi]),
+                                                torch.from_numpy(xi[lo:hi])))
+            close(out.re, j_out.re, OUT_TOL)
+            close(out.im, j_out.im, OUT_TOL)
+    for st in sts.values():
+        close(st.phase, j_st.phase, PHASE_TOL)
+        close(st.freq, j_st.freq, FREQ_TOL)
+        close(st.error, j_st.error, OUT_TOL)
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_plain_form_matches_pallas_scalar_kernel(ref, order):
+    """costas_scalar (plain) against the Pallas scalar-core kernel in
+    interpret mode, from a nonzero carried state."""
+    xr, xi = stream(2048, order, seed=11)
+    alpha, beta = demod.costas_gains(0.02)
+    want = j_pk.costas_scalar(jnp.asarray(xr), jnp.asarray(xi), 0.4, 0.01,
+                              0.2, order, alpha, beta, chunk=512,
+                              interpret=True)
+    hk.reset_launch_counts()
+    got = hk.costas_scalar(torch.from_numpy(xr), torch.from_numpy(xi),
+                           torch.tensor(0.4), torch.tensor(0.01), 0.2, order,
+                           alpha, beta)
+    assert hk.costas_scalar.launches == 0
+    close(got[0], want[0], OUT_TOL)
+    close(got[1], want[1], OUT_TOL)
+    close(got[2], want[2], PHASE_TOL)
+    close(got[3], want[3], FREQ_TOL)
+
+
+def test_complex_form_matches_jax(ref):
+    xr, xi = stream(3000, 2, seed=12)
+    z = (xr + 1j * xi).astype(np.complex64)
+    j_st, j_out = j_demod.make_costas_loop(0.05, 2)(j_demod.costas_init(), z)
+    st, out = demod.make_costas_loop(0.05, 2)(demod.costas_init(device="cpu"),
+                                              torch.from_numpy(z))
+    assert out.dtype == torch.complex64
+    close(out.real, np.asarray(j_out).real, OUT_TOL)
+    close(out.imag, np.asarray(j_out).imag, OUT_TOL)
+    close(st.phase, j_st.phase, PHASE_TOL)
+    close(st.freq, j_st.freq, FREQ_TOL)
+
+
+def test_wrapper_contract():
+    """Any length (0 included), state as floats or 0-d tensors, frequency
+    clamp, order and shape checks."""
+    alpha, beta = demod.costas_gains(0.1)
+    x = torch.from_numpy(np.stack(stream(300, 2, seed=13)))
+    o_r, o_i, ph, fr, er = hk.costas_scalar(x[0], x[1], 0.0, 0.0, 0.5, 2,
+                                            alpha, beta)
+    assert o_r.shape == (300,) and ph.dim() == fr.dim() == er.dim() == 0
+    e = hk.costas_scalar(x[0, :0], x[1, :0], ph, fr, er, 2, alpha, beta)
+    assert e[0].shape == (0,) and float(e[2]) == float(ph)
+    assert float(e[4]) == float(er)
+    clamped = hk.costas_scalar(x[0], x[1], 0.0, 0.0, 0.0, 2, alpha, beta,
+                               f_min=-1e-4, f_max=1e-4)
+    assert abs(float(clamped[3])) <= 1e-4
+    with pytest.raises(ValueError, match="order"):
+        hk.costas_scalar(x[0], x[1], 0.0, 0.0, 0.0, 3, alpha, beta)
+    with pytest.raises(ValueError, match="one length"):
+        hk.costas_scalar(x[0], x[1, :5], 0.0, 0.0, 0.0, 2, alpha, beta)
+    with pytest.raises(ValueError, match="order"):
+        demod.make_costas_loop(0.02, 3)
+
+
+def test_block_flags_match_jax():
+    """The JAX block's exclusivity errors; the shapes the port leaves
+    queued raise NotImplementedError naming ROADMAP A.9."""
+    with pytest.raises(ValueError, match="exclusive"):
+        blocks.CostasLoop(0.02, 2, planar=True, chunked=True, scalar=True)
+    with pytest.raises(ValueError, match="exclusive"):
+        blocks.CostasLoop(0.02, 2, planar=True, scalar=True, num_streams=4)
+    with pytest.raises(ValueError, match="exclusive"):
+        blocks.CostasLoop(0.02, 2, planar=True, chunked=True, num_streams=4)
+    with pytest.raises(ValueError, match="planar"):
+        blocks.CostasLoop(0.02, 2, scalar=True)
+    with pytest.raises(ValueError, match="planar"):
+        blocks.CostasLoop(0.02, 2, chunked=True)
+    for kw in (dict(planar=True, chunked=True), dict(num_streams=2)):
+        with pytest.raises(NotImplementedError, match="A.9"):
+            blocks.CostasLoop(0.02, 2, **kw)
+    assert blocks.clCostasLoop is blocks.CostasLoop
+
+
+@pytest.mark.parametrize("kw", [dict(planar=True, scalar=True),
+                                dict(planar=True), dict()],
+                         ids=["scalar", "planar", "complex"])
+def test_flowgraph_matches_jax(ref, kw):
+    """A CostasLoop flowgraph over 3 frames against the JAX one."""
+    n = 1024
+    xr, xi = stream(3 * n, 2, seed=14)
+
+    def build(mod, fg, **compile_kw):
+        blk = mod.CostasLoop(0.02, 2, **kw)
+        g = fg()
+        g.external_input(blk)
+        t = g.tap(blk)
+        return g.compile(frame_size=n, **compile_kw), t
+
+    jr, jt = build(j_blocks, JFlowgraph)
+    tr, tt = build(blocks, Flowgraph, device="cpu")
+    for k in range(3):
+        sl = slice(k * n, (k + 1) * n)
+        if kw.get("planar"):
+            want = jr.step(j_planar.PC(jnp.asarray(xr[sl]),
+                                       jnp.asarray(xi[sl])))[jt]
+            got = tr.step(planar.PC(torch.from_numpy(xr[sl]),
+                                    torch.from_numpy(xi[sl])))[tt]
+            pairs = [(got.re, want.re), (got.im, want.im)]
+        else:
+            z = (xr[sl] + 1j * xi[sl]).astype(np.complex64)
+            want = np.asarray(jr.step(z)[jt])
+            got = tr.step(torch.from_numpy(z))[tt]
+            pairs = [(got.real, want.real), (got.imag, want.imag)]
+        for g_, w_ in pairs:
+            close(g_, w_, FLOW_TOL * float(np.abs(np_of(w_)).max()))
+
+
+def test_runner_state_from_reference(ref):
+    """A stream begun in the JAX package continues in the port: the
+    CostasState moves over as the port's CostasState of 0-d tensors."""
+    n = 1024
+    xr, xi = stream(2 * n, 2, seed=15)
+
+    def build(mod, fg, **compile_kw):
+        blk = mod.CostasLoop(0.02, 2, planar=True)
+        g = fg()
+        g.external_input(blk)
+        t = g.tap(blk)
+        return g.compile(frame_size=n, **compile_kw), t
+
+    jr, jt = build(j_blocks, JFlowgraph)
+    tr, tt = build(blocks, Flowgraph, device="cpu")
+    jr.step(j_planar.PC(jnp.asarray(xr[:n]), jnp.asarray(xi[:n])))
+    states = [tuple(np.asarray(v) for v in s) for s in jr.states]
+    tr.states = P.runner_state_from_reference(tr, states, [None])
+    st = tr.states[0]
+    assert isinstance(st, demod.CostasState) and st.phase.dim() == 0
+    assert float(st.freq) == float(jr.states[0].freq)
+    want = jr.step(j_planar.PC(jnp.asarray(xr[n:]), jnp.asarray(xi[n:])))[jt]
+    got = tr.step(planar.PC(torch.from_numpy(xr[n:]),
+                            torch.from_numpy(xi[n:])))[tt]
+    close(got.re, want.re, OUT_TOL)
+    close(got.im, want.im, OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+def test_costas_kernel_matches_plain_on_card(card, order):
+    xr, xi = stream(4096, order, seed=20, omega=0.005, noise=0.05)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    alpha, beta = demod.costas_gains(0.00628)
+    args = (x[0], x[1], 0.3, 0.001, 0.0, order, alpha, beta)
+    before = hk.costas_scalar.launches
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    assert hk.costas_scalar.launches == before + 1
+    want = hk.costas_scalar_plain(*args)
+    for g_, w_ in zip(got, want):
+        assert float((g_.double() - w_.double()).abs().max()) <= 5e-6
+
+
+@pytest.mark.cuda
+def test_costas_seam_on_card(card):
+    """Chained frames through the block equal one call over the joined
+    stream bit for bit: the state stays on the card between frames."""
+    xr, xi = stream(4 * 2048, 2, seed=21)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    run = demod.make_costas_loop_planar(0.02, 2)
+    st, outs = demod.costas_init(device=card), []
+    for k in range(4):
+        sl = slice(k * 2048, (k + 1) * 2048)
+        st, o = run(st, planar.PC(x[0, sl], x[1, sl]))
+        outs.append(o)
+    alpha, beta = demod.costas_gains(0.02)
+    whole = hk.costas_scalar(x[0], x[1], 0.0, 0.0, 0.0, 2, alpha, beta)
+    assert torch.equal(torch.cat([o.re for o in outs]), whole[0])
+    assert torch.equal(torch.stack(list(st)), torch.stack(whole[2:]))

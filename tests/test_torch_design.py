@@ -199,9 +199,13 @@ def test_channelize_complex_and_planar():
         taps_rm, torch.from_numpy(ch), **kw)
     close(got_p.re, want_p.re)
     close(got_p.im, want_p.im)
-    with pytest.raises(NotImplementedError):
-        t_chan._channelize(torch.from_numpy(x), taps_rm, torch.from_numpy(ch),
-                           num_channels=m, ninputs_per_iter=8, ntaps=ntaps)
+    # the oversampled (R < M) path, ported since: the same rows as JAX's
+    kw_os = dict(kw, ninputs_per_iter=8)
+    taps_os, _ = t_chan._pfb_constants(taps, m, 8)
+    want_os = np.stack([np.asarray(j_chan._channelize(
+        xa, taps_os, ch.astype(np.int32), **kw_os)) for xa in x])
+    close(t_chan._channelize(torch.from_numpy(x), taps_os,
+                             torch.from_numpy(ch), **kw_os).numpy(), want_os)
 
 
 def test_fd_xcorr_complex_and_planar():

@@ -292,7 +292,7 @@ def test_channel_major_pipeline_emits_like_jax(ref, dt):
     kw = dict(num_inputs=s, num_channels=f, npol=p, integration_time=t,
               pipeline_integration=3, scale=scale)
     jinit, japply = j_xe.make_xengine_channel_major(**kw)
-    tinit, tapply = xe.make_xengine_channel_major(**kw)
+    tinit, tapply = xe.make_xengine_channel_major(**kw, device="cpu")
     _, want = _run(japply, jinit(), [(_j(a, dt), _j(b, dt)) for a, b in frames])
     _, got = _run(tapply, tinit(), [(_t(a, dt), _t(b, dt)) for a, b in frames])
     assert [r for _, r in got] == [False, False, True] * 2
@@ -312,7 +312,7 @@ def test_time_major_pipeline_emits_like_jax(ref, planar_mode):
     kw = dict(num_inputs=s, num_channels=f, npol=p, integration_time=t,
               pipeline_integration=3, planar=planar_mode)
     jinit, japply = j_xe.make_xengine(**kw)
-    tinit, tapply = xe.make_xengine(**kw)
+    tinit, tapply = xe.make_xengine(**kw, device="cpu")
     zs = [(rng.standard_normal((t, s, f, p)).astype(np.float32),
            rng.standard_normal((t, s, f, p)).astype(np.float32))
           for _ in range(6)]
@@ -336,6 +336,21 @@ def test_pipeline_emit_resets_count():
     assert not acc.any()
 
 
+@pytest.mark.parametrize("maker", ["make_xengine", "make_xengine_channel_major"])
+def test_engines_default_to_the_card(monkeypatch, maker):
+    """Without ``device`` the engines integrate on the card, so with no
+    card they raise; ``device="cpu"`` keeps the host accumulator."""
+    kw = dict(num_inputs=3, num_channels=4, npol=2, integration_time=8,
+              pipeline_integration=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(xe, maker)(**kw)
+    init, _ = getattr(xe, maker)(**kw, device="cpu")
+    st = init()
+    acc = st.accum.re if isinstance(st.accum, planar.PC) else st.accum
+    assert acc.device.type == "cpu" and st.count == 0
+
+
 def test_state_from_reference_continues_jax_run(ref):
     """Two of three integrations in JAX, the rest of the run in the port
     from JAX's state: the same emissions as JAX's uninterrupted run."""
@@ -353,7 +368,7 @@ def test_state_from_reference_continues_jax_run(ref):
                                            np.asarray(jstate.accum.im),
                                            np.asarray(jstate.count))
     assert state.count == 2 and state.accum.re.dtype == torch.float32
-    _, tapply = xe.make_xengine_channel_major(**kw)
+    _, tapply = xe.make_xengine_channel_major(**kw, device="cpu")
     _, got = _run(tapply, state,
                   [(_t(a, "int8"), _t(b, "int8")) for a, b in frames[2:]])
     _check_emissions(got, want)
