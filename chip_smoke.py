@@ -41,7 +41,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    quantum) and the quadrature demodulator (B.8: 2^21 samples and an
    odd length) against their plain forms
    at 2^21 samples, tolerance 1e-4 × max|plain|, with kernel and plain
-   times.
+   times; the library call ``conv1d`` (TF32 off) held to the FIR kernel
+   at 49 taps and to the overlap-save kernel at 1601 taps, and timed.
 9. FM paths — counts reset, then a ``Flowgraph`` of
    ``LowPassFilter(1, 1.0, 10e6, 1.5e6, 500e3, planar=True)`` (49 taps,
    the ``examples/streaming_ingest.py`` configuration) → ``QuadratureDemod
@@ -67,7 +68,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-4 × max|plain|, tails bit-equal.
 11. spectrum chain — the FFT kernel (B.5) against its plain form at 256,
    1024, 2048 and 16384 points, forward and inverse, windowed or not,
-   shifted or not, and beside ``torch.fft.fft`` (cuFFT); then counts
+   shifted or not, and the bare kernel held to and timed beside
+   ``torch.fft.fft`` (cuFFT) at each of those sizes; then counts
    reset, ``SignalSource(1e6, 1, 250e3, 1.0, 2**21, planar=True)`` →
    ``Fft(2048, window=blackman_harris(2048), shift=True)`` →
    ``MultiplyConst(2.0)`` → ``ComplexToMag`` over 8 frames, one FFT launch
@@ -102,6 +104,7 @@ package beside this script, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -416,23 +419,30 @@ def fm_kernel_phase(torch, hk, gen, dev) -> dict:
             torch, f"fir_direct {name} taps [2x{n}]",
             lambda: hk.fir_direct(pc, t, history=hist),
             lambda: hk.fir_direct_plain(pc, t, history=hist))
-        if name == "49":
-            # the library call for the same function: one conv1d over both
-            # components, history in front
-            v = torch.cat([h, x], dim=-1)[:, None, :]
-            wts = t.flip(0)[None, None, :]
-            conv = torch.nn.functional.conv1d
-            err = check(torch, f"conv1d {name} taps (library) vs fir_direct",
-                        list(hk.fir_direct(pc, t, history=hist)),
-                        list(conv(v, wts)[:, 0]))
-            res["fir"] = max(res["fir"], err)
-            res["conv1d 49"] = (device_busy_ms(torch, lambda: conv(v, wts), 10)
-                                or time_ms(torch, lambda: conv(v, wts)))
-            phase("time", f"conv1d {name} taps [2x{n}] (library): device "
-                          f"{res['conv1d 49']:.4f} ms")
-
         plan = hk.OfsPlan(taps)
         tr, ti = torch.randn((2, plan.tail_len), generator=gen, device=dev)
+        if name in ("49", "1601"):
+            # the library call for the same function: one conv1d over both
+            # components, history in front (TF32 off), held to the FIR
+            # kernel at 49 taps and to the OFS kernel at 1601
+            if name == "49":
+                key, kern = "fir", hk.fir_direct(pc, t, history=hist)
+                v = torch.cat([h, x], dim=-1)[:, None, :]
+            else:
+                key = "ofs"
+                kern = hk.ofs_filter_planar(x[0], x[1], tr, ti, plan)
+                tail = torch.stack([tr, ti])[:, plan.tail_len - len(taps) + 1:]
+                v = torch.cat([tail, x], dim=-1)[:, None, :]
+            wts = t.flip(0)[None, None, :]
+            conv = torch.nn.functional.conv1d
+            res[key] = max(res[key], check(
+                torch, f"conv1d {name} taps (library) vs {key} kernel",
+                list(kern), list(conv(v, wts)[:, 0])))
+            res[f"conv1d {name}"] = (
+                device_busy_ms(torch, lambda: conv(v, wts), 10)
+                or time_ms(torch, lambda: conv(v, wts)))
+            phase("time", f"conv1d {name} taps [2x{n}] (library): device "
+                          f"{res[f'conv1d {name}']:.4f} ms")
         sizes = (n, plan.quantum) if name == "49" else (n,)
         for m in sizes:
             for d in ((1,) if m != n or name == "49" else (1, 4)):
@@ -726,8 +736,6 @@ def os_phase(torch, hk, gen, dev) -> dict:
 
 
 def fft_bound(n: int, size: int, windowed: bool) -> tuple:
-    import math
-
     return bound(4 * (4 * n + (size if windowed else 0)),
                  5 * n * math.log2(size) + (2 * n if windowed else 0))
 
@@ -759,19 +767,27 @@ def spectrum_phase(torch, hk, gen, dev) -> dict:
                            lambda: hk.fft_batched_fused(*args),
                            lambda: hk.fft_batched_fused_plain(*args))
     res["bound"] = fft_bound(SP_N, SP_FFT, True)
-    bare = (x[0], x[1], SP_FFT)
-    c = torch.complex(x[0], x[1]).reshape(-1, SP_FFT)
-    for key, fn in (("bare_ms", lambda: hk.fft_batched_fused(*bare)),
-                    ("library_ms", lambda: torch.fft.fft(c))):
-        res[key] = device_busy_ms(torch, fn, 10) or time_ms(torch, fn)
-    phase("time", f"fft_batched {SP_FFT} bare [{SP_N}]: device kernel "
-                  f"{res['bare_ms']:.4f} ms, library torch.fft.fft (cuFFT) "
-                  f"{res['library_ms']:.4f} ms")
-    res["err"] = max(res["err"], check(
-        torch, f"fft_batched {SP_FFT} vs torch.fft.fft",
-        hk.fft_batched_fused(*bare),
-        [torch.fft.fft(c).real.reshape(-1), torch.fft.fft(c).imag.reshape(-1)]))
-    del x, c
+    # the bare kernel beside torch.fft.fft (cuFFT) at every checked size
+    res["sizes"] = {}
+    for size in (256, 1024, SP_FFT, 16384):
+        bare = (x[0], x[1], size)
+        c = torch.complex(x[0], x[1]).reshape(-1, size)
+        lib = torch.fft.fft(c)
+        res["err"] = max(res["err"], check(
+            torch, f"fft_batched {size} vs torch.fft.fft",
+            hk.fft_batched_fused(*bare),
+            [lib.real.reshape(-1), lib.imag.reshape(-1)]))
+        ms = {key: device_busy_ms(torch, fn, 10) or time_ms(torch, fn)
+              for key, fn in (("ms", lambda: hk.fft_batched_fused(*bare)),
+                              ("library_ms", lambda: torch.fft.fft(c)))}
+        ms["bound_ms"] = fft_bound(SP_N, size, False)[0]
+        res["sizes"][size] = ms
+        phase("time", f"fft_batched {size} bare [{SP_N}]: device kernel "
+                      f"{ms['ms']:.4f} ms, library torch.fft.fft (cuFFT) "
+                      f"{ms['library_ms']:.4f} ms, bound {ms['bound_ms']:.4f} ms")
+    res["bare_ms"] = res["sizes"][SP_FFT]["ms"]
+    res["library_ms"] = res["sizes"][SP_FFT]["library_ms"]
+    del x, c, lib
 
     # the path: SignalSource → Fft → MultiplyConst → ComplexToMag, counted
     src = blocks.SignalSource(1e6, 1, 250e3, 1.0, SP_N, planar=True)
@@ -1232,6 +1248,12 @@ def main() -> None:
     sp = XE_S * XE_P
     nbt = (sp // 128) * (sp // 128 + 1) // 2
     plan49 = hk.OfsPlan(fm_taps()[0])
+
+    def ofs_bound(plan):
+        p = plan.fft_size
+        return bound(4 * (4 * FM_N + 2 * plan.tail_len) + 8 * p,
+                     -(-FM_N // plan.valid) * (10 * p * math.log2(p) + 6 * p))
+
     k49, p49 = plan49.ntaps, plan49.fft_size
     bounds = {
         "fx": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL)),
@@ -1240,8 +1262,8 @@ def main() -> None:
         "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
         "gram": bound(2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
                       6 * XE_F * sp * sp * XE_T, INT8_OPS),
-        "ofs": bound(4 * (4 * FM_N + 2 * plan49.tail_len) + 8 * p49,
-                     -(-FM_N // plan49.valid) * (10 * p49 * 8 + 6 * p49)),
+        "ofs": ofs_bound(plan49),
+        "ofs 1601": ofs_bound(hk.OfsPlan(fm_taps()[3])),
         "fir": bound(4 * 2 * (2 * FM_N + k49 - 1) + 4 * k49,
                      2 * 2 * FM_N * k49),
         "qd": bound(4 * (3 * FM_N + 2), 7 * FM_N),
@@ -1266,9 +1288,13 @@ def main() -> None:
               bounds["fx1"]),
         entry("xengine_gram_stacked", "xengine_gram.cu", 2142,
               xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
-        entry("ofs_filter_planar", "ofs_filter.cu", 1909,
-              fm["fd"]["launches"]["ofs_filter_planar"], fmk["ofs"],
-              *fmk["ofs 49"][:2], bounds["ofs"], fmk["conv1d 49"]),
+        dict(entry("ofs_filter_planar", "ofs_filter.cu", 1909,
+                   fm["fd"]["launches"]["ofs_filter_planar"], fmk["ofs"],
+                   *fmk["ofs 49"][:2], bounds["ofs"], fmk["conv1d 49"]),
+             taps_1601={"ms": fmk["ofs 1601"][0],
+                        "plain_ms": fmk["ofs 1601"][1],
+                        "bound_ms": bounds["ofs 1601"][0],
+                        "library_ms": fmk["conv1d 1601"]}),
         entry("fir_direct", "fir_direct.cu", "280+128",
               fm["td"]["launches"]["fir_direct"], fmk["fir"],
               *fmk["fir 49"][:2], bounds["fir"], fmk["conv1d 49"]),
@@ -1277,8 +1303,10 @@ def main() -> None:
               *fmk["qd time"][:2], bounds["qd"]),
         entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
               osr["launches"], osr["err"], *osr["time"][:2], osr["bound"]),
-        entry("fft_batched_fused", "fft_batched.cu", 505, spr["launches"],
-              spr["err"], *spr["time"][:2], spr["bound"], spr["library_ms"]),
+        dict(entry("fft_batched_fused", "fft_batched.cu", 505,
+                   spr["launches"], spr["err"], *spr["time"][:2],
+                   spr["bound"], spr["library_ms"]),
+             bare_by_size=spr["sizes"]),
         entry("costas_scalar", "costas.cu", 2287, cor["launches"], cor["err"],
               *cor["time"], cor["bound"]),
     ], "step_ms": step_ms, "ingest_msps": stats.msps,

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "clen_fir_direct": ([_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
     "clen_fir_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "clen_ofs_filter": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P], _I),
+                         _I, _P], _I),
     "clen_ofs_smem_bytes": ([_I], ctypes.c_longlong),
     "clen_qdemod": ([_P, _P, _P, _P, _P, _I, ctypes.c_longlong,
                      ctypes.c_float, _P], _I),
@@ -50,7 +50,7 @@ _SIGNATURES = {
     "clen_os_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "clen_os_fits": ([_I, _I, _I], _I),
     "clen_fft_batched": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
-                          _I, _P], _I),
+                          _I, _I, _P], _I),
     "clen_fft_smem_bytes": ([_I], ctypes.c_longlong),
     "clen_costas": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                      ctypes.c_float, ctypes.c_float, ctypes.c_float,

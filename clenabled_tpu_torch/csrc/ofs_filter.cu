@@ -9,151 +9,149 @@
 //
 // Design.  The transform size P is a power of two chosen by the host
 // (hopper_kernels.OfsPlan: P >= 4(K-1), at least 256, at most 16384); each
-// block owns one chunk of L = P - (K-1) outputs.  It loads the P samples
-// v[T + c*L - (K-1), T + c*L + L) into shared memory (the tail/frame seam is
-// index arithmetic, so the caller never concatenates), runs a radix-2
-// decimation-in-frequency FFT (natural order in, bit-reversed order out),
-// multiplies by the tap spectrum (computed once per plan on the host in
-// float64, stored in the same bit-reversed order and scaled by 1/P), runs a
-// decimation-in-time inverse FFT (bit-reversed in, natural out) and writes
-// the last L samples, which circular wrap does not reach.  The two
-// transforms meet in bit-reversed order, so no permutation pass is needed.
-// Twiddles exp(-2*pi*i*k/P), k < P/2, come from a host table (float64 cast
-// to float32) staged in shared memory.
+// chunk of L = P - (K-1) outputs is one vector of the register-resident
+// Stockham core (fft_core.cuh), and small chunks share a block (8 of 256
+// points).  The first pass loads v[T + c*L - (K-1) + i] straight from device
+// memory (the tail/frame seam is index arithmetic, so the caller never
+// concatenates).  The forward transform (radices 16, ..., 16, rem) leaves the
+// spectrum in natural order in registers; it is multiplied there by the tap
+// spectrum (computed once per plan on the host in float64, 1/P folded in,
+// natural order, read from device memory through the read-only cache), and
+// the inverse runs the reversed schedule (rem, 16, ..., 16), whose first pass
+// takes exactly the bins the forward's last pass holds, so no exchange
+// happens at the product.  The inverse's last pass holds natural-order
+// samples; only the kept, decimated outputs are stored.
 //
 // Bound on the H100: per output it reads 8 B (times P/L for the overlap) and
-// writes 8 B; the two transforms cost about 10*log2(P) flops per sample in
-// shared memory with a barrier per stage.  At the 49-tap path (P = 256) the
-// bytes are the floor; the stage barriers and shared-memory traffic are what
-// this simple form pays on top.  Register-resident radix-4/8 stages are work
-// for later PRs.
+// writes 8 B / D; the two transforms cost about 10*log2(P) flops per sample.
+// At the 49-tap path (P = 256) the bytes are the floor; what the core pays on
+// top is two shared-memory exchanges (four from P = 512 to 4096, six at 8192
+// and 16384) and the chunk's K-1 overlap.  One block takes one group of
+// chunks: unlike fft_batched.cu the launch is not persistent, since the two
+// transforms leave less device-memory time to hide behind them.
 
-#include <cuda_runtime.h>
+#include "fft_core.cuh"
 
 namespace {
 
-__device__ inline float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ inline float2 cmul_conj(float2 a, float2 b) {   // a * conj(b)
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-__host__ __device__ inline long long ofs_smem_bytes(int p) {
-  return (long long)p * 8 + (long long)(p / 2) * 8;
-}
-
-__global__ void ofs_filter_kernel(const float* __restrict__ xr,
-                                  const float* __restrict__ xi,
-                                  const float* __restrict__ tr,
-                                  const float* __restrict__ ti,
-                                  const float2* __restrict__ hspec,
-                                  const float2* __restrict__ tw,
-                                  float* __restrict__ yr, float* __restrict__ yi,
-                                  int n, int tail_len, int ntaps, int p,
-                                  int log2p, int decim) {
-  extern __shared__ float2 smem2[];
-  float2* s = smem2;          // [P] the chunk, transformed in place
-  float2* w = smem2 + p;      // [P/2] twiddles
-  const int half_p = p >> 1;
-  const int valid = p - (ntaps - 1);
-  const long long c0 = (long long)blockIdx.x * valid;             // first output
-  const long long g0 = (long long)tail_len + c0 - (ntaps - 1);    // first v index
+template <int LOGP>
+__global__ void __launch_bounds__(fftcore::Sched<LOGP, false>::THREADS)
+ofs_filter_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float* __restrict__ tr, const float* __restrict__ ti,
+                  const float2* __restrict__ hspec,
+                  const float2* __restrict__ tw, float* __restrict__ yr,
+                  float* __restrict__ yi, int n, int tail_len, int ntaps,
+                  int decim, int nchunks) {
+  using F = fftcore::Sched<LOGP, false>;
+  using I = fftcore::Sched<LOGP, true>;
+  constexpr int P = F::N, T = F::T, R0 = F::radix(0),
+                RL = F::radix(F::NPASS - 1), RI = I::radix(I::NPASS - 1);
+  static_assert(I::radix(0) == RL, "the inverse opens with the forward's last radix");
+  extern __shared__ float smem[];
+  const int lv = threadIdx.x / T, t = threadIdx.x % T;
+  const int valid = P - (ntaps - 1);
   const long long vend = (long long)tail_len + n;
+  float* sre = smem + lv * P;
+  float* sim = smem + F::V * P + lv * P;
+  const int vx = (lv * T) & 31;
 
-  for (int i = threadIdx.x; i < half_p; i += blockDim.x) w[i] = tw[i];
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    const long long g = g0 + i;
-    float2 v = make_float2(0.f, 0.f);
-    if (g < tail_len) {
-      v = make_float2(tr[g], ti[g]);
-    } else if (g < vend) {
-      v = make_float2(xr[g - tail_len], xi[g - tail_len]);
+  // the chunk's P samples v[T + c*L - (K-1) + i], in the first pass's
+  // order; the tail/frame seam is index arithmetic
+  const int chunk = blockIdx.x * F::V + lv;
+  const long long g0 = (long long)tail_len + (long long)chunk * valid - (ntaps - 1);
+  float2 v[fftcore::kPts];
+  fftcore::static_for<fftcore::kPts>([&](auto e) {
+    constexpr int E = decltype(e)::value;
+    const long long g = g0 + t + (E / R0) * T + (E % R0) * (P / R0);
+    float2 u = make_float2(0.f, 0.f);
+    if (chunk < nchunks) {
+      if (g < tail_len) {
+        u = make_float2(tr[g], ti[g]);
+      } else if (g < vend) {
+        u = make_float2(xr[g - tail_len], xi[g - tail_len]);
+      }
     }
-    s[i] = v;
-  }
-  __syncthreads();
+    v[e] = u;
+  });
 
-  // forward DIF: spans P/2 .. 1; twiddle exp(-2 pi i pos / (2 half))
-  for (int lh = log2p - 1; lh >= 0; --lh) {
-    const int half = 1 << lh;
-    const int stride = half_p >> lh;
-    for (int j = threadIdx.x; j < half_p; j += blockDim.x) {
-      const int pos = j & (half - 1);
-      const int i0 = ((j >> lh) << (lh + 1)) + pos;
-      const float2 a = s[i0], b = s[i0 + half];
-      s[i0] = make_float2(a.x + b.x, a.y + b.y);
-      s[i0 + half] = cmul(make_float2(a.x - b.x, a.y - b.y), w[pos * stride]);
+  fftcore::run<LOGP, false, false, false>(v, sre, sim, t, vx, tw);
+  fftcore::static_for<fftcore::kPts>([&](auto e) {
+    constexpr int E = decltype(e)::value;
+    const float2 h = __ldg(hspec + t + (E / RL) * T + (E % RL) * (P / RL));
+    v[e] = fftcore::cmul(v[e], h);
+  });
+  fftcore::run<LOGP, true, true, true>(v, sre, sim, t, vx, tw + F::tw_len());
+
+  // kept outputs: chunk sample i >= K-1 is output q = c0 + i - (K-1), stored
+  // when q < n and q % decim == 0
+  if (chunk >= nchunks) return;
+  const long long c0 = (long long)chunk * valid;
+  fftcore::static_for<fftcore::kPts>([&](auto e) {
+    constexpr int E = decltype(e)::value;
+    const int i = t + (E / RI) * T + (E % RI) * (P / RI);
+    const long long q = c0 + i - (ntaps - 1);
+    if (i >= ntaps - 1 && q < n) {
+      const int qi = (int)q;
+      if (decim == 1) {
+        yr[qi] = v[e].x;
+        yi[qi] = v[e].y;
+      } else if (qi % decim == 0) {
+        yr[qi / decim] = v[e].x;
+        yi[qi / decim] = v[e].y;
+      }
     }
-    __syncthreads();
-  }
+  });
+}
 
-  for (int i = threadIdx.x; i < p; i += blockDim.x) s[i] = cmul(s[i], hspec[i]);
-  __syncthreads();
-
-  // inverse DIT: spans 1 .. P/2; twiddle exp(+2 pi i pos / (2 half))
-  for (int lh = 0; lh < log2p; ++lh) {
-    const int half = 1 << lh;
-    const int stride = half_p >> lh;
-    for (int j = threadIdx.x; j < half_p; j += blockDim.x) {
-      const int pos = j & (half - 1);
-      const int i0 = ((j >> lh) << (lh + 1)) + pos;
-      const float2 a = s[i0];
-      const float2 b = cmul_conj(s[i0 + half], w[pos * stride]);
-      s[i0] = make_float2(a.x + b.x, a.y + b.y);
-      s[i0 + half] = make_float2(a.x - b.x, a.y - b.y);
-    }
-    __syncthreads();
-  }
-
-  // kept outputs q = c0 + j (j < valid, q < n, q % decim == 0): the first
-  // is j0, then every decim-th; neighbouring threads write neighbouring words
-  const int j0 = (int)((decim - c0 % decim) % decim);
-  const long long o0 = (c0 + j0) / decim;
-  const int jend = (int)min((long long)valid, (long long)n - c0);
-  for (int m = threadIdx.x; j0 + m * decim < jend; m += blockDim.x) {
-    const float2 v = s[ntaps - 1 + j0 + m * decim];
-    yr[o0 + m] = v.x;
-    yi[o0 + m] = v.y;
-  }
+template <int LOGP>
+cudaError_t launch(const void* xr, const void* xi, const void* tr,
+                   const void* ti, const void* hspec, const void* tw, void* yr,
+                   void* yi, int n, int tail_len, int ntaps, int decim,
+                   cudaStream_t stream) {
+  using S = fftcore::Sched<LOGP, false>;
+  const auto kernel = ofs_filter_kernel<LOGP>;
+  const long long bytes = fftcore::smem_bytes(S::N);
+  cudaError_t err = fftcore::set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int valid = S::N - (ntaps - 1);
+  const int nchunks = (n + valid - 1) / valid;
+  kernel<<<(nchunks + S::V - 1) / S::V, S::THREADS, bytes, stream>>>(
+      static_cast<const float*>(xr), static_cast<const float*>(xi),
+      static_cast<const float*>(tr), static_cast<const float*>(ti),
+      static_cast<const float2*>(hspec), static_cast<const float2*>(tw),
+      static_cast<float*>(yr), static_cast<float*>(yi), n, tail_len, ntaps,
+      decim, nchunks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// hspec: [P] float2, the bit-reversed tap spectrum / P; tw: [P/2] float2
-// twiddles.  n is the frame length (a multiple of decim), tail_len >= K-1.
-// Returns a cudaError_t; cudaErrorInvalidValue when P does not fit the
-// card's opt-in shared memory or the sizes are inconsistent.
+// hspec: [P] float2, the tap spectrum / P in natural order; tw: the forward
+// schedule's pass twiddles followed by the reversed schedule's
+// (hopper_kernels.fft_passes(P) and fft_passes(P, reverse=True)), tw_len
+// complex64 values in all.  n is the frame length (a multiple of decim),
+// tail_len >= K-1.  Returns a cudaError_t; cudaErrorInvalidValue when P is not
+// a power of two in [256, 16384], the table's length is not the schedules',
+// the sizes are inconsistent or the block does not fit the card's opt-in
+// shared memory.
 extern "C" int clen_ofs_filter(const void* xr, const void* xi, const void* tr,
                                const void* ti, const void* hspec, const void* tw,
                                void* yr, void* yi, int n, int tail_len,
-                               int ntaps, int p, int decim, void* stream) {
-  int log2p = 0;
-  while ((1 << log2p) < p) ++log2p;
-  if (p < 2 || (1 << log2p) != p || ntaps < 1 || ntaps - 1 >= p ||
-      tail_len < ntaps - 1 || decim < 1 || n < decim || n % decim)
+                               int ntaps, int p, int decim, int tw_len,
+                               void* stream) {
+  if (ntaps < 1 || ntaps - 1 >= p || tail_len < ntaps - 1 || decim < 1 ||
+      n < decim || n % decim || (long long)n + p > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const long long bytes = ofs_smem_bytes(p);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(ofs_filter_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int valid = p - (ntaps - 1);
-  const int nchunks = (n + valid - 1) / valid;
-  const int threads = p / 2 < 512 ? p / 2 : 512;
-  ofs_filter_kernel<<<nchunks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float*>(tr), static_cast<const float*>(ti),
-      static_cast<const float2*>(hspec), static_cast<const float2*>(tw),
-      static_cast<float*>(yr), static_cast<float*>(yi), n, tail_len, ntaps, p,
-      log2p, decim);
-  return cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  const bool ok = fftcore::dispatch(p, [&](auto c) {
+    constexpr int L = decltype(c)::value;
+    if (tw_len != fftcore::Sched<L, false>::tw_len() +
+                      fftcore::Sched<L, true>::tw_len())
+      return;
+    err = launch<L>(xr, xi, tr, ti, hspec, tw, yr, yi, n, tail_len, ntaps,
+                    decim, static_cast<cudaStream_t>(stream));
+  });
+  return ok ? err : cudaErrorInvalidValue;
 }
 
-extern "C" long long clen_ofs_smem_bytes(int p) { return ofs_smem_bytes(p); }
+extern "C" long long clen_ofs_smem_bytes(int p) { return fftcore::smem_bytes(p); }

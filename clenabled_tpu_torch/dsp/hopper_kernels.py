@@ -684,20 +684,41 @@ fir_direct_mxu = fir_direct
 
 
 # --------------------------------------------------------------------------
+# The FFT core of kernels 5 and 6 (csrc/fft_core.cuh)
+# --------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def fft_passes(n: int, reverse: bool = False) -> tuple:
+    """(radices, twiddles): the pass schedule of the Stockham core for an
+    n-point transform (n a power of two in [256, 16384]) and the pass
+    twiddles it is launched with.
+
+    The radices are 16, ..., 16 and one radix 2/4/8 when log2(n) is not a
+    multiple of 4 (2048 → (16, 16, 8)), that order reversed when
+    ``reverse`` (the overlap-save inverse).  Pass p follows
+    NS_p = R_0·…·R_{p−1} points; the table holds, for p ≥ 1 in order,
+    exp(−2πi·r·k / (NS_p·R_p)) at [r, k], r < R_p, k < NS_p, computed in
+    float64 and stored as complex64.  The inverse uses the conjugates."""
+    logn = n.bit_length() - 1
+    if n != 1 << logn or not 8 <= logn <= 14:
+        raise ValueError(f"the FFT core takes 256 to 16384 points (a power "
+                         f"of two), not {n}")
+    radices = (16,) * (logn // 4) + ((1 << logn % 4,) if logn % 4 else ())
+    if reverse:
+        radices = radices[::-1]
+    parts, ns = [], radices[0]
+    for r in radices[1:]:
+        parts.append(np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(ns))
+                            / (ns * r)).reshape(-1))
+        ns *= r
+    return radices, np.concatenate(parts).astype(np.complex64)
+
+
+# --------------------------------------------------------------------------
 # Kernel 6: the overlap-save FFT filter
 # --------------------------------------------------------------------------
 
-_OFS_MAX_P = 16384       # 12·P bytes of shared memory: 192 KiB
-
-
-@lru_cache(maxsize=None)
-def _bitrev(p: int) -> np.ndarray:
-    bits = p.bit_length() - 1
-    idx = np.arange(p)
-    rev = np.zeros(p, np.int64)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return rev
+_OFS_MAX_P = 16384       # 8·P bytes of shared memory: 128 KiB
 
 
 class OfsPlan:
@@ -711,7 +732,10 @@ class OfsPlan:
     no counterpart.  The kernel picks its own transform: ``fft_size`` P, a
     power of two ≥ 4(K−1) between 256 and 16384 (larger only when K is, and
     then the card refuses it), giving ``valid`` = P − (K−1) outputs per
-    chunk; ``spectrum`` is the taps' P-point FFT."""
+    chunk; ``spectrum`` is the taps' P-point FFT.  The kernel's forms:
+    the spectrum / P in natural order (the forward Stockham passes leave
+    natural order) and the pass twiddles of ``fft_passes(P)`` followed by
+    those of ``fft_passes(P, reverse=True)``."""
 
     def __init__(self, taps):
         taps = np.asarray(taps, np.complex64)
@@ -740,15 +764,14 @@ class OfsPlan:
         padded[:ntaps] = taps
         spec = np.fft.fft(padded)
         self.spectrum = spec.astype(np.complex64)
-        # the kernel's forms: the spectrum in its transforms' bit-reversed
-        # order with the inverse's 1/P folded in, and the twiddles
-        self._consts = [per_device(a.astype(np.complex64)) for a in (
-            spec, (spec / p)[_bitrev(p)],
-            np.exp(-2j * np.pi * np.arange(p // 2) / p))]
+        tw = np.concatenate([fft_passes(p)[1], fft_passes(p, reverse=True)[1]])
+        self._consts = [per_device(a.astype(np.complex64))
+                        for a in (spec, spec / p, tw)]
 
     def consts(self, device: torch.device):
-        """(spectrum [P], kernel spectrum [P], twiddles exp(−2πik/P) [P/2])
-        as complex64 tensors on ``device``, uploaded once per device."""
+        """(spectrum [P], kernel spectrum / P [P], the two schedules' pass
+        twiddles) as complex64 tensors on ``device``, uploaded once per
+        device."""
         return tuple(get(device) for get in self._consts)
 
 
@@ -810,7 +833,8 @@ def ofs_filter_planar(xr, xi, tail_r, tail_i, plan: OfsPlan, *,
     err = lib.clen_ofs_filter(
         xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
         kspec.data_ptr(), tw.data_ptr(), yr.data_ptr(), yi.data_ptr(), n,
-        plan.tail_len, plan.ntaps, plan.fft_size, decimation, _stream(dev))
+        plan.tail_len, plan.ntaps, plan.fft_size, decimation, tw.numel(),
+        _stream(dev))
     if err != 0:
         smem = lib.clen_ofs_smem_bytes(plan.fft_size)
         raise RuntimeError(f"ofs_filter launch failed: CUDA error {err} "
@@ -1016,9 +1040,7 @@ def fft_size_covered(fft_size: int) -> bool:
 
 @lru_cache(maxsize=None)
 def _fft_twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(−2πi·k/n), k < n/2, complex64 from float64."""
-    tw = np.exp(-2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
-    return torch.as_tensor(tw, device=device)
+    return torch.as_tensor(fft_passes(n)[1], device=device)
 
 
 def _check_fft(xr, xi, fft_size: int, window):
@@ -1077,7 +1099,7 @@ def fft_batched_fused(xr, xi, fft_size: int, inverse: bool = False,
         xr.data_ptr(), xi.data_ptr(),
         None if window is None else ins[3].data_ptr(), tw.data_ptr(),
         yr.data_ptr(), yi.data_ptr(), n, fft_size, int(inverse), int(shift),
-        _stream(dev))
+        tw.numel(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"fft_batched launch failed: CUDA error {err} "
                            f"({lib.clen_fft_smem_bytes(fft_size)} B of shared "

@@ -239,21 +239,24 @@ def _tensor_from_reference(arr, dtype: torch.dtype | None,
     return t.to(torch.device(device)).contiguous()
 
 
-def carry_from_reference(tail_r, tail_i, dtype=None, device="cpu"):
+def carry_from_reference(tail_r, tail_i, dtype=None, device=None):
     """The JAX step's carried tails (numpy arrays, bf16 as
     ``ml_dtypes.bfloat16``) as the port's tensors, so a stream begun in the
-    JAX package continues in the port."""
+    JAX package continues in the port.  On the card unless ``device`` says
+    otherwise."""
+    device = _device(device)
     if dtype is not None:
         dtype = _IN_DTYPES[hopper_kernels._dtype_name(dtype)]
     return (_tensor_from_reference(tail_r, dtype, device),
             _tensor_from_reference(tail_i, dtype, device))
 
 
-def xengine_state_from_reference(accum_re, accum_im, count, device="cpu"):
+def xengine_state_from_reference(accum_re, accum_im, count, device=None):
     """A JAX ``XEngineState`` of the planar / channel-major X-Engine
     (its accumulator's re and im parts and its count, as numpy arrays) as
     the port's, so an integration begun in the JAX package continues in
-    the port."""
+    the port.  On the card unless ``device`` says otherwise."""
+    device = _device(device)
     accum = planar.PC(_tensor_from_reference(accum_re, torch.float32, device),
                       _tensor_from_reference(accum_im, torch.float32, device))
     return dsp_xengine.XEngineState(accum=accum,

@@ -203,6 +203,111 @@ def test_routing(monkeypatch):
         hk.fft_batched_fused(x.re, x.im, 1024, window=np.ones(512))
 
 
+def stockham(x, radices, tw, inverse=False):
+    """numpy model of the kernel core's passes (csrc/fft_core.cuh) over the
+    last axis, in complex128 with the complex64 pass twiddles: pass p of
+    radix R after NS points reads item j's inputs at j + r·n/R, multiplies
+    input r by tw_p[r, j mod NS] (conjugated for the inverse), takes the
+    R-point DFT and writes output r at (j // NS)·NS·R + r·NS + j mod NS."""
+    n = x.shape[-1]
+    y = np.asarray(x, np.complex128)
+    sign = 1 if inverse else -1
+    ns, off = 1, 0
+    for r in radices:
+        m = n // r
+        j = np.arange(m)
+        v = y[..., j[None, :] + (np.arange(r) * m)[:, None]]       # [.., r, m]
+        if ns > 1:
+            w = tw[off:off + r * ns].astype(np.complex128).reshape(r, ns)
+            v = v * (np.conj(w) if inverse else w)[:, j % ns]
+            off += r * ns
+        dft = np.exp(sign * 2j * np.pi * np.outer(np.arange(r), np.arange(r))
+                     / r)
+        v = np.einsum("ab,...bm->...am", dft, v)
+        dst = ((j // ns) * ns * r + j % ns)[None, :] + (np.arange(r) * ns)[:, None]
+        out = np.empty_like(y)
+        out[..., dst] = v
+        y, ns = out, ns * r
+    assert off == len(tw) and ns == n
+    return y
+
+
+SIZES = [256, 512, 1024, 2048, 4096, 8192, 16384]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd_order",
+                                                        "rev_order"])
+def test_kernel_fft_plan_matches_numpy(size, reverse):
+    """The radix schedule and pass twiddles the FFT and OFS kernels are
+    launched with, through a numpy model of the same passes, against
+    np.fft forward and inverse within 1e-5 × max|ref|."""
+    radices, tw = hk.fft_passes(size, reverse)
+    logn = size.bit_length() - 1
+    want = (16,) * (logn // 4) + ((1 << logn % 4,) if logn % 4 else ())
+    assert radices == (want[::-1] if reverse else want)
+    assert tw.dtype == np.complex64
+    x = samples((3, size), seed=size + reverse)
+    z = x[0] + 1j * x[1]
+    close(stockham(z, radices, tw), np.fft.fft(z))
+    close(stockham(z, radices, tw, inverse=True), np.fft.ifft(z) * size)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd_order",
+                                                        "rev_order"])
+def test_kernel_exchange_layout(size, reverse):
+    """The shared-memory exchange of csrc/fft_core.cuh, modelled for one
+    block (V = max(1, 128/T) vectors of T = n/16 threads, 16 points each):
+    every pass's stores cover the block's buffer exactly once, its loads
+    read back each logical index from where it was stored, and each warp
+    access of 32 words hits 32 distinct banks."""
+    radices = hk.fft_passes(size, reverse)[0]
+    t_per_vec = size // 16
+    nvec = max(1, 128 // t_per_vec)
+    th = np.arange(nvec * t_per_vec)
+    lv, t = th // t_per_vec, th % t_per_vec
+    vx = (lv * t_per_vec) & 31
+
+    def swz(a, ns, r):
+        return a if ns >= 32 else a ^ (((a // (ns * r)) * ns) & 31)
+
+    def conflict_free(addr):
+        banks = np.sort((addr % 32).reshape(-1, 32), axis=1)
+        return bool((np.diff(banks, axis=1) > 0).all())
+
+    ns = 1
+    for r, r2 in zip(radices, radices[1:]):
+        owner = np.full(nvec * size, -1)
+        for s in range(16 // r):
+            j = t + s * t_per_vec
+            base = (j // ns) * ns * r + j % ns
+            for k in range(r):
+                logical = base + k * ns
+                addr = lv * size + (swz(logical, ns, r) ^ vx)
+                assert conflict_free(addr)
+                assert (owner[addr] == -1).all()
+                owner[addr] = lv * size + logical
+        assert (owner >= 0).all()
+        for s in range(16 // r2):
+            for k in range(r2):
+                logical = t + s * t_per_vec + k * (size // r2)
+                addr = lv * size + (swz(logical, ns, r) ^ vx)
+                assert conflict_free(addr)
+                assert (owner[addr] == lv * size + logical).all()
+        ns *= r
+
+
+def test_kernel_fft_plan_schedules():
+    assert hk.fft_passes(2048)[0] == (16, 16, 8)
+    assert hk.fft_passes(16384)[0] == (16, 16, 16, 4)
+    assert hk.fft_passes(16384, reverse=True)[0] == (4, 16, 16, 16)
+    assert hk.fft_passes(256)[0] == (16, 16)
+    for n in (128, 384, 32768):
+        with pytest.raises(ValueError, match="256 to 16384"):
+            hk.fft_passes(n)
+
+
 def test_fused_supported_matches_jax(ref):
     x1, x2 = tpc(samples((4096,), seed=5)), tpc(samples((2, 2048), seed=5))
     j1, j2 = jpc(samples((4096,), seed=5)), jpc(samples((2, 2048), seed=5))
@@ -421,12 +526,15 @@ def test_clenabled_fft_cli_arguments():
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [256, 2048, 16384])
+@pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("inverse,win,shift", [(False, False, False),
+                                               (True, False, False),
                                                (False, True, True),
                                                (True, True, True)])
 def test_fft_kernel_matches_plain_on_card(card, size, inverse, win, shift):
-    x = torch.from_numpy(samples((8 * size,), seed=20)).to(card)
+    """21 vectors: not a multiple of the 2-16 vectors a block carries below
+    4096 points, so the ragged last block is masked."""
+    x = torch.from_numpy(samples((21 * size,), seed=20)).to(card)
     w = (torch.as_tensor(window.blackman_harris(size), device=card)
          if win else None)
     args = (x[0], x[1], size, inverse, w, shift)

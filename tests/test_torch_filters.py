@@ -286,6 +286,31 @@ def test_ofs_stream_matches_pallas(ref, case):
         apply(st, tpc(planar_frames(n + 128, 1, seed=9)[0]))
 
 
+@pytest.mark.parametrize("ntaps", [49, 241, 1601])
+def test_ofs_kernel_spectrum_in_core_order(ntaps):
+    """The kernel's constants: the tap spectrum / P in the order the core's
+    forward passes leave (natural: Stockham), and a chunk through the numpy
+    model of the kernel's forward passes, the product and the reversed
+    inverse passes equals the circular convolution."""
+    from test_torch_fft import stockham
+
+    plan = hk.OfsPlan(deep(ntaps))
+    p = plan.fft_size
+    spec, kspec, tw = (c.numpy() for c in plan.consts(torch.device("cpu")))
+    fwd, inv = hk.fft_passes(p), hk.fft_passes(p, reverse=True)
+    assert inv[0] == fwd[0][::-1]
+    assert np.array_equal(tw, np.concatenate([fwd[1], inv[1]]))
+    padded = np.zeros(p, np.complex128)
+    padded[:ntaps] = deep(ntaps)
+    close(kspec, stockham(padded, *fwd) / p, 1e-5)
+    close(spec, stockham(padded, *fwd), 1e-5)
+    x = np.random.default_rng(ntaps).standard_normal((2, p))
+    chunk = x[0] + 1j * x[1]
+    got = stockham(stockham(chunk, *fwd) * kspec, *inv, inverse=True)
+    want = np.fft.ifft(np.fft.fft(chunk) * np.fft.fft(padded))
+    close(got, want, 1e-5)
+
+
 def test_ofs_equals_ofa_samples():
     """The overlap-save form's samples are the overlap-add form's."""
     t = rrc241()
@@ -701,10 +726,14 @@ def test_fir_kernel_matches_plain_on_card(card, ntaps, decim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ntaps", [49, 241, 1601])
-def test_ofs_kernel_matches_plain_on_card(card, ntaps):
+@pytest.mark.parametrize("quanta", [2, 67])
+def test_ofs_kernel_matches_plain_on_card(card, ntaps, quanta):
+    """67 quanta: a chunk count that is not a multiple of the chunks a block
+    carries (16 at 49 taps, 4 at 241) and, at 1601 taps, 334 chunks, a last
+    wave the card's 132 SMs do not fill."""
     plan = hk.OfsPlan(deep(ntaps))
     rng = np.random.default_rng(ntaps)
-    n = plan.quantum * 2
+    n = plan.quantum * quanta
     x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)).to(card)
     t = torch.from_numpy(rng.standard_normal((2, plan.tail_len)).astype(
         np.float32)).to(card)

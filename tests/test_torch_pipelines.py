@@ -175,6 +175,22 @@ def test_fused_pipeline_rejects_short_frames():
                                  device="cpu")
 
 
+@pytest.mark.parametrize("helper", ["carry", "xengine"])
+def test_reference_state_defaults_to_the_card(monkeypatch, helper):
+    """The hand-over helpers put their tensors on the card unless asked
+    for the CPU: without a visible card, the default raises."""
+    a = np.zeros((2, 8), np.float32)
+    call = {"carry": lambda **kw: P.carry_from_reference(a, a, **kw),
+            "xengine": lambda **kw: P.xengine_state_from_reference(
+                a, a, 1, **kw)}[helper]
+    out = call(device="cpu")
+    first = out[0] if helper == "carry" else out.accum.re
+    assert first.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "int8"])
 def test_fused_pipeline_on_card_matches_cpu(card, dt):

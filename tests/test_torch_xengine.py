@@ -366,7 +366,7 @@ def test_state_from_reference_continues_jax_run(ref):
     _, want = _run(japply, jstate, jframes[2:])
     state = P.xengine_state_from_reference(np.asarray(jstate.accum.re),
                                            np.asarray(jstate.accum.im),
-                                           np.asarray(jstate.count))
+                                           np.asarray(jstate.count), "cpu")
     assert state.count == 2 and state.accum.re.dtype == torch.float32
     _, tapply = xe.make_xengine_channel_major(**kw, device="cpu")
     _, got = _run(tapply, state,
