@@ -13,9 +13,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
    (the FX kernels, B.1 and its flat entry B.1b, and B.2; the Gram kernel
-   B.4 in bfloat16); the int8 Gram must be bit-exact, at the X-Engine's
-   full width (F=256, T=8192, S·P=128) in both of its output modes and at
-   k = 4 lane blocks (S·P=512, F=16).
+   B.4 in bfloat16, on the tensor cores); the int8 Gram must be bit-exact.
+   Both Gram kernels run at the X-Engine's full width (F=256, T=8192,
+   S·P=128) in all three output forms and at k = 4 lane blocks (S·P=512,
+   F=16); the bf16 one is also timed from ``torch.profiler`` and beside
+   the library call ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
+   [zr | zi].
 4. main path — launch counts reset, then the fused step at full width
    (4 antennas × 2^23 samples, 16 channels, 400 taps) for 3 chained steps
    in f32 and int8 ingest, and the planar step at the entry shape (2^17);
@@ -34,7 +37,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    emitted matrix must equal the plain ``xengine_correlate_stacked`` of
    the same two integrations bit for bit, and the third integration must
    sit in the accumulator.  Device step time and host-to-product time
-   per integration.
+   per integration.  Then counts reset, the same block on its bf16 path
+   (complex float planar feeds, ``compute_dtype=bfloat16``, 1024 frames)
+   for 2 integrations; counts read; the emission held to the plain engine
+   on the same bf16 operands within 1e-4 × max|plain|.
 8. FM kernels — the direct FIR (B.7: 241 and 1601 taps, decimation
    1 and 4, both planar components in one launch), the overlap-save
    filter (B.6: 49, 241 and 1601 taps, and a frame of exactly one
@@ -117,6 +123,8 @@ INGEST_FRAMES = 8
 # the X-Engine's reference configuration: stations, pols, channels, frames
 XE_S, XE_P, XE_F, XE_T = 64, 2, 256, 8192
 XE_STEPS = 3
+# the X-Engine's bf16 path: complex float feeds at 1024 frames
+XE_BF_T = 1024
 # the FM receive path: BENCH_TPU's block-layer frame, 8 chained frames
 FM_N, FM_FRAMES, FM_RETUNE_AT = 1 << 21, 8, 4
 # the oversampled channelizer: BENCH_TPU's 16-channel R=8 configuration
@@ -131,6 +139,7 @@ DEVICE = ("cuda", 0)
 HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # the __global__ functions of csrc/*.cu, one launched per counted wrapper call
 PORT_KERNELS = ("fx_tile_kernel", "pfb_packed_kernel", "gram_kernel",
+                "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
                 "pfb_os_kernel", "fft_batched_kernel", "costas_kernel")
 
@@ -202,11 +211,13 @@ def frames(torch, gen, dtype, shape, device):
 
 def gram_phase(torch, hk, gen, dev) -> dict:
     """B.4 against its plain form in all three output forms; returns the
-    bfloat16 error and the kernel and plain times."""
+    bfloat16 error and the kernel and plain times, and for bfloat16 the
+    kernel's device time and the library call's."""
     res = {"bf16_err": 0.0}
     cases = [("int8", torch.int8, XE_F, XE_S * XE_P),
              ("int8 k=4", torch.int8, 16, 512),
-             ("bf16", torch.bfloat16, XE_F, XE_S * XE_P)]
+             ("bf16", torch.bfloat16, XE_F, XE_S * XE_P),
+             ("bf16 k=4", torch.bfloat16, 16, 512)]
     for label, dt, f, sp in cases:
         zr, zi = (frames(torch, gen, dt, (f, XE_T, sp), dev) for _ in range(2))
         shape = f"[{f}x{XE_T}x{sp}]"
@@ -225,17 +236,98 @@ def gram_phase(torch, hk, gen, dev) -> dict:
             else:
                 res["bf16_err"] = max(res["bf16_err"], check(
                     torch, f"{form} {label} {shape}", got, want))
-        if label != "int8 k=4":
-            key = label
-            res[key] = (
-                time_ms(torch, lambda: hk.xengine_gram_stacked_tri(zr, zi)),
-                time_ms(torch, lambda: hk.xengine_gram_stacked_tri_plain(
-                    zr, zi), reps=3, warmup=1))
-            phase("time", f"xengine_gram_stacked_tri {label} {shape}: kernel "
-                          f"{res[key][0]:.4f} ms, plain {res[key][1]:.4f} ms")
+        res[label] = (
+            time_ms(torch, lambda: hk.xengine_gram_stacked_tri(zr, zi)),
+            time_ms(torch, lambda: hk.xengine_gram_stacked_tri_plain(zr, zi),
+                    reps=3, warmup=1))
+        phase("time", f"xengine_gram_stacked_tri {label} {shape}: kernel "
+                      f"{res[label][0]:.4f} ms, plain {res[label][1]:.4f} ms")
+        if label == "bf16":
+            res["bf16 device"] = device_busy_ms(
+                torch, lambda: hk.xengine_gram_stacked_tri(zr, zi), 10)
+            res["bf16 library"], res["library label"] = gram_library_ms(
+                torch, zr, zi)
+            shown = ("not measured" if res["bf16 device"] is None
+                     else f"{res['bf16 device']:.4f} ms")
+            phase("time", f"xengine_gram_stacked_tri {label} {shape}: device "
+                          f"{shown} (torch.profiler); "
+                          f"{res['library label']} (library) "
+                          f"{res['bf16 library']:.4f} ms")
         del zr, zi, got, want
         torch.cuda.empty_cache()
     return res
+
+
+def gram_library_ms(torch, zr, zi) -> tuple[float, str]:
+    """(ms, label) of one PyTorch call computing the bf16 Gram's products:
+    the [2·S·P]² Gram of w = [zr | zi] per channel, ``torch.bmm(w.mT, w)``
+    with float32 output (bf16 output where the card's PyTorch has no
+    ``out_dtype``), on a prebuilt w; the port never calls it."""
+    w = torch.cat([zr, zi], -1)
+    try:
+        torch.bmm(w.mT, w, out_dtype=torch.float32)
+        fn, label = (lambda: torch.bmm(w.mT, w, out_dtype=torch.float32),
+                     "torch.bmm out_dtype=float32")
+    except (TypeError, RuntimeError, NotImplementedError):
+        fn, label = (lambda: torch.bmm(w.mT, w),
+                     "torch.bmm bf16 output (no out_dtype)")
+    ms = device_busy_ms(torch, fn, 10) or time_ms(torch, fn)
+    del w
+    return ms, label
+
+
+def xengine_bf16_phase(torch, hk, gen, dev) -> dict:
+    """The X-Engine block on its bf16 path: planar float32 feeds cast to
+    bfloat16 (``compute_dtype``) into the tensor-core Gram, counted and held
+    to the plain engine on the same bf16 operands."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.dsp import xengine as X
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    xe = blocks.XEngine(data_type=1, polarization=XE_P, num_inputs=XE_S,
+                        num_channels=XE_F, integration=XE_BF_T,
+                        pipeline_integration=2, planar=True,
+                        compute_dtype=torch.bfloat16)
+    g = Flowgraph()
+    for s in range(XE_S):
+        g.external_input(xe, s)
+    r = g.compile(xe.quantum, device=dev)
+    msgs = []
+    r.on_message("xengine.xcorr", msgs.append)
+    feeds = [[planar.PC(*torch.randn((2, xe.quantum), generator=gen,
+                                     device=dev)) for _ in range(XE_S)]
+             for _ in range(2)]
+    torch.cuda.synchronize()
+
+    hk.reset_launch_counts()
+    for fr in feeds:
+        r.step(*fr)
+    torch.cuda.synchronize()
+    launches = hk.gram_launches()
+    phase("xengine", f"Flowgraph/XEngine S={XE_S} P={XE_P} F={XE_F} "
+                     f"T={XE_BF_T} complex float, compute_dtype=bfloat16, 2 "
+                     f"integrations, pipeline_integration=2; launches "
+                     f"{launches}")
+    if launches < 1:
+        fail("the Gram kernel was not launched on the bf16 X-Engine path")
+    if [bool(m["valid"]) for m in msgs] != [False, True]:
+        fail(f"emission flags {[m['valid'] for m in msgs]}")
+
+    def marshal(fr):
+        """[S] planar feeds [T·F·P] → channel-major float32 (zr, zi)."""
+        return tuple(torch.stack([getattr(x, c) for x in fr])
+                     .view(XE_S, XE_BF_T, XE_F, XE_P).permute(2, 1, 0, 3)
+                     .reshape(XE_F, XE_BF_T, -1) for c in ("re", "im"))
+
+    plain = [X.xengine_correlate_stacked(*marshal(fr), npol=XE_P,
+                                         compute_dtype=torch.bfloat16,
+                                         use_kernel=False) for fr in feeds]
+    out = msgs[1]["matrix"]
+    err = check(torch, f"bf16 X-Engine [{XE_F}, T={XE_BF_T}] emission vs plain "
+                       f"engine", [out.re, out.im],
+                [plain[0].re + plain[1].re, plain[0].im + plain[1].im])
+    return {"launches": launches, "err": err}
 
 
 def flat_fx_phase(torch, hk, gen, dev, taps) -> tuple[int, float]:
@@ -1208,6 +1300,8 @@ def main() -> None:
 
     # 7. the X-Engine path, counted
     xe = xengine_phase(torch, hk, gen, dev)
+    torch.cuda.empty_cache()
+    xe_bf16 = xengine_bf16_phase(torch, hk, gen, dev)
     phase("xengine", f"on {card}")
     torch.cuda.empty_cache()
 
@@ -1262,6 +1356,9 @@ def main() -> None:
         "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
         "gram": bound(2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
                       6 * XE_F * sp * sp * XE_T, INT8_OPS),
+        "gram bf16": bound(
+            2 * 2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
+            6 * XE_F * sp * sp * XE_T, BF16_OPS),
         "ofs": ofs_bound(plan49),
         "ofs 1601": ofs_bound(hk.OfsPlan(fm_taps()[3])),
         "fir": bound(4 * 2 * (2 * FM_N + k49 - 1) + 4 * k49,
@@ -1288,6 +1385,14 @@ def main() -> None:
               bounds["fx1"]),
         entry("xengine_gram_stacked", "xengine_gram.cu", 2142,
               xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
+        dict(entry("xengine_gram_stacked_bf16", "xengine_gram_bf16.cu", 2142,
+                   xe_bf16["launches"],
+                   max(gram_res["bf16_err"], xe_bf16["err"]),
+                   *gram_res["bf16"], bounds["gram bf16"],
+                   gram_res["bf16 library"]),
+             device_ms=gram_res["bf16 device"],
+             library_call=gram_res["library label"],
+             k4_ms_plain_ms=gram_res["bf16 k=4"]),
         dict(entry("ofs_filter_planar", "ofs_filter.cu", 1909,
                    fm["fd"]["launches"]["ofs_filter_planar"], fmk["ofs"],
                    *fmk["ofs 49"][:2], bounds["ofs"], fmk["conv1d 49"]),
@@ -1312,12 +1417,6 @@ def main() -> None:
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
-        "gram_bf16_ms": gram_res["bf16"][0],
-        "gram_bf16_plain_ms": gram_res["bf16"][1],
-        "gram_bf16_max_abs_err": gram_res["bf16_err"],
-        "gram_bf16_bound_ms": bound(
-            2 * 2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
-            6 * XE_F * sp * sp * XE_T, BF16_OPS)[0],
         "xengine_step_ms": xe["step_ms"],
         "xengine_host_to_product_ms": xe["h2p_ms"],
         "fir_ms_plain_ms": {k[4:]: v for k, v in fmk.items()

@@ -23,16 +23,17 @@
 // over device memory.  Every output has one owner and no atomics are used:
 // the result is deterministic and int8 is exact.  int8 tiles are transposed
 // while staged (byte permutes) so that each 32-bit word holds 4 frames of one
-// column, and __dp4a does 4 multiply-adds per instruction; bfloat16 widens
-// to float32 on staging and uses fmaf.  (The TPU kernel's VMEM double
-// buffering, slot parity and t_tile clamp have no counterpart: a block walks
-// its own T loop.)
+// column, and __dp4a does 4 multiply-adds per instruction.  (The TPU
+// kernel's VMEM double buffering, slot parity and t_tile clamp have no
+// counterpart: a block walks its own T loop.)  bfloat16 operands take the
+// tensor-core kernel of xengine_gram_bf16.cu.
 //
 // Bound on the H100: at the reference configuration (F = 256, T = 8192,
 // S*P = 128) the kernel does 4 multiply-adds per output per frame, 1.4e11 in
 // all, against 512 MiB of operands, so it is bound by the CUDA cores'
-// integer (dp4a) or FP32 rate, not by bytes.  mma.sync / wgmma on the
-// tensor cores is the lever for a later PR.
+// integer (dp4a) rate, not by bytes.  Its tensor-core form needs a
+// byte-transposing stage (sm_90 has no transposing ldmatrix for 8-bit
+// types) and is a later PR's work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,33 +77,6 @@ struct Int8Gram {
       *reinterpret_cast<int4*>(dst + w * kQuad + 4 * q) = make_int4(
           (int)__byte_perm(lo01, lo23, 0x5410), (int)__byte_perm(lo01, lo23, 0x7632),
           (int)__byte_perm(hi01, hi23, 0x5410), (int)__byte_perm(hi01, hi23, 0x7632));
-    }
-  }
-};
-
-// bfloat16: each word is one frame widened to float32; 32 frames per tile.
-struct Bf16Gram {
-  using W = float;
-  static constexpr int kFrames = kWords;
-  __device__ static float mac(float a, float b, float c) { return fmaf(a, b, c); }
-
-  __device__ static void stage(const void* chan, int T, int sp, int t0,
-                               int c0, float* dst) {
-    const uint16_t* src = static_cast<const uint16_t*>(chan);
-    for (int e = threadIdx.x; e < kWords * (kQuad / 8); e += kThreads) {
-      const int r = e / (kQuad / 8);
-      const int q = e - r * (kQuad / 8);
-      const int t = t0 + r;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (t < T) v = *reinterpret_cast<const uint4*>(src + (long long)t * sp + c0 + 8 * q);
-      // a bfloat16 is the high half of the float32 with the same value
-      float* d = dst + r * kQuad + 8 * q;
-      *reinterpret_cast<float4*>(d) = make_float4(
-          __uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-          __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-      *reinterpret_cast<float4*>(d + 4) = make_float4(
-          __uint_as_float(v.z << 16), __uint_as_float(v.z & 0xffff0000u),
-          __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
     }
   }
 };
@@ -206,9 +180,14 @@ int launch_gram(const void* zr, const void* zi, int F, int T, int sp,
 
 }  // namespace
 
+// xengine_gram_bf16.cu
+int clen_gram_bf16_launch(const void* zr, const void* zi, int F, int T,
+                          int sp, int emit_gi, void* a_out, void* b_out,
+                          cudaStream_t stream);
+
 // dtype: 0 = int8 (int32 outputs), 1 = bfloat16 (float32 outputs).
-// Needs sp % 128 == 0, T % 4 == 0 for int8, 16-byte aligned operands and
-// F <= 65535.  Returns a cudaError_t.
+// Needs sp % 128 == 0, T % 4 == 0 for int8, T % 16 == 0 for bfloat16,
+// 16-byte aligned operands and F <= 65535.  Returns a cudaError_t.
 extern "C" int clen_xengine_gram(const void* zr, const void* zi, int dtype,
                                  int F, int T, int sp, int emit_gi,
                                  void* a_out, void* b_out, void* stream) {
@@ -219,7 +198,7 @@ extern "C" int clen_xengine_gram(const void* zr, const void* zi, int dtype,
       if (T % 4) return cudaErrorInvalidValue;
       return launch_gram<Int8Gram>(zr, zi, F, T, sp, emit_gi, 1, a_out, b_out, st);
     case 1:
-      return launch_gram<Bf16Gram>(zr, zi, F, T, sp, emit_gi, 2, a_out, b_out, st);
+      return clen_gram_bf16_launch(zr, zi, F, T, sp, emit_gi, a_out, b_out, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -243,6 +243,307 @@ def test_gram_plain_matches_pallas(ref, shape, dt, form):
         match(g, w, dt)
 
 
+# --------------------------------------------------------------------------
+# the bf16 tensor-core Gram (csrc/xengine_gram_bf16.cu), modelled in numpy:
+# the swizzled frame-major tiles, ldmatrix.x4.trans, the m16n8k16 fragment
+# layouts of PTX's mma.sync and the two kernels' ownership of the outputs
+# --------------------------------------------------------------------------
+
+LANE = np.arange(32)
+# the kernels' (tile columns, frames a tile, tiles a stage, threads):
+# diagonal, quadrant
+DIAG, QUAD = (128, 64, 2, 384), (64, 32, 4, 128)
+# (R, C) of the piece of diagonal-kernel warps 0-9 (kRoleR, kRoleC); warps
+# 10 and 11 compute ri of the lower pieces in slots 0-2 and 3-5
+DIAG_ROLES = [((0x3332213210 >> 4 * w) & 15, (0x2101003210 >> 4 * w) & 15)
+              for w in range(10)]
+RI_PIECES = [[(1, 0), (2, 0), (2, 1)], [(3, 0), (3, 1), (3, 2)]]
+
+
+def _swz(row, chunk, chunks):
+    """Byte offset of 16-byte chunk ``chunk`` of frame ``row`` in a tile of
+    ``chunks`` chunks a row."""
+    return row * chunks * 16 + ((chunk ^ (row & 7)) << 4)
+
+
+def _stage_phases(cols, frames, tiles, threads):
+    """Byte addresses of a stage's cp.async copies, one row per 8-thread
+    phase: thread tid copies e = tid + threads·u; copy e is tile
+    e // (frames·chunks), frame and chunk from the rest."""
+    chunks = cols // 8
+    per = frames * chunks
+    total = tiles * per
+    phases = []
+    for u in range(-(-total // threads)):
+        e = np.arange(threads) + threads * u
+        e = e[e < total]
+        s, rem = e // per, e % per
+        addr = s * frames * cols * 2 + _swz(rem // chunks, rem % chunks, chunks)
+        phases += list(addr.reshape(-1, 8))
+    return phases
+
+
+def _a_addr(piece, mi, ks, chunks):
+    """Per-lane ldmatrix row address (bytes) of A = rows × frames for the
+    32-row piece ``piece`` of the tile."""
+    lr, lq = LANE & 7, LANE >> 3
+    return _swz(ks * 16 + lr + 8 * (lq >> 1), piece * 4 + (lq & 1) + 2 * mi,
+                chunks)
+
+
+def _b_addr(piece, npair, ks, chunks):
+    """Per-lane ldmatrix row address (bytes) of B = frames × cols, two n8
+    tiles of the 32-column piece ``piece``."""
+    lr, lq = LANE & 7, LANE >> 3
+    return _swz(ks * 16 + lr + 8 * (lq & 1), piece * 4 + (lq >> 1) + 2 * npair,
+                chunks)
+
+
+def _distinct_banks(addr8):
+    """The 8 16-byte accesses of one phase cover 32 distinct banks."""
+    banks = (np.asarray(addr8)[:, None] // 4 + np.arange(4)) % 32
+    return len(np.unique(banks)) == 32
+
+
+@pytest.mark.parametrize("kernel", [DIAG, QUAD], ids=["diag", "quad"])
+def test_gram_bf16_tile_banks(kernel):
+    """Every cp.async store phase (8 threads) and every 8-address phase of
+    every ldmatrix.x4.trans the kernel issues hits 32 distinct banks, and
+    the stores fill the stage exactly once."""
+    cols, frames, tiles, threads = kernel
+    chunks = cols // 8
+    phases = _stage_phases(cols, frames, tiles, threads)
+    addr = np.concatenate(phases)
+    assert sorted(addr) == list(range(0, tiles * frames * cols * 2, 16))
+    for ph in phases:
+        assert _distinct_banks(ph)
+    for piece in range(cols // 32):
+        for sub in range(2):
+            for ks in range(frames // 16):
+                for lanes in (_a_addr(piece, sub, ks, chunks),
+                              _b_addr(piece, sub, ks, chunks)):
+                    for q in range(4):
+                        assert _distinct_banks(lanes[8 * q:8 * q + 8])
+
+
+def _ldsm_x4_trans(tile, addr):
+    """ldmatrix.sync.aligned.m8n8.x4.trans.b16: lane l gives the row
+    address of row l % 8 of matrix l // 8; register q of lane t holds
+    M_q[2(t%4) + h][t // 4], h = 0, 1.  Returns [32, 4, 2]."""
+    el = addr // 2
+    m = np.stack([tile[el[8 * q:8 * q + 8, None] + np.arange(8)]
+                  for q in range(4)])            # [q, row, col]
+    t = LANE
+    return np.stack([m[:, 2 * (t % 4) + h, t // 4] for h in (0, 1)],
+                    -1).transpose(1, 0, 2)
+
+
+def _mma_m16n8k16(a, b0, b1):
+    """mma.sync.aligned.m16n8k16.row.col on PTX's fragment layouts: a
+    [32, 4, 2] (a0..a7), b0/b1 [32, 2]; returns d [32, 4] (c0..c3)."""
+    g, tq = LANE >> 2, LANE & 3
+    am = np.zeros((16, 16))
+    bm = np.zeros((16, 8))
+    for h in (0, 1):
+        am[g, 2 * tq + h] = a[:, 0, h]
+        am[g + 8, 2 * tq + h] = a[:, 1, h]
+        am[g, 2 * tq + 8 + h] = a[:, 2, h]
+        am[g + 8, 2 * tq + 8 + h] = a[:, 3, h]
+        bm[2 * tq + h, g] = b0[:, h]
+        bm[2 * tq + 8 + h, g] = b1[:, h]
+    d = am @ bm
+    return np.stack([d[g, 2 * tq], d[g, 2 * tq + 1], d[g + 8, 2 * tq],
+                     d[g + 8, 2 * tq + 1]], -1)
+
+
+def _stage_tile(z, kt, c0, cols, frames):
+    """One swizzled [frames × cols] tile of channel frames z [T, S·P] from
+    frame frames·kt, frames past T zero (the cp.async zero-fill); flat
+    elements."""
+    chunks = cols // 8
+    row, chunk = np.divmod(np.arange(frames * chunks), chunks)
+    fr = kt * frames + row
+    ok = fr < z.shape[0]
+    el = _swz(row, chunk, chunks)[ok] // 2
+    tile = np.zeros(frames * cols)
+    src = c0 + 8 * chunk[ok, None] + np.arange(8)
+    tile[el[:, None] + np.arange(8)] = z[fr[ok, None], src]
+    return tile
+
+
+def _frag_a(tile, piece, ks, chunks):
+    return [_ldsm_x4_trans(tile, _a_addr(piece, mi, ks, chunks))
+            for mi in range(2)]
+
+
+def _frag_b(tile, piece, ks, chunks):
+    return [_ldsm_x4_trans(tile, _b_addr(piece, p, ks, chunks))
+            for p in range(2)]
+
+
+def _mma_piece(acc, a, b):
+    """mma_piece: acc [2, 4, 32, 4] += A B over 16 frames."""
+    for mi in range(2):
+        for ni in range(4):
+            p, h = ni >> 1, 2 * (ni & 1)
+            acc[mi, ni] += _mma_m16n8k16(a[mi], b[p][:, h], b[p][:, h + 1])
+
+
+def _ksteps(tile, chunks):
+    return range(len(tile) // (chunks * 8 * 16))
+
+
+def _warp_tile(acc, s_ri, s_ii, s_rj, s_ij, chunks, a_piece, b_piece, ri):
+    """warp_tile: one staged tile into acc [3 (a, ir, ri), 2, 4, 32, 4]."""
+    for ks in _ksteps(s_ri, chunks):
+        ar, ai = (_frag_a(t, a_piece, ks, chunks) for t in (s_ri, s_ii))
+        br, bim = (_frag_b(t, b_piece, ks, chunks) for t in (s_rj, s_ij))
+        _mma_piece(acc[0], ar, br)
+        _mma_piece(acc[0], ai, bim)
+        _mma_piece(acc[1], ai, br)
+        if ri:
+            _mma_piece(acc[2], ar, bim)
+
+
+def _ri_tile(acc, s_r, s_i, pieces):
+    """ri_tile: ri = zr_R zi_Cᵀ of three lower pieces into acc[0..2]."""
+    for ks in _ksteps(s_r, 16):
+        for x, (rr, cc) in enumerate(pieces):
+            _mma_piece(acc[x], _frag_a(s_r, rr, ks, 16),
+                       _frag_b(s_i, cc, ks, 16))
+
+
+def _pieces(acc):
+    """(local row, local col, a, ir, ri) of each accumulator element of a
+    warp's 32 × 32 piece, lanes batched."""
+    g, tq = LANE >> 2, LANE & 3
+    for mi in range(2):
+        for ni in range(4):
+            for hr in range(2):
+                for e in range(2):
+                    yield (mi * 16 + g + 8 * hr, ni * 8 + 2 * tq + e,
+                           *acc[:, mi, ni, :, 2 * hr + e])
+
+
+def _put(out, r, c, val):
+    assert np.isnan(out[r, c]).all()             # one owner per element
+    out[r, c] = val
+
+
+def _model_gram_bf16(zr, zi, emit_gi):
+    """Both kernels' walks and epilogues for zr/zi [F, T, S·P] in float64:
+    (a_blk, gi_blk or b_blk) as they write them; NaN where nothing wrote."""
+    f, t, sp = zr.shape
+    kb = sp // 128
+    nbt = kb * (kb + 1) // 2
+    a_blk = np.full((f, nbt, 128, 128), np.nan)
+    b_blk = np.full((f, nbt, 128, 128) if emit_gi else (f, kb, kb, 128, 128),
+                    np.nan)
+    for ch in range(f):
+        for bi in range(kb):                        # gram_bf16_diag_kernel
+            n = bi * (bi + 1) // 2 + bi
+            acc = np.zeros((12, 3, 2, 4, 32, 4))
+            for kt in range(-(-t // DIAG[1])):
+                s_r = _stage_tile(zr[ch], kt, bi * 128, 128, DIAG[1])
+                s_i = _stage_tile(zi[ch], kt, bi * 128, 128, DIAG[1])
+                for w, (rr, cc) in enumerate(DIAG_ROLES):
+                    _warp_tile(acc[w], s_r, s_i, s_r, s_i, 16, rr, cc,
+                               ri=False)
+                for w, pieces in enumerate(RI_PIECES):
+                    _ri_tile(acc[10 + w], s_r, s_i, pieces)
+            # the exchange: ri of lower slot s, ir of diagonal piece R
+            xs_ri = np.zeros((6, 32, 32))
+            xs_ir = np.zeros((4, 32, 32))
+            for w in range(2):
+                for x in range(3):
+                    for lr, lc, v, *_ in _pieces(acc[10 + w, [x]]):
+                        xs_ri[3 * w + x, lr, lc] = v
+            for w, (rr, cc) in enumerate(DIAG_ROLES):
+                if rr == cc:
+                    for lr, lc, _, vir, _ in _pieces(acc[w]):
+                        xs_ir[rr, lr, lc] = vir
+            a_dst = a_blk[ch, n]
+            b_dst = b_blk[ch, n] if emit_gi else b_blk[ch, bi, bi]
+            for w, (rr, cc) in enumerate(DIAG_ROLES):
+                for lr, lc, va, vir, _ in _pieces(acc[w]):
+                    r, c = rr * 32 + lr, cc * 32 + lc
+                    _put(a_dst, r, c, va)
+                    if rr == cc:
+                        _put(b_dst, r, c, vir - xs_ir[rr, lc, lr] if emit_gi
+                             else vir)
+                        continue
+                    vri = xs_ri[w - 4, lr, lc]
+                    _put(a_dst, c, r, va)
+                    if emit_gi:
+                        _put(b_dst, r, c, vir - vri)
+                        _put(b_dst, c, r, -(vir - vri))
+                    else:
+                        _put(b_dst, r, c, vir)
+                        _put(b_dst, c, r, vri)
+        for m in range(kb * (kb - 1) // 2):         # gram_bf16_quad_kernel
+            bi = 1
+            while (bi + 1) * bi // 2 <= m:
+                bi += 1
+            bj = m - bi * (bi - 1) // 2
+            n = bi * (bi + 1) // 2 + bj
+            for quad in range(4):
+                qr, qc = quad >> 1, quad & 1
+                row0, col0 = bi * 128 + qr * 64, bj * 128 + qc * 64
+                acc = np.zeros((4, 3, 2, 4, 32, 4))
+                for kt in range(-(-t // QUAD[1])):
+                    tiles = [_stage_tile(z[ch], kt, c0, 64, QUAD[1])
+                             for c0 in (row0, col0) for z in (zr, zi)]
+                    for w in range(4):
+                        _warp_tile(acc[w], *tiles, 8, w >> 1, w & 1, ri=True)
+                for w in range(4):
+                    for lr, lc, va, vir, vri in _pieces(acc[w]):
+                        r = qr * 64 + (w >> 1) * 32 + lr
+                        c = qc * 64 + (w & 1) * 32 + lc
+                        _put(a_blk[ch, n], r, c, va)
+                        if emit_gi:
+                            _put(b_blk[ch, n], r, c, vir - vri)
+                        else:
+                            _put(b_blk[ch, bi, bj], r, c, vir)
+                            _put(b_blk[ch, bj, bi], c, r, vri)
+    return a_blk, b_blk
+
+
+# (channels, frames, S·P): frames past T zero-filled in the last tile of
+# both kernels; kb = 1, 2 and 3
+@pytest.mark.parametrize("emit_gi", [True, False], ids=["tri", "blocks"])
+@pytest.mark.parametrize("shape", [(2, 48, 128), (1, 80, 256), (1, 16, 384)],
+                         ids=["k1_t48", "k2_t80", "k3_t16"])
+def test_gram_bf16_fragments_rebuild_gram(shape, emit_gi):
+    """The modelled m16n8k16 fragment ownership of both kernels writes every
+    output element once and rebuilds a, gi = b − bᵀ and b = zi·zrᵀ equal to
+    np.einsum, and equal to the port's plain forms."""
+    f, t, sp = shape
+    kb = sp // 128
+    zr, zi = _ints(11, (2, f, t, sp)).astype(np.float64)
+    a_blk, b_blk = _model_gram_bf16(zr, zi, emit_gi)
+    a = np.einsum("ftk,ftl->fkl", zr, zr) + np.einsum("ftk,ftl->fkl", zi, zi)
+    b = np.einsum("ftk,ftl->fkl", zi, zr)
+    gi = b - b.transpose(0, 2, 1)
+    tri = [(i, j) for i in range(kb) for j in range(i + 1)]
+
+    def blk(x, i, j):
+        return x[:, i * 128:(i + 1) * 128, j * 128:(j + 1) * 128]
+
+    for n, (i, j) in enumerate(tri):
+        np.testing.assert_array_equal(a_blk[:, n], blk(a, i, j))
+        if emit_gi:
+            np.testing.assert_array_equal(b_blk[:, n], blk(gi, i, j))
+    if not emit_gi:
+        for i in range(kb):
+            for j in range(kb):
+                np.testing.assert_array_equal(b_blk[:, i, j], blk(b, i, j))
+    zt = [_t(z, "bfloat16") for z in (zr, zi)]
+    form = (hk.xengine_gram_stacked_tri if emit_gi
+            else hk.xengine_gram_stacked_blocks)
+    for got, want in zip(form(*zt)[:2], (a_blk, b_blk)):
+        equal(got, want)
+
+
 def test_gram_checks_match_jax():
     z = torch.zeros((2, 64, 100), dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -415,6 +716,61 @@ def test_stacked_engine_uses_kernel_on_card(card):
     assert torch.equal(got.im.cpu(), want.im)
     with pytest.raises(ValueError, match="int8 or bfloat16"):
         hk.xengine_gram_stacked(zr.float(), zi.float())
+
+
+# (channels, frames, S·P): T % 32 == 16, kb = 4, one channel
+BF16_CARD_SHAPES = [(4, 1040, 256), (2, 512, 512), (1, 2048, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", GRAM_FORMS)
+@pytest.mark.parametrize("shape", BF16_CARD_SHAPES,
+                         ids=["t1040", "k4", "f1"])
+def test_gram_bf16_randn_matches_plain_on_card(card, shape, form):
+    """randn bf16 operands (not only small integers) through the
+    tensor-core kernel, within 1e-4 × max|plain|."""
+    g = torch.Generator(device=card)
+    g.manual_seed(sum(shape))
+    zr, zi = (torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+              for _ in range(2))
+    got = getattr(hk, form)(zr, zi)
+    torch.cuda.synchronize()
+    want = getattr(hk, form + "_plain")(zr, zi)
+    for gt, w in zip(got[:2], want[:2]):
+        assert gt.dtype == torch.float32
+        close(gt, w, REL_CARD)
+
+
+@pytest.mark.cuda
+def test_gram_launches_its_kernels_on_card(card):
+    """A bf16 CUDA call runs the tensor-core kernels (at kb = 2 the
+    diagonal and the quadrant kernel, once each) and nothing of the int8
+    kernel; the int8 forms run the dp4a kernel and stay equal to their
+    plain forms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    qr, qi = _ints(12, (2, 2, 512, 256))
+    for dt, names, other in (
+            ("bfloat16", ("gram_bf16_diag_kernel", "gram_bf16_quad_kernel"),
+             "gram_kernel"),
+            ("int8", ("gram_kernel",), "gram_bf16")):
+        zr, zi = _t(qr, dt, card), _t(qi, dt, card)
+        before = hk.gram_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = [getattr(hk, form)(zr, zi) for form in GRAM_FORMS]
+            torch.cuda.synchronize()
+        assert hk.gram_launches() == before + len(GRAM_FORMS)
+        events = [e.name for e in prof.events() if e.device_type == cuda]
+        for name in names:
+            assert sum(name in e for e in events) == len(GRAM_FORMS)
+        assert not any(other in e for e in events)
+        if dt == "int8":
+            for form, out in zip(GRAM_FORMS, got):
+                want = getattr(hk, form + "_plain")(zr, zi)
+                for g, w in zip(out[:2], want[:2]):
+                    assert torch.equal(g, w)
 
 
 # --------------------------------------------------------------------------
