@@ -83,13 +83,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    in bin 1536 of every vector and the source within 5e-4 of float64
    cos/sin.
 12. carrier recovery — the Costas kernel (B.9) against its plain form on
-   2^12 samples, order 2 on BPSK and order 4 on QPSK (bit for bit, or
-   within 5e-6); then counts reset, ``CostasLoop(0.00628, 2, planar=True,
+   2^12 samples, order 2 on BPSK and order 4 on QPSK, bit for bit; the
+   probe of its chain's sin/cos over all 2^32 float32 patterns (0
+   mismatches against ``sinf``/``cosf`` where |x| <= 2π or x is NaN);
+   then counts reset, ``CostasLoop(0.00628, 2, planar=True,
    scalar=True)`` over 8 chained frames of 2^16 of seeded BPSK with a
    0.005 rad/sample carrier offset and noise, one launch per frame, equal
-   bit for bit to one kernel call over the joined stream (the seam check),
-   and locked (frequency within 5e-4 of the offset); the kernel held to
-   its plain form again on the path's first 2^16 frame.
+   bit for bit to one kernel call over the joined stream (the seam
+   check), and locked (frequency within 5e-4 of the offset); the kernel
+   held to its plain form bit for bit again on the path's first 2^16
+   frame and on 2^16 samples of QPSK (order 4).  Beside each order's
+   time: ns and cycles a sample at the SM clock (the highest
+   ``nvidia-smi`` reading at 90% utilization or more, taken while the
+   kernel runs for 3 s), and the latency bound (``latency_bound_ms``: the
+   samples × the loop-carried chain's dependent operations × 4 cycles at
+   that clock).
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -133,15 +141,27 @@ OS_M, OS_R, OS_N, OS_FRAMES, OS_DEEP_N = 16, 8, 1 << 23, 4, 1 << 21
 SP_N, SP_FFT, SP_FRAMES = 1 << 21, 2048, 8
 # carrier recovery: the reference's loop bandwidth, BENCH_TPU's frame
 CO_BW, CO_N, CO_FRAMES, CO_CHECK_N, CO_OFFSET = 0.00628, 1 << 16, 8, 1 << 12, 0.005
+# the fewest dependent operations a sample on the Costas recurrence's
+# loop-carried chain, phase -> phase, by order (csrc/costas.cu's head
+# note): sin/cos 10 (x*2/pi, rint, 3 reduction FMAs, r*r, 4 polynomial
+# FMAs; the quadrant's selects can act on the sample, off the chain),
+# rotation 2 (mul, add), error 1 (order 4: compare, select, subtract), clip
+# 2 (e+1, |a|-|b|; its 0.5 can go into the gains), frequency 2 (mul, add),
+# phase 2 (add, add)
+CO_CHAIN = {2: 19, 4: 21}
+CYCLES_PER_OP = 4
 DEVICE = ("cuda", 0)
 # the H100 SXM's published rates (NVIDIA's data sheet): memory bytes/s,
 # FP32 outside the tensor cores, int8 and bf16 on the tensor cores
 HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # the __global__ functions of csrc/*.cu, one launched per counted wrapper call
+# (costas_kernel<order, halved gains> matches "costas_kernel"; the sin/cos
+# probe is counted by no wrapper and runs in no timed window)
 PORT_KERNELS = ("fx_tile_kernel", "pfb_packed_kernel", "gram_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
-                "pfb_os_kernel", "fft_batched_kernel", "costas_kernel")
+                "pfb_os_kernel", "fft_batched_kernel", "costas_kernel",
+                "costas_sincos_probe_kernel")
 
 
 def bound(nbytes: float, ops: float, rate: float = FP32_OPS) -> tuple:
@@ -939,17 +959,78 @@ def costas_stream(np, rng, n: int, order: int):
 
 
 def costas_check(torch, label: str, got, want) -> float:
-    """Hold the Costas kernel's outputs and state to the plain form's: bit
-    for bit, or within 5e-6; returns the largest error."""
-    errs = [float((g.double() - w.double()).abs().max())
-            for g, w in zip(got, want)]
-    exact = all(torch.equal(g, w) for g, w in zip(got, want))
-    if not max(errs) <= 5e-6:
-        fail(f"{label}: max abs err {max(errs):.3e} > 5e-6")
-    phase("check", f"{label}: "
-                   f"{'bit-exact' if exact else f'max abs err {max(errs):.3e} <= 5e-6'}"
-                   f" (outputs and state)")
-    return max(errs)
+    """Hold the Costas kernel's outputs and state to the plain form's bit
+    for bit; returns the largest error (0.0)."""
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        fail(f"{label}: not bit-exact (max abs err {err:.3e})")
+    phase("check", f"{label}: bit-exact (outputs and state)")
+    return 0.0
+
+
+def sm_clock_mhz(torch, fn, seconds: float = 3.0) -> tuple:
+    """The SM clock in MHz while ``fn`` runs back to back on the card for
+    ``seconds``: the highest of the ``nvidia-smi`` readings, taken one
+    after another by a second thread meanwhile, with the card's
+    utilization at 90% or more (of all of them if none is).  Returns it
+    (None if none is read) and the number of busy readings."""
+    import subprocess
+    import threading
+
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,utilization.gpu",
+             "--format=csv,noheader,nounits"]
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                out = subprocess.run(query, capture_output=True, text=True,
+                                     timeout=60).stdout
+                readings.append(tuple(float(v) for v in out.split(",")))
+            except (OSError, ValueError, subprocess.SubprocessError):
+                return
+
+    reader = threading.Thread(target=poll)
+    reader.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        torch.cuda.synchronize()
+    stop.set()
+    reader.join()
+    busy = [mhz for mhz, util in readings if util >= 90]
+    return max(busy or [mhz for mhz, _ in readings], default=None), len(busy)
+
+
+def costas_time(torch, hk, label: str, args, order: int, n: int) -> dict:
+    """The Costas kernel's time on ``args`` (``torch.profiler``, else CUDA
+    events), the SM clock while it runs, ns and cycles a sample at that
+    clock and the latency bound of ``n`` samples of ``order``."""
+    kern = lambda: hk.costas_scalar(*args)
+    events_ms = time_ms(torch, kern, reps=5)
+    ms = device_busy_ms(torch, kern, 5) or events_ms
+    mhz, busy = sm_clock_mhz(torch, kern)
+    if not busy:
+        phase("note", f"{label}: no SM clock reading while the card was busy")
+    ns = ms * 1e6 / n
+    res = {"ms": ms, "events_ms": events_ms, "sm_clock_mhz": mhz,
+           "clock_readings_busy": busy, "ns_per_sample": ns,
+           "chain_ops": CO_CHAIN[order],
+           "cycles_per_sample": None, "latency_bound_ms": None}
+    shown = "SM clock not read"
+    if mhz:
+        res["cycles_per_sample"] = ns * mhz / 1e3
+        res["latency_bound_ms"] = (n * CO_CHAIN[order] * CYCLES_PER_OP
+                                   / (mhz * 1e6) * 1e3)
+        shown = (f"{res['cycles_per_sample']:.1f} cycles a sample at {mhz:.0f}"
+                 f" MHz (highest of {busy} readings at >= 90% utilization);"
+                 f" latency bound {res['latency_bound_ms']:.4f} ms "
+                 f"({CO_CHAIN[order]} dependent ops x {CYCLES_PER_OP} cycles)")
+    phase("time", f"{label}: device kernel {ms:.4f} ms (events "
+                  f"{events_ms:.4f} ms), {n / ms / 1e3:.2f} MSPS, {ns:.2f} ns"
+                  f" a sample, {shown}")
+    return res
 
 
 def costas_phase(torch, hk, dev) -> dict:
@@ -972,6 +1053,15 @@ def costas_phase(torch, hk, dev) -> dict:
         res["err"] = max(res["err"], costas_check(
             torch, f"costas_scalar order {order} [{CO_CHECK_N}]", got,
             hk.costas_scalar_plain(*args)))
+    # the chain's sin/cos against sinf/cosf
+    probe = hk.costas_sincos_probe(device=dev)
+    phase("check", f"costas sin/cos probe over all 2^32 float32 patterns: "
+                   f"{probe['loop']} mismatches of the chain's fast path on "
+                   f"its {probe['in_domain']} patterns (|x| <= 2pi or NaN; "
+                   f"{probe['loop_outside']} outside, never kept)")
+    if probe["loop"] or probe["in_domain"] != hk.COSTAS_LOOP_PATTERNS:
+        fail(f"the Costas sin/cos differs from sinf/cosf: {probe}")
+    res["probe"] = probe
 
     # the path: Flowgraph → CostasLoop(planar, scalar), counted
     stream = torch.as_tensor(costas_stream(np, rng, CO_N * CO_FRAMES, 2),
@@ -1008,7 +1098,8 @@ def costas_phase(torch, hk, dev) -> dict:
                    f"the joined stream, bit for bit; locked at freq {freq:.6f} "
                    f"rad/sample (offset {CO_OFFSET}), tail |im| {tail:.4f}")
     # the kernel against its plain form on the path's first frame (order 2,
-    # zero state): the plain call is timed once and its outputs checked
+    # zero state) and on 2^16 samples of QPSK (order 4): the order-2 plain
+    # call is timed once and its outputs checked
     x = feeds[0]
     args = (x.re, x.im, 0.0, 0.0, 0.0, 2, alpha, beta)
     got = hk.costas_scalar(*args)
@@ -1023,12 +1114,18 @@ def costas_phase(torch, hk, dev) -> dict:
     res["err"] = max(res["err"], costas_check(
         torch, f"costas_scalar order 2 [{CO_N}] (the path's first frame)",
         got, want))
-    kern = lambda: hk.costas_scalar(*args)
-    events_ms = time_ms(torch, kern, reps=5)
-    res["time"] = (device_busy_ms(torch, kern, 5) or events_ms, plain_ms)
-    phase("time", f"costas_scalar [{CO_N}]: device kernel {res['time'][0]:.4f}"
-                  f" ms ({CO_N / res['time'][0] / 1e3:.2f} MSPS; events "
-                  f"{events_ms:.4f} ms), plain {plain_ms:.1f} ms")
+    q = torch.as_tensor(costas_stream(np, rng, CO_N, 4), device=dev)
+    args4 = (q[0], q[1], 0.0, 0.0, 0.0, 4, alpha, beta)
+    got = hk.costas_scalar(*args4)
+    torch.cuda.synchronize()
+    res["err"] = max(res["err"], costas_check(
+        torch, f"costas_scalar order 4 [{CO_N}]", got,
+        hk.costas_scalar_plain(*args4)))
+    res["timing"] = {order: costas_time(torch, hk, f"costas_scalar order "
+                                        f"{order} [{CO_N}]", a, order, CO_N)
+                     for order, a in ((2, args), (4, args4))}
+    res["time"] = (res["timing"][2]["ms"], plain_ms)
+    phase("time", f"costas_scalar plain order 2 [{CO_N}]: {plain_ms:.1f} ms")
     res["bound"] = bound(4 * (4 * CO_N + 6), 30 * CO_N)
     res["path"] = path_times(torch, "carrier recovery",
                              lambda: r.step(feeds[0]), CO_N)
@@ -1412,8 +1509,18 @@ def main() -> None:
                    spr["launches"], spr["err"], *spr["time"][:2],
                    spr["bound"], spr["library_ms"]),
              bare_by_size=spr["sizes"]),
-        entry("costas_scalar", "costas.cu", 2287, cor["launches"], cor["err"],
-              *cor["time"], cor["bound"]),
+        dict(entry("costas_scalar", "costas.cu", 2287, cor["launches"],
+                   cor["err"], *cor["time"], cor["bound"]),
+             latency_bound_ms=cor["timing"][2]["latency_bound_ms"],
+             by_order={o: {k: t[k] for k in (
+                 "ms", "events_ms", "sm_clock_mhz", "clock_readings_busy",
+                 "ns_per_sample", "cycles_per_sample", "chain_ops",
+                 "latency_bound_ms")}
+                 for o, t in cor["timing"].items()},
+             sincos_probe=cor["probe"],
+             cuda_kernels=[f"costas_kernel<{o}, {h}>" for o in (2, 4)
+                           for h in ("true", "false")]
+             + ["costas_sincos_probe_kernel"]),
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],

@@ -9,8 +9,9 @@ carried phase and 1e-6 on the carried frequency — the scan form (exact
 ``cos``/``sin``), the complex form and the Pallas scalar kernel in
 interpret mode (1-ulp polynomial sin/cos).  Flowgraphs over 3 frames are
 held to JAX's within 1e-4 × max|ref|.  On a card (``cuda`` marker; skipped
-without one) the kernel is held to its plain form bit for bit or within
-5e-6.  Frames stay at or below 4096 samples: the plain loop costs one
+without one) the kernel is held to its plain form bit for bit, and its
+chain's sin/cos to the CUDA math library's on every float32 of its
+domain.  Frames stay at or below 4096 samples: the plain loop costs one
 Python step per sample.
 """
 
@@ -162,6 +163,22 @@ def test_wrapper_contract():
         demod.make_costas_loop(0.02, 3)
 
 
+@pytest.mark.parametrize("limits", [(float("nan"), 1.0), (-1.0, float("nan"))],
+                         ids=["f_min", "f_max"])
+def test_wrapper_refuses_nan_frequency_limits(limits):
+    """The kernel's clamp and wrap bound need real frequency limits, so a
+    NaN limit is refused off the CPU, before any launch (a meta tensor
+    stands for the card's); the CPU's plain form takes it, as JAX's step
+    does: the NaN reaches the carried frequency, and the phase after the
+    first sample."""
+    x = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="NaN"):
+        hk.costas_scalar(x, x, 0.0, 0.0, 0.0, 2, 0.1, 0.01, *limits)
+    xr, xi = (torch.from_numpy(v) for v in stream(8, 2, seed=26))
+    got = hk.costas_scalar(xr, xi, 0.0, 0.0, 0.0, 2, 0.1, 0.01, *limits)
+    assert torch.isnan(got[3]) and torch.isfinite(got[0][0])
+
+
 def test_block_flags_match_jax():
     """The JAX block's exclusivity errors; the shapes the port leaves
     queued raise NotImplementedError naming ROADMAP A.9."""
@@ -243,6 +260,126 @@ def test_runner_state_from_reference(ref):
     close(got.im, want.im, OUT_TOL)
 
 
+TWO_PI_F32 = float(np.float32(2 * np.pi))
+
+
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("phase", [-7.0, 100.0, TWO_PI_F32, -TWO_PI_F32],
+                         ids=["m7", "100", "2pi", "m2pi"])
+def test_plain_form_matches_jax_scan_from_wrapping_states(ref, order, phase):
+    """From carried phases the kernel takes through its full sin/cos (the
+    wrap has not bounded them yet) or that sit on the wrap's bound, the
+    plain form against JAX's scan form."""
+    xr, xi = stream(1024, order, seed=16)
+    j_run = j_demod.make_costas_loop_planar(0.02, order)
+    j_st = j_demod.CostasState(phase=jnp.float32(phase),
+                               freq=jnp.float32(0.003),
+                               error=jnp.float32(0.0))
+    j_st, j_out = j_run(j_st, j_planar.PC(jnp.asarray(xr), jnp.asarray(xi)))
+    st = demod.CostasState(*(torch.tensor(v, dtype=torch.float32)
+                             for v in (phase, 0.003, 0.0)))
+    st, out = demod.make_costas_loop_planar(0.02, order)(
+        st, planar.PC(torch.from_numpy(xr), torch.from_numpy(xi)))
+    close(out.re, j_out.re, OUT_TOL)
+    close(out.im, j_out.im, OUT_TOL)
+    close(st.phase, j_st.phase, PHASE_TOL)
+    close(st.freq, j_st.freq, FREQ_TOL)
+    close(st.error, j_st.error, OUT_TOL)
+
+
+@pytest.mark.parametrize("raw,clipped", [(2 ** 24 + 2, 2.0), (2 ** 24 + 4, 0.0),
+                                         (2 ** 24, 0.5), (2 ** 25 + 4, 0.0),
+                                         (-(2 ** 24 + 2), -2.0)],
+                         ids=["2^24+2", "2^24+4", "2^24", "2^25+4", "neg"])
+def test_error_clip_reaches_two_in_float32(ref, raw, clipped):
+    """For a raw error of 2 mod 4 in [2^24, 2^25), e + 1 rounds up and
+    e − 1 down, so 0.5·(|e+1| − |e−1|) is 2, not 1, in the port's step as
+    in JAX's (order 2, from phase 0: the rotation leaves the sample as it
+    is, and s_r·s_i = raw exactly); the kernel's wrap bound counts on it."""
+    s_r, s_i = np.float32(2.0), np.float32(raw / 2)
+    assert float(s_r) * float(s_i) == raw
+    gains = (*demod.costas_gains(0.02), -1.0, 1.0)
+    t_step = demod._costas_step_planar(
+        2, *(torch.tensor(v, dtype=torch.float32) for v in gains))
+    j_step = j_demod._costas_step_planar(2, *(jnp.float32(v) for v in gains))
+    z = np.float32(0.0)
+    (_, _, t_er), _ = t_step(tuple(torch.tensor(z) for _ in range(3)),
+                             (torch.tensor(s_r), torch.tensor(s_i)))
+    (_, _, j_er), _ = j_step((z, z, z), (jnp.float32(s_r), jnp.float32(s_i)))
+    assert float(t_er) == float(j_er) == clipped
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_clip_two_stream_clips_every_error_to_two(order):
+    """The card test's stream: every step of the plain form clips its
+    error to 2, and the phase crosses 2π (and wraps) from 4.8."""
+    from clenabled_tpu_torch.tools.costas_ab import clip_two_stream
+
+    alpha, beta = demod.costas_gains(0.02)
+    xr, xi = clip_two_stream(order, 64, 4.8, 0.0, alpha, beta, -0.01, 0.01)
+    step = demod._costas_step_planar(order, *(
+        torch.tensor(v, dtype=torch.float32)
+        for v in (alpha, beta, -0.01, 0.01)))
+    carry = tuple(torch.tensor(v, dtype=torch.float32) for v in (4.8, 0.0, 0.0))
+    phases = []
+    for t in range(64):
+        carry, _ = step(carry, (torch.tensor(xr[t]), torch.tensor(xi[t])))
+        assert float(carry[2]) == 2.0
+        phases.append(float(carry[0]))
+    assert max(phases) <= 2 * np.pi and min(phases[:16]) < 1.0
+
+
+def test_costas_ab_cli_arguments():
+    """The variants tool's arguments; without a card it exits non-zero."""
+    from clenabled_tpu_torch.tools import costas_ab as cli
+
+    args = cli.parse_args([])
+    assert (args.sources, args.n, args.rounds, args.calls) == (
+        [], 1 << 16, 7, 10)
+    args = cli.parse_args(["a=x.cu", "b=y.cu", "--n", "4096"])
+    assert (args.sources, args.n) == (["a=x.cu", "b=y.cu"], 4096)
+    if not torch.cuda.is_available():
+        assert cli.main(["--n", "64"]) == 1
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_error_clip_keeps_float32_rounding(ref, order):
+    """0.5·(|e+1| − |e−1|) is not a clamp in float32: an error of about
+    1e-8 comes out 0 (e ± 1 round to ±1), in the port's step as in JAX's.
+    From phase 0 the rotation leaves the sample as it is."""
+    s_r, s_i = (1e-4, 1e-4) if order == 2 else (2e-8, 1e-8)
+    gains = (*demod.costas_gains(0.02), -1.0, 1.0)
+    t_step = demod._costas_step_planar(
+        order, *(torch.tensor(v, dtype=torch.float32) for v in gains))
+    j_step = j_demod._costas_step_planar(
+        order, *(jnp.float32(v) for v in gains))
+    z = np.float32(0.0)
+    (t_ph, t_fr, t_er), t_out = t_step(
+        tuple(torch.tensor(z) for _ in range(3)),
+        (torch.tensor(np.float32(s_r)), torch.tensor(np.float32(s_i))))
+    (j_ph, j_fr, j_er), j_out = j_step(
+        (z, z, z), (jnp.float32(s_r), jnp.float32(s_i)))
+    raw = np.float32(s_r) * np.float32(s_i) if order == 2 else (
+        np.float32(s_i) - np.float32(s_r))
+    assert 5e-9 < abs(float(raw)) < 2e-8
+    assert float(t_er) == 0.0 and float(j_er) == 0.0
+    assert float(t_fr) == 0.0 and float(j_fr) == 0.0
+    assert float(t_out[0]) == float(j_out[0]) == np.float32(s_r)
+    assert float(t_out[1]) == float(j_out[1]) == np.float32(s_i)
+    # a clamp would keep the error itself
+    assert float(np.clip(raw, -1, 1)) != 0.0
+
+
+def same_bits(got, want) -> bool:
+    """Bit for bit, two NaNs agreeing."""
+    for g_, w_ in zip(got, want):
+        nan = torch.isnan(w_)
+        if not (torch.equal(torch.isnan(g_), nan)
+                and torch.equal(g_[~nan], w_[~nan])):
+            return False
+    return True
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", [2, 4])
 def test_costas_kernel_matches_plain_on_card(card, order):
@@ -255,8 +392,114 @@ def test_costas_kernel_matches_plain_on_card(card, order):
     torch.cuda.synchronize()
     assert hk.costas_scalar.launches == before + 1
     want = hk.costas_scalar_plain(*args)
-    for g_, w_ in zip(got, want):
-        assert float((g_.double() - w_.double()).abs().max()) <= 5e-6
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_costas_sincos_probe_on_card(card):
+    """The chain's sin/cos device function against the CUDA math library's
+    sinf/cosf on every float32 of its domain (|x| <= 2π, or NaN), and the
+    special ranges by name: ±0, the NaNs (in the domain) and ±inf with
+    the large |x| (outside it: only the first sample sees them, through
+    cosf/sinf themselves)."""
+    got = hk.costas_sincos_probe(device=card)
+    assert got["in_domain"] == hk.COSTAS_LOOP_PATTERNS
+    assert got["loop"] == 0
+    for first, count, inside in ((0x00000000, 1, 1), (0x80000000, 1, 1),
+                                 (0x7F800001, (1 << 23) - 1, (1 << 23) - 1),
+                                 (0xFF800001, (1 << 23) - 1, (1 << 23) - 1),
+                                 (0x7F800000, 1, 0), (0xFF800000, 1, 0),
+                                 (0x47CE4780, 0x7F800000 - 0x47CE4780, 0)):
+        part = hk.costas_sincos_probe(first, count, device=card)
+        assert part["loop"] == 0 and part["in_domain"] == inside, (
+            hex(first), part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("state", [(0.3, 0.0), (-7.0, 0.0), (100.0, 0.0),
+                                   (1e6, 0.0), (0.2, 0.01)],
+                         ids=["0.3", "m7", "100", "1e6", "fmax"])
+def test_costas_kernel_from_carried_states_on_card(card, order, state):
+    """Bit for bit from carried phases inside and outside the wrap's bound
+    and from a frequency held at f_max (f_max = 0.01)."""
+    xr, xi = stream(4096, order, seed=22, omega=0.005, noise=0.05)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    alpha, beta = demod.costas_gains(0.00628)
+    args = (x[0], x[1], state[0], state[1], 0.0, order, alpha, beta, -0.01,
+            0.01)
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    want = hk.costas_scalar_plain(*args)
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gains", [(0.01, 1.4e-45), (4.2e-45, 1e-4),
+                                   (0.5, 0.25)],
+                         ids=["beta_subnormal", "alpha_subnormal", "wide"])
+def test_costas_kernel_gains_on_card(card, gains):
+    """Gains whose halves are not exact take the kernel's instantiation
+    without the clip's 0.5 folded into them; wide gains keep the phase
+    bound from clearing any group, so every sample takes the wrap test."""
+    xr, xi = stream(4096 + 5, 4, seed=25)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    args = (x[0], x[1], 0.3, 0.0, 0.0, 4, *gains)
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g_, w_)
+               for g_, w_ in zip(got, hk.costas_scalar_plain(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("phase", [4.8, 6.1], ids=["4.8", "6.1"])
+def test_costas_kernel_clipped_error_two_on_card(card, order, phase):
+    """Bit for bit on a stream whose every clipped error is 2 (raw errors
+    of 2 mod 4 in [2^24, 2^25), as int16-scale samples give): the wrap
+    bound must allow 2·(|alpha| + |beta|) of growth a sample, or a group it
+    clears carries the phase past 2π without the wrap."""
+    from clenabled_tpu_torch.tools.costas_ab import clip_two_stream
+
+    alpha, beta = demod.costas_gains(0.02)
+    xr, xi = clip_two_stream(order, 512, phase, 0.0, alpha, beta, -0.01,
+                             0.01, device=card)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    args = (x[0], x[1], phase, 0.0, 0.0, order, alpha, beta, -0.01, 0.01)
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    want = hk.costas_scalar_plain(*args)
+    assert float(want[4]) == 2.0
+    assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", [float("inf"), float("-inf"), float("nan"),
+                                   -0.0, 3e38])
+def test_costas_kernel_special_phases_on_card(card, phase):
+    """Carried phases that only the first sample, through the library's
+    cosf/sinf, can take."""
+    xr, xi = stream(256, 2, seed=23)
+    x = torch.from_numpy(np.stack([xr, xi])).to(card)
+    args = (x[0], x[1], phase, 0.0, 0.0, 2, *demod.costas_gains(0.02))
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    assert same_bits(got, hk.costas_scalar_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 4096 + 37])
+@pytest.mark.parametrize("order", [2, 4])
+def test_costas_kernel_frame_lengths_on_card(card, n, order):
+    """Empty, one-sample and ragged frames (not a multiple of the ring's
+    chunk or of the read-ahead group) equal the plain form bit for bit."""
+    xr, xi = stream(max(n, 1), order, seed=24)
+    x = torch.from_numpy(np.stack([xr, xi])[:, :n].copy()).to(card)
+    args = (x[0], x[1], 0.5, 0.002, 0.1, order, *demod.costas_gains(0.02))
+    got = hk.costas_scalar(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g_, w_)
+               for g_, w_ in zip(got, hk.costas_scalar_plain(*args)))
 
 
 @pytest.mark.cuda
