@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    S·P=128) in all three output forms and at k = 4 lane blocks (S·P=512,
    F=16); the bf16 one is also timed from ``torch.profiler`` and beside
    the library call ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
-   [zr | zi].
+   [zr | zi].  At M = 16 both FX entries run ``fx_reg_kernel`` (the body
+   ``hopper_kernels.fx_body`` names; the kernels record gives it), timed
+   in f32, bf16 and int8 ingest.
 4. main path — launch counts reset, then the fused step at full width
    (4 antennas × 2^23 samples, 16 channels, 400 taps) for 3 chained steps
    in f32 and int8 ingest, and the planar step at the entry shape (2^17);
@@ -107,8 +109,9 @@ and else the device time reads "not measured" (null in the record).
 The kernels record gives, for every kernel, the least time the
 card could take for its work at the measured shape (``bound_ms``: the
 larger of the bytes it must move at 3.35 TB/s and its operations at the
-published peak for their type), and the time of one PyTorch library call
-computing the same function where there is one.
+published peak for their type; the FX step's M-point transforms counted as
+FFTs, beside the dense-DFT count of earlier records), and the time of one
+PyTorch library call computing the same function where there is one.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -157,7 +160,8 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # the __global__ functions of csrc/*.cu, one launched per counted wrapper call
 # (costas_kernel<order, halved gains> matches "costas_kernel"; the sin/cos
 # probe is counted by no wrapper and runs in no timed window)
-PORT_KERNELS = ("fx_tile_kernel", "pfb_packed_kernel", "gram_kernel",
+PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
+                "gram_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
                 "pfb_os_kernel", "fft_batched_kernel", "costas_kernel",
@@ -1208,7 +1212,7 @@ def main() -> None:
         errs["fx"] = max(errs["fx"], check(
             torch, f"fx_correlate {label} [{A}x{n}, H={h}, W={tk.shape[0]}]",
             got, want))
-        if label in ("f32", "int8"):
+        if label in ("f32", "bf16", "int8"):
             times[f"fx {label}"] = (
                 time_ms(torch, lambda: hk.fx_correlate_streams_v2(*args)),
                 time_ms(torch, lambda: hk.fx_correlate_streams_v2_plain(*args),
@@ -1431,9 +1435,12 @@ def main() -> None:
     h32 = hk.fx_tail_len(torch.float32, M, ntaps)
     w = taps.shape[0]
 
-    def fx_ops(n):
-        return (4 * A * n * w + 8 * A * n * M
-                + nfd * (n // M) * (10 * M + 8 * M * M) + nb * n * 8)
+    def fx_ops(n, fft=True):
+        # the M-point transforms as FFTs (5·M·log2 M real flops each), as
+        # fx_reg_kernel runs them, or as dense DFTs (8·M² each)
+        dft = 5 * M * math.log2(M) if fft else 8 * M * M
+        return (4 * A * n * w + A * (n // M) * dft
+                + nfd * (n // M) * (10 * M + dft) + nb * n * 8)
 
     gm, nout_p = 2 * A * M, N_ENTRY // M
     sp = XE_S * XE_P
@@ -1451,6 +1458,7 @@ def main() -> None:
         "pfb": bound(4 * ((nout_p + w - 1) * gm + w * gm + nout_p * gm),
                      2 * nout_p * gm * w + 8 * A * nout_p * M * M),
         "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
+        "fx dense": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL, False)),
         "gram": bound(2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
                       6 * XE_F * sp * sp * XE_T, INT8_OPS),
         "gram bf16": bound(
@@ -1473,13 +1481,17 @@ def main() -> None:
                 "library_ms": library_ms}
 
     record = {"kernels": [
-        entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
-              launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
+        dict(entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
+                   launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
+             body=hk.fx_body(M),
+             ms_plain_ms_by_dtype={k[3:]: times[k] for k in (
+                 "fx f32", "fx bf16", "fx int8")},
+             dense_dft_bound_ms=bounds["fx dense"][0]),
         entry("pfb_channelize_packed", "pfb_packed.cu", 1678, launches["pfb"],
               errs["pfb"], *times["pfb"], bounds["pfb"]),
-        entry("fx_correlate_streams", "fx_correlate.cu", 876, flat_launches,
-              max(errs["fx1"], errs["fx1 path"]), *times["fx1"],
-              bounds["fx1"]),
+        dict(entry("fx_correlate_streams", "fx_correlate.cu", 876,
+                   flat_launches, max(errs["fx1"], errs["fx1 path"]),
+                   *times["fx1"], bounds["fx1"]), body=hk.fx_body(M)),
         entry("xengine_gram_stacked", "xengine_gram.cu", 2142,
               xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
         dict(entry("xengine_gram_stacked_bf16", "xengine_gram_bf16.cu", 2142,

@@ -16,22 +16,56 @@
 // Design.  Each block owns a tile of `tile` output vectors.  It stages its
 // window of v for all 2A components in shared memory (index arithmetic picks
 // the tail or the frame, so no host concat; int8/bf16 widen to f32 after the
-// load and int8 stays unscaled), computes the branch sums, the stage-1 DFT
-// from a twiddle table, the per-pair lag DFT and sqrtf, and reduces over its
-// t in fixed order into a per-block partial row.  A second launch sums the
-// partial rows in fixed block order, so the output is deterministic and no
-// atomics are used.  (On the TPU the sums ride a sequential grid in VMEM
-// scratch; Hopper blocks run in no order, hence the two passes.)
+// load and int8 stays unscaled), computes the branch sums, the stage-1 DFT,
+// the per-pair lag DFT and sqrtf, and reduces over its t in fixed order into
+// a per-block partial row.  A second launch sums the partial rows in fixed
+// block order, so the output is deterministic and no atomics are used.  (On
+// the TPU the sums ride a sequential grid in VMEM scratch; Hopper blocks run
+// in no order, hence the two passes.)
 //
-// Bound on the H100: about 11.5 GFLOP per 2^23-sample, 4-antenna step against
-// 256 MiB read for f32 ingest, i.e. FP32-core compute rather than bytes.  This
-// first version runs every multiply-add on the FP32 cores out of shared
-// memory; moving the branch stage and the DFTs onto wgmma with TMA-fed tiles
-// is work for later PRs.
+// Two bodies, chosen by M (hopper_kernels.fx_body names the one a call runs):
+//
+// fx_reg_kernel<T, M>, M in {2, 4, 8, 16}, tile = 1024/M, 256 threads, 4
+// blocks an SM (3 at M = 2, and for int8 at M = 4 and 8).  Every
+// multiply-add takes its operands from registers; shared memory only hands
+// data between the stages, in layouts that put each warp access on 32
+// distinct banks.
+//   stage  tail ++ frame in 4- (M = 2: 2-) sample groups, 4 in flight a
+//          thread, each group's frame samples one aligned vector load;
+//          only the samples valid outputs need.
+//   FIR    one warp per component, two passes of 512/M vectors; lane =
+//          (strip q of 16 consecutive output vectors, branch j).  16 sums
+//          and a 16-value window of column M-1-j in registers: one tap load
+//          (read-only cache) and one window load per 16 FMAs, the window's
+//          slots rotating at compile time (static_for).  The window rows are
+//          padded by M floats every 16 rows (row u at (u + u/16)*M), so the
+//          strips of a warp fall on distinct banks.
+//   DFT    one warp per (antenna, 512 sums); lane = 16 consecutive sums =
+//          16/M vectors, fftcore::dft<M, s*M, true> in registers, in place.
+//   lag    one warp per fd pair, then one per baseline; lane = the t that
+//          are lane mod 32, 16/M at a time.  z_p conj(z_q), the same dft and
+//          |.| in registers, M (lag) or 2M (Gram) sums per lane, folded over
+//          the warp by a fixed shuffle tree: no barrier after the DFT stage.
+//   The FIR warp of component c overwrites the start of c's window row with
+//   its sums, which the DFT stage turns into z in place: logical x = t*M + k
+//   lives at x ^ (((x >> 5) & 15) << 1) (float2 accesses, half-warp phases).
+// fx_tile_kernel<T>, every other M (1, 32, 64, 128): the first design, each
+//   multiply-add reading its operands from shared memory.
+//
+// Bound on the H100: 256 MiB read for f32 ingest at 4 x 2^23 against about
+// 5.5 GFLOP when the M-point transforms are counted as FFTs: level, about
+// 0.08 ms each (chip_smoke.py reports the bound it counts).  fx_reg_kernel
+// is neither: it runs its stages one after another behind block barriers,
+// and only the other resident blocks overlap one block's staging with
+// arithmetic (tools/fx_ab.py splits its time by stage).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "fft_core.cuh"
 
 namespace {
 
@@ -209,29 +243,444 @@ __global__ void fx_reduce_kernel(const float* __restrict__ partial, int nblk,
   if (threadIdx.x == 0) out[o] = red[0];
 }
 
+// ---- fx_reg_kernel ---------------------------------------------------------
+
+constexpr int kRegThreads = 256;
+constexpr int kRegWarps = kRegThreads / 32;
+constexpr int kStrip = 16;              // output vectors a FIR lane sums
+constexpr int kTileSamples = 1024;      // tile * M
+constexpr int kSubSamples = 512;       // a FIR warp's pass: 32/M strips of 16 vectors
+// blocks an SM the register budget is set for: 4 (64 registers) where
+// ptxas fits the body without a spill, else 3 (80): M = 2 (16 t a lane in
+// the lag and Gram stages) and int8 at M = 4 and 8 spill at 64
+template <typename T>
+constexpr int reg_blocks(int m) {
+  return m == 2 || (sizeof(T) == 1 && m < 16) ? 3 : 4;
+}
+constexpr int kStageUnroll = 4;         // staging vectors in flight per thread
+// a timing probe's build (-DFX_STOP_AFTER=1, 2 or 3) stops each block after
+// the staging, the FIR or the DFT stage; the library never sets it
+#ifndef FX_STOP_AFTER
+#define FX_STOP_AFTER 4
+#endif
+constexpr int kStopAfter = FX_STOP_AFTER;
+
+// padded window floats per component: rows tile + w (the FIR's last window
+// load of a strip reads row t0 + 15 + w, t0 <= tile - 16), one pad row
+// after every 16, and 4 floats of slack for the staging's shift
+__host__ __device__ inline long long fx_reg_wpad(int m, int w, int tile) {
+  const long long rows = (long long)tile + w;
+  return (rows + kStrip - 1) / kStrip * (kStrip + 1) * m + 4;
+}
+
+__host__ __device__ inline long long fx_reg_smem_floats(int a, int m, int w, int tile) {
+  return 2LL * a * fx_reg_wpad(m, w, tile);
+}
+
+// the shared-memory word of logical float x of a component row of sums / z.
+// For x = t*M + k, k < M <= 16, zswz(x) = zswz(t*M) ^ k: one swizzled base a
+// vector, then one XOR with a constant an access
+__device__ __forceinline__ int zswz(int x) { return x ^ (((x >> 5) & 15) << 1); }
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// fold s[0 .. CNT) over the warp by a fixed butterfly: halving steps on lane
+// bits MASK, MASK/2, ... (a lane keeps the upper half when its bit is set),
+// then full adds.  Lane L ends with the warp's sum of entry L >> (5 - log2
+// CNT) in s[0]; partner lanes add the same two values, so every lane of a
+// pair holds the same bits.
+template <int N, int CNT, int MASK>
+__device__ __forceinline__ void warp_fold(float (&s)[N], int lane) {
+  if constexpr (CNT > 1) {
+    constexpr int H = CNT / 2;
+    const bool up = lane & MASK;
+    fftcore::static_for<H>([&](auto i) {
+      const float send = up ? s[i] : s[i + H];
+      const float keep = up ? s[i + H] : s[i];
+      s[i] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
+    });
+    warp_fold<N, H, MASK / 2>(s, lane);
+  } else if constexpr (MASK > 0) {
+    s[0] += __shfl_xor_sync(0xffffffffu, s[0], MASK);
+    warp_fold<N, 1, MASK / 2>(s, lane);
+  }
+}
+
+// lane L's s[0] to out[L >> SH] from the lanes whose low SH bits are zero,
+// SH = 5 - log2 CNT (the layout warp_fold<., CNT, 16> leaves)
+template <int CNT, int N>
+__device__ __forceinline__ void warp_store(const float (&s)[N], int lane, float* out) {
+  constexpr int SH = CNT == 2 ? 4 : CNT == 4 ? 3 : CNT == 8 ? 2 : CNT == 16 ? 1 : 0;
+  if ((lane & ((1 << SH) - 1)) == 0) out[lane >> SH] = s[0];
+}
+
+// |y| as x·rsqrt(x), x = |y|²: MUFU's rsqrt (2 ulp) in place of the IEEE
+// square root's fix-up sequence; 0 where x is 0
+__device__ __forceinline__ float mag(float2 y) {
+  const float x = fmaf(y.x, y.x, y.y * y.y);
+  return x > 0.f ? x * rsqrtf(x) : 0.f;
+}
+
+// VW samples at p (VW-aligned) widened to float by one load of
+// VW·sizeof(T) bytes, unpacked with shifts (bf16 is the top half of a
+// float, int8 stays unscaled)
+template <typename T, int VW>
+__device__ __forceinline__ void load_vec(const T* p, float (&o)[VW]) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (VW == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+      o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
+    } else {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+      o[0] = f.x; o[1] = f.y;
+    }
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    unsigned wd[VW / 2];
+    if constexpr (VW == 4) {
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+      wd[0] = r.x; wd[1] = r.y;
+    } else {
+      wd[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+    }
+    fftcore::static_for<VW>([&](auto x) {
+      constexpr int X = decltype(x)::value;
+      const unsigned w = wd[X / 2];
+      o[X] = __uint_as_float(X % 2 ? w & 0xffff0000u : w << 16);
+    });
+  } else {
+    static_assert(std::is_same_v<T, int8_t>, "float, bfloat16 or int8");
+    unsigned r;
+    if constexpr (VW == 4) {
+      r = __ldg(reinterpret_cast<const unsigned*>(p));
+    } else {
+      r = __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+    fftcore::static_for<VW>([&](auto x) {
+      o[decltype(x)::value] =
+          static_cast<float>(static_cast<int8_t>(r >> (8 * decltype(x)::value)));
+    });
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kRegThreads, reg_blocks<T>(M))
+fx_reg_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+              const T* __restrict__ tr, const T* __restrict__ ti,
+              const float* __restrict__ taps,
+              const int* __restrict__ fd_pairs, int nfd,
+              const int* __restrict__ xe_pairs, int nb,
+              int a, int w, int n, int h, float* __restrict__ partial) {
+  static_assert(M == 2 || M == 4 || M == 8 || M == 16, "M must be 2, 4, 8 or 16");
+  constexpr int TILE = kTileSamples / M;   // output vectors per block
+  constexpr int VPL = kStrip / M;          // vectors a lane holds in the DFT stages
+  constexpr int NSUB = kTileSamples / kSubSamples;
+  constexpr int SUBT = kSubSamples / M;    // output vectors of a FIR pass
+  constexpr int VW = M >= 4 ? 4 : 2;       // samples a staging group
+  extern __shared__ float smem[];
+  const int g = 2 * a;
+  const int wpad = (int)fx_reg_wpad(M, w, TILE);
+  // [g][wpad] padded window; component c's FIR warp then overwrites the
+  // start of its own row c with its 512 sums, which become z in place
+  float* win = smem;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  const int nout = n / M;
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const int tvalid = min(TILE, (int)(nout - t0));
+  const int span_valid = tvalid * M + w * M - 1;
+  const long long base = t0 * M;       // index in v of window row 0, column 0
+
+  // stage tail ++ frame: window chunk ch (rows 16 ch .. 16 ch + 15, the
+  // samples k = 16 ch M ..) goes to physical row 17 ch, so a pad row of M
+  // floats follows every 16 rows, and the whole window sits delta floats
+  // into its row (delta = -h mod VW < VW, the row's slack).  Only
+  // k < span_valid is staged: the rows past it feed no valid output.  A
+  // thread fills VW-sample groups, kStageUnroll of them in flight; group i
+  // holds k = VW i - delta .., so its frame samples start on a VW-aligned
+  // frame index (the block's start and n are multiples of VW, M >= VW) and
+  // load as one vector, inside the frame (the last sample used is frame
+  // n - 1 at most, and the vector holding it ends there), to a VW-aligned
+  // word.  Groups reaching into the tail load sample by sample; a group
+  // that a pad row splits (delta > 0) stores sample by sample.  A
+  // component's groups are counted up to a multiple of the lanes of one
+  // store phase (32 / VW), the extra ones idle, so that no phase spans two
+  // rows or a pad row.
+  const int delta = (VW - h % VW) % VW;
+  {
+    constexpr int CH = kStrip * M;
+    const int groups = (span_valid + delta + VW - 1) / VW;
+    const int per_c = (groups + 32 / VW - 1) / (32 / VW) * (32 / VW);
+    const int total = g * per_c;
+    for (int e0 = threadIdx.x; e0 < total; e0 += kStageUnroll * kRegThreads) {
+      float v[kStageUnroll][VW];
+      fftcore::static_for<kStageUnroll>([&](auto u) {
+        const int e = e0 + u * kRegThreads;
+        const int c = e / per_c;
+        const int i = e - c * per_c;
+        const int k = VW * i - delta;      // window index of sample 0
+        fftcore::static_for<VW>([&](auto x) { v[u][x] = 0.f; });
+        if (e < total && i < groups) {
+          const int ant = c < a ? c : c - a;
+          const T* tp = (c < a ? tr : ti) + (long long)ant * h;
+          const T* fr = (c < a ? xr : xi) + (long long)ant * n;
+          const long long f = base + k - h;      // its frame index, VW-aligned
+          if (f >= 0) {
+            load_vec<T, VW>(fr + f, v[u]);
+            fftcore::static_for<VW>([&](auto x) {
+              constexpr int xx = decltype(x)::value;
+              if (k + xx >= span_valid) v[u][x] = 0.f;
+            });
+          } else {
+            fftcore::static_for<VW>([&](auto x) {
+              const int kx = k + decltype(x)::value;
+              const long long sx = base + kx;
+              if (kx >= 0 && kx < span_valid) v[u][x] = widen(sx < h ? tp[sx] : fr[sx - h]);
+            });
+          }
+        }
+      });
+      fftcore::static_for<kStageUnroll>([&](auto u) {
+        const int e = e0 + u * kRegThreads;
+        const int c = e / per_c;
+        const int i = e - c * per_c;
+        if (e < total && i < groups) {
+          const int k = VW * i - delta;
+          float* row = win + c * wpad + delta;
+          if (delta == 0 || k < 0 || (k + delta) % CH != 0) {
+            store_vec<VW>(row + k + k / CH * M, v[u]);    // k / CH: 0 for k < 0
+          } else {
+            fftcore::static_for<VW>([&](auto x) {
+              const int kx = k + decltype(x)::value;
+              row[kx + kx / CH * M] = v[u][x];
+            });
+          }
+        }
+      });
+    }
+  }
+  __syncthreads();
+  if constexpr (kStopAfter < 2) return;
+
+  // branch FIR: acc[t, j] = sum_d taps[w-1-d, j] * v[(t + d) * M + M - 1 - j],
+  // taps through the read-only cache (the same 4·W·M bytes for every block).
+  // One warp per component, its NSUB passes in turn: a pass reads window
+  // rows from its first vector on and writes its sums below that, at the
+  // start of the row, after the warp's reads (so no other warp's rows and
+  // no rows this warp reads later are touched).
+  {
+    const int j = lane & (M - 1);
+    const int q = lane / M;                // strip: t = SUBT sub + 16 q + s
+    for (int c = warp; c < g; c += kRegWarps) {
+      float* row = win + c * wpad;
+      for (int sub = 0; sub < NSUB; ++sub) {
+        const float* p =
+            row + delta + (kStrip + 1) * (sub * SUBT / kStrip + q) * M + (M - 1 - j);
+        float wv[kStrip], acc[kStrip];
+        fftcore::static_for<kStrip>([&](auto k) {
+          wv[k] = p[k * M];
+          acc[k] = 0.f;
+        });
+        p += (kStrip + 1) * M;             // window row t0 + 16
+        const float* tp = taps + (w - 1) * M + j;
+        int d0 = 0;
+        for (; d0 + kStrip <= w; d0 += kStrip) {
+          fftcore::static_for<kStrip>([&](auto r) {
+            const float tap = __ldg(tp - r * M);
+            fftcore::static_for<kStrip>([&](auto s) {
+              acc[s] = fmaf(tap, wv[(decltype(s)::value + decltype(r)::value) % kStrip],
+                            acc[s]);
+            });
+            wv[r] = p[r * M];              // row t0 + d + 16 into the freed slot
+          });
+          p += (kStrip + 1) * M;
+          tp -= kStrip * M;
+        }
+        const int rem = w - d0;
+        fftcore::static_for<kStrip>([&](auto r) {
+          constexpr int rr = decltype(r)::value;
+          if (rr < rem) {
+            const float tap = __ldg(tp - r * M);
+            fftcore::static_for<kStrip>([&](auto s) {
+              acc[s] = fmaf(tap, wv[(decltype(s)::value + decltype(r)::value) % kStrip],
+                            acc[s]);
+            });
+            wv[r] = p[r * M];
+          }
+        });
+        __syncwarp();                      // the pass's window reads are done
+        fftcore::static_for<kStrip>([&](auto s) {
+          row[zswz((sub * SUBT + kStrip * q + decltype(s)::value) * M) ^ j] = acc[s];
+        });
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (kStopAfter < 3) return;
+
+  // stage-1 unscaled inverse DFT, in place: lane holds sums 16 lane .. +15
+  // of a 512-sum half
+  for (int job = warp; job < a * NSUB; job += kRegWarps) {
+    const int ai = job / NSUB;
+    const int off = (job - ai * NSUB) * kSubSamples;
+    float* re = win + ai * wpad + off;
+    float* im = win + (a + ai) * wpad + off;
+    float2 v[fftcore::kPts];
+    const int b = zswz(kStrip * lane);     // 16 lane is a multiple of M
+    fftcore::static_for<kStrip / 2>([&](auto k) {
+      const int o = b ^ (2 * decltype(k)::value);
+      const float2 r2 = ld2(re + o), i2 = ld2(im + o);
+      v[2 * k] = make_float2(r2.x, i2.x);
+      v[2 * k + 1] = make_float2(r2.y, i2.y);
+    });
+    fftcore::static_for<VPL>([&](auto s) {
+      fftcore::dft<M, decltype(s)::value * M, true>(v);
+    });
+    fftcore::static_for<kStrip / 2>([&](auto k) {
+      const int o = b ^ (2 * decltype(k)::value);
+      *reinterpret_cast<float2*>(re + o) = make_float2(v[2 * k].x, v[2 * k + 1].x);
+      *reinterpret_cast<float2*>(im + o) = make_float2(v[2 * k].y, v[2 * k + 1].y);
+    });
+  }
+  __syncthreads();
+  if constexpr (kStopAfter < 4) return;
+
+  // FD lag sums (jobs < nfd), then Gram sums; lane takes the t = lane + 32 s,
+  // VPL of them at a time in registers
+  const int width = nfd * M + 2 * nb * M;
+  float* out = partial + (long long)blockIdx.x * width;
+  for (int job = warp; job < nfd + nb; job += kRegWarps) {
+    const bool lag = job < nfd;
+    const int* pr = lag ? fd_pairs + 2 * job : xe_pairs + 2 * (job - nfd);
+    const int p = pr[0], q = pr[1];
+    const float* pre = win + p * wpad;
+    const float* pim = win + (a + p) * wpad;
+    const float* qre = win + q * wpad;
+    const float* qim = win + (a + q) * wpad;
+    if (lag) {
+      // each group of VPL vectors is folded over the warp on its own, so
+      // no sums stay live through the next group's DFT; the groups' folds
+      // add in a fixed order
+      float total = 0.f;
+      fftcore::static_for<NSUB>([&](auto grp) {
+      float2 v[fftcore::kPts];
+      fftcore::static_for<VPL>([&](auto s) {
+        const int t = lane + 32 * (decltype(grp)::value * VPL + decltype(s)::value);
+        const int b = zswz(t * M);
+        fftcore::static_for<M / 2>([&](auto k) {
+          const int o = b ^ (2 * decltype(k)::value);
+          const float2 a_r = ld2(pre + o), a_i = ld2(pim + o);
+          const float2 b_r = ld2(qre + o), b_i = ld2(qim + o);
+          constexpr int i0 = decltype(s)::value * M + 2 * decltype(k)::value;
+          v[i0] = fftcore::cmulc(make_float2(a_r.x, a_i.x), make_float2(b_r.x, b_i.x));
+          v[i0 + 1] = fftcore::cmulc(make_float2(a_r.y, a_i.y), make_float2(b_r.y, b_i.y));
+        });
+        fftcore::dft<M, decltype(s)::value * M, true>(v);
+      });
+      float sums[M];
+      fftcore::static_for<M>([&](auto l) { sums[l] = 0.f; });
+      fftcore::static_for<VPL>([&](auto s) {
+        constexpr int ss = decltype(grp)::value * VPL + decltype(s)::value;
+        if (lane + 32 * ss < tvalid) {
+          fftcore::static_for<M>([&](auto l) {
+            const float2 y = v[decltype(s)::value * M + l];
+            sums[l] += mag(y);
+          });
+        }
+      });
+      warp_fold<M, M, 16>(sums, lane);
+      total += sums[0];
+      });
+      float folded[1] = {total};
+      warp_store<M>(folded, lane, out + job * M);
+    } else {
+      float sums[2 * M];                   // [gram re k | gram im k]
+      fftcore::static_for<2 * M>([&](auto l) { sums[l] = 0.f; });
+      fftcore::static_for<NSUB * VPL>([&](auto s) {
+        const int t = lane + 32 * decltype(s)::value;
+        if (t < tvalid) {
+          const int b = zswz(t * M);
+          fftcore::static_for<M / 2>([&](auto k) {
+            const int o = b ^ (2 * decltype(k)::value);
+            const float2 r1 = ld2(pre + o), i1 = ld2(pim + o);
+            const float2 r2 = ld2(qre + o), i2 = ld2(qim + o);
+            constexpr int k0 = 2 * decltype(k)::value;
+            sums[k0] += r1.x * r2.x + i1.x * i2.x;
+            sums[k0 + 1] += r1.y * r2.y + i1.y * i2.y;
+            sums[M + k0] += i1.x * r2.x - r1.x * i2.x;
+            sums[M + k0 + 1] += i1.y * r2.y - r1.y * i2.y;
+          });
+        }
+      });
+      warp_fold<2 * M, 2 * M, 16>(sums, lane);
+      warp_store<2 * M>(sums, lane, out + nfd * M + 2 * (job - nfd) * M);
+    }
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_reg(const void* xr, const void* xi, const void* tr,
+                       const void* ti, const float* taps, const int* fd_pairs,
+                       int nfd, const int* xe_pairs, int nb, int a, int w, int n,
+                       int h, float* partial, int nblk, cudaStream_t stream) {
+  const long long bytes =
+      fx_reg_smem_floats(a, M, w, kTileSamples / M) * (long long)sizeof(float);
+  cudaError_t err = fftcore::set_smem(fx_reg_kernel<T, M>, bytes);
+  if (err != cudaSuccess) return err;
+  fx_reg_kernel<T, M><<<nblk, kRegThreads, bytes, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<const T*>(tr), static_cast<const T*>(ti), taps, fd_pairs, nfd,
+      xe_pairs, nb, a, w, n, h, partial);
+  return cudaGetLastError();
+}
+
+// body 0: fx_tile_kernel (any M dividing 128); body 1: fx_reg_kernel (M in
+// {2, 4, 8, 16}, tile = 512 / M)
 template <typename T>
 cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
                       const void* ti, const float* taps, const float* tw,
                       const int* fd_pairs, int nfd, const int* xe_pairs, int nb,
-                      int a, int m, int w, int n, int h, int tile,
+                      int a, int m, int w, int n, int h, int tile, int body,
                       float* partial, float* out, cudaStream_t stream) {
-  const long long bytes = fx_smem_floats(a, m, w, tile) * (long long)sizeof(float);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fx_tile_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
   const int nout = n / m;
   const int nblk = (nout + tile - 1) / tile;
-  fx_tile_kernel<T><<<nblk, 256, bytes, stream>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xi),
-      static_cast<const T*>(tr), static_cast<const T*>(ti), taps, tw,
-      fd_pairs, nfd, xe_pairs, nb, a, m, w, n, h, tile, partial);
-  err = cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if (body == 1) {
+    if (tile * m != kTileSamples) return cudaErrorInvalidValue;
+    switch (m) {
+      case 2: err = launch_reg<T, 2>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                     nb, a, w, n, h, partial, nblk, stream); break;
+      case 4: err = launch_reg<T, 4>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                     nb, a, w, n, h, partial, nblk, stream); break;
+      case 8: err = launch_reg<T, 8>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                     nb, a, w, n, h, partial, nblk, stream); break;
+      case 16: err = launch_reg<T, 16>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                       nb, a, w, n, h, partial, nblk, stream); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else if (body == 0) {
+    const long long bytes = fx_smem_floats(a, m, w, tile) * (long long)sizeof(float);
+    err = fftcore::set_smem(fx_tile_kernel<T>, bytes);
+    if (err != cudaSuccess) return err;
+    fx_tile_kernel<T><<<nblk, 256, bytes, stream>>>(
+        static_cast<const T*>(xr), static_cast<const T*>(xi),
+        static_cast<const T*>(tr), static_cast<const T*>(ti), taps, tw,
+        fd_pairs, nfd, xe_pairs, nb, a, m, w, n, h, tile, partial);
+    err = cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   const int width = nfd * m + 2 * nb * m;
   if (width > 0) {
@@ -242,13 +691,14 @@ cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = int8.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8; body: 0 = fx_tile_kernel,
+// 1 = fx_reg_kernel.  Returns a cudaError_t.
 extern "C" int clen_fx_correlate(const void* xr, const void* xi, const void* tr,
                                  const void* ti, int dtype, const void* taps,
                                  const void* tw, const void* fd_pairs, int nfd,
                                  const void* xe_pairs, int nb, int a, int m,
-                                 int w, int n, int h, int tile, void* partial,
-                                 void* out, void* stream) {
+                                 int w, int n, int h, int tile, int body,
+                                 void* partial, void* out, void* stream) {
   const float* tp = static_cast<const float*>(taps);
   const float* twp = static_cast<const float*>(tw);
   const int* fdp = static_cast<const int*>(fd_pairs);
@@ -259,18 +709,21 @@ extern "C" int clen_fx_correlate(const void* xr, const void* xi, const void* tr,
   switch (dtype) {
     case 0:
       return launch_fx<float>(xr, xi, tr, ti, tp, twp, fdp, nfd, xep, nb, a, m,
-                              w, n, h, tile, pp, op, st);
+                              w, n, h, tile, body, pp, op, st);
     case 1:
       return launch_fx<__nv_bfloat16>(xr, xi, tr, ti, tp, twp, fdp, nfd, xep, nb,
-                                      a, m, w, n, h, tile, pp, op, st);
+                                      a, m, w, n, h, tile, body, pp, op, st);
     case 2:
       return launch_fx<int8_t>(xr, xi, tr, ti, tp, twp, fdp, nfd, xep, nb, a, m,
-                               w, n, h, tile, pp, op, st);
+                               w, n, h, tile, body, pp, op, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-extern "C" long long clen_fx_smem_bytes(int a, int m, int w, int tile) {
-  return fx_smem_floats(a, m, w, tile) * (long long)sizeof(float);
+// shared-memory bytes per block of the given body (see launch_fx)
+extern "C" long long clen_fx_smem_bytes(int a, int m, int w, int tile, int body) {
+  const long long floats =
+      body == 1 ? fx_reg_smem_floats(a, m, w, tile) : fx_smem_floats(a, m, w, tile);
+  return floats * (long long)sizeof(float);
 }

@@ -7,7 +7,9 @@ ported so far:
   critically sampled PFB, M-point inverse DFT, FD cross-correlation
   magnitude sums and X-Engine Gram sums, reading each input sample once.
   ``fx_correlate_streams`` is the same kernel fed the JAX function's
-  history-concatenated flat layout.
+  history-concatenated flat layout.  Two ``__global__`` bodies, chosen by
+  M in ``fx_body``: ``fx_reg_kernel`` (register-tiled FIR, in-register
+  M-point DFTs) for M in {2, 4, 8, 16}, ``fx_tile_kernel`` otherwise.
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
   branch sums plus per-group inverse DFT of the planar pipeline.
 - ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
@@ -206,6 +208,28 @@ def _check_fx(xr, xi, tail_r, tail_i, taps, a: int, m: int):
     return w, n, h
 
 
+# the two __global__ bodies of csrc/fx_correlate.cu, by their C body code
+FX_BODIES = ("fx_tile_kernel", "fx_reg_kernel")
+FX_REG_M = (2, 4, 8, 16)
+
+
+def fx_body(m: int) -> str:
+    """The kernel body an FX call with ``m`` channels launches:
+    ``fx_reg_kernel`` (register-tiled FIR, in-register M-point DFTs) for
+    m in {2, 4, 8, 16}, where 16 points a thread hold 16/m vectors;
+    ``fx_tile_kernel`` (shared-memory operands) for every other m dividing
+    128."""
+    if m < 1 or LANES % m:
+        raise ValueError(f"m must divide {LANES}; got {m}")
+    return FX_BODIES[1] if m in FX_REG_M else FX_BODIES[0]
+
+
+def fx_tile(m: int) -> int:
+    """Output vectors per block of the body ``fx_body(m)`` launches: 1024
+    samples a component for ``fx_reg_kernel``, 512 for ``fx_tile_kernel``."""
+    return max(1, (1024 if fx_body(m) == FX_BODIES[1] else 512) // m)
+
+
 def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
                xe_pairs):
     """Launch ``csrc/fx_correlate.cu`` on CUDA tensors; (fd_sum, gram)."""
@@ -218,7 +242,8 @@ def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
     nfd, nb = len(fd), len(xe)
     fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
     xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
-    tile = max(1, 512 // m)             # output vectors per block
+    tile = fx_tile(m)                   # output vectors per block
+    body = FX_BODIES.index(fx_body(m))
     nblk = -(-(n // m) // tile)
     width = nfd * m + 2 * nb * m
     partial = torch.empty((nblk, width), dtype=torch.float32, device=dev)
@@ -227,12 +252,13 @@ def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
     err = lib.clen_fx_correlate(
         xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
         _DTYPE_CODE[xr.dtype], taps.data_ptr(), _twiddles(m, dev).data_ptr(),
-        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile,
+        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile, body,
         partial.data_ptr(), out.data_ptr(), _stream(dev))
     if err != 0:
-        smem = lib.clen_fx_smem_bytes(a, m, w, tile)
-        raise RuntimeError(f"fx_correlate launch failed: CUDA error {err} "
-                           f"({smem} B of shared memory per block)")
+        smem = lib.clen_fx_smem_bytes(a, m, w, tile, body)
+        raise RuntimeError(f"fx_correlate launch failed ({FX_BODIES[body]}): "
+                           f"CUDA error {err} ({smem} B of shared memory "
+                           f"per block)")
     return out[: nfd * m].view(nfd, m), out[nfd * m:].view(nb, 2 * m)
 
 

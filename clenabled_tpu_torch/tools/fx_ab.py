@@ -1,0 +1,214 @@
+"""Variants of the fused FX kernel's source, timed side by side on the card.
+
+    python -m clenabled_tpu_torch.tools.fx_ab [--n 8388608] [--m 16] \\
+        [--dtype float32] [--rounds 7] [name=path/to/fx_correlate.cu ...] \\
+        [name=-DFX_STOP_AFTER=2 ...]
+
+Each variant is a ``fx_correlate.cu`` (a path) or the package's own with
+extra ``nvcc`` flags (a value starting with ``-D``); by default the
+package's own (``tree``) and three stage probes of it, built with
+``-DFX_STOP_AFTER=1``, ``2`` and ``3``, whose blocks stop after the
+staging, the FIR and the DFT stage, so that the differences between
+their times split ``fx_reg_kernel``'s time by stage.  Each is compiled by
+its own ``nvcc`` (all started together, ``-Xptxas -v``) into a library of
+its own and called as ``hopper_kernels.fx_correlate_streams_v2`` calls it,
+on the same seeded frames at 4 antennas, the pipeline's 400-tap prototype
+at M = 16 (its own at another ``--m``) and the ``fx_tail_len`` tail.  A
+source from before the body argument (no ``int body`` in it) is called
+with the older C signature.  Times are CUDA events around ``--calls``
+back-to-back calls, the variants in turn (forward, then backward) for
+``--rounds`` rounds; the table gives the least, the median and the largest
+per-call time.  Every complete variant (no ``FX_STOP_AFTER``) is held to
+the plain form at 1e-4 × max|plain|.  Prints the ptxas lines, the table,
+the card's name and power limit, and one JSON line.  Without a card it
+exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import sys
+from pathlib import Path
+
+import torch
+
+from clenabled_tpu_torch import _build
+from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch.dsp import hopper_kernels as hk
+from clenabled_tpu_torch.runtime.device import card_info
+
+A = 4
+TOL = 1e-4
+STAGE_PROBES = {"stop_after_staging": "-DFX_STOP_AFTER=1",
+                "stop_after_fir": "-DFX_STOP_AFTER=2",
+                "stop_after_dft": "-DFX_STOP_AFTER=3"}
+
+
+def build(variants: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
+    """Compile each variant into its own library; returns the loaded
+    libraries (with whether each takes the body argument) and each one's
+    ptxas lines."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    tree = _build.SRC_DIR / "fx_correlate.cu"
+    cmds, srcs = [], {}
+    for name, v in variants.items():
+        src, flags = (tree, v.split()) if v.startswith("-D") else (
+            Path(v).resolve(), [])
+        srcs[name] = src
+        cmds.append([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", *flags,
+                     f"-I{_build.SRC_DIR}", "-shared", "-o",
+                     str(out_dir / f"fx_{name}.so"), str(src)])
+    done = _build._run_all(cmds)
+    loaded, ptxas = {}, {}
+    args, res = _build._SIGNATURES["clen_fx_correlate"]
+    for name, proc in zip(variants, done):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+        lib = ctypes.CDLL(str(out_dir / f"fx_{name}.so"))
+        with_body = "int tile, int body" in srcs[name].read_text()
+        lib.clen_fx_correlate.argtypes = (args if with_body
+                                          else args[:17] + args[18:])
+        lib.clen_fx_correlate.restype = res
+        loaded[name] = (lib, with_body)
+        ptxas[name] = [ln.strip() for ln in (proc.stdout + proc.stderr)
+                       .splitlines() if "fx_reg" in ln or "fx_tile" in ln
+                       or "registers" in ln or "spill" in ln]
+    return loaded, ptxas
+
+
+class Call:
+    """One variant's clen_fx_correlate on fixed inputs, as ``_launch_fx``
+    makes it; outputs allocated once."""
+
+    def __init__(self, lib, with_body, ins, taps, m, dev):
+        self.lib, self.with_body, self.ins, self.taps, self.m = (
+            lib, with_body, ins, taps, m)
+        fd, xe = hk._default_pairs(None, None, A)
+        self.nfd, self.nb = len(fd), len(xe)
+        self.fdp = hk._pairs_on(tuple(fd.reshape(-1).tolist()), dev)
+        self.xep = hk._pairs_on(tuple(xe.reshape(-1).tolist()), dev)
+        self.tw = hk._twiddles(m, dev)
+        self.tile = hk.fx_tile(m) if with_body else max(1, 512 // m)
+        n = ins[0].shape[-1]
+        nblk = -(-(n // m) // self.tile)
+        self.width = self.nfd * m + 2 * self.nb * m
+        self.partial = torch.empty((nblk, self.width), device=dev)
+        self.out = torch.empty(self.width, device=dev)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def __call__(self):
+        xr, xi, tr, ti = self.ins
+        body = ([hk.FX_BODIES.index(hk.fx_body(self.m))]
+                if self.with_body else [])
+        err = self.lib.clen_fx_correlate(
+            xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            hk._DTYPE_CODE[xr.dtype], self.taps.data_ptr(),
+            self.tw.data_ptr(), self.fdp.data_ptr(), self.nfd,
+            self.xep.data_ptr(), self.nb, A, self.m, self.taps.shape[0],
+            xr.shape[-1], tr.shape[-1], self.tile, *body,
+            self.partial.data_ptr(), self.out.data_ptr(), self.stream)
+        if err != 0:
+            raise RuntimeError(f"fx launch failed: CUDA error {err}")
+        m = self.m
+        return (self.out[: self.nfd * m].view(self.nfd, m),
+                self.out[self.nfd * m:].view(self.nb, 2 * m))
+
+
+def per_call_ms(fn, calls: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="FX kernel variants A/B")
+    ap.add_argument("variants", nargs="*", metavar="name=path|name=-Dflags")
+    ap.add_argument("--n", type=int, default=1 << 23)
+    ap.add_argument("--m", type=int, default=16)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"])
+    ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--calls", type=int, default=10)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        print("fx_ab: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    variants = dict(v.split("=", 1) for v in args.variants) or {
+        "tree": str(_build.SRC_DIR / "fx_correlate.cu"), **STAGE_PROBES}
+    libs, ptxas = build(variants, _build.BUILD_DIR / "fx_ab")
+    for name in libs:
+        for ln in ptxas[name]:
+            print(f"[ptxas {name}] {ln}")
+
+    dt = getattr(torch, args.dtype)
+    taps_rm, ntaps = P._prototype(args.m, 100e6)
+    taps = torch.as_tensor(taps_rm, device=dev).contiguous()
+    h = hk.fx_tail_len(dt, args.m, ntaps)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def frame(length):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (A, length), generator=gen,
+                                 device=dev, dtype=dt)
+        return torch.randn((A, length), generator=gen, device=dev).to(dt)
+
+    ins = (frame(args.n), frame(args.n), frame(h), frame(h))
+    want = hk.fx_correlate_streams_v2_plain(*ins, taps, A, args.m)
+    names = list(libs)
+    calls = {name: Call(*libs[name], ins, taps, args.m, dev)
+             for name in names}
+    report = {name: {"ptxas": ptxas[name], "flags": variants[name]}
+              for name in names}
+    for name in names:
+        got = calls[name]()
+        torch.cuda.synchronize()
+        if "FX_STOP_AFTER" in variants[name]:
+            continue
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        tol = TOL * max(float(w.abs().max()) for w in want)
+        report[name]["max_abs_err"] = err
+        report[name]["within_tolerance"] = err <= tol
+    times = {name: [] for name in names}
+    for r in range(args.rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            times[name].append(per_call_ms(calls[name], args.calls))
+    for name in names:
+        ts = sorted(times[name])
+        report[name]["ms"] = {"min": ts[0], "median": statistics.median(ts),
+                              "max": ts[-1]}
+
+    card = card_info()
+    print(f"FX kernel variants, {A} x {args.n} {args.dtype}, M = {args.m}, "
+          f"{taps.shape[0]} taps a branch, {args.rounds} rounds of "
+          f"{args.calls} calls (CUDA events), {card}:")
+    print("variant | flags | ms min / median / max | within 1e-4 x max|plain|")
+    for name in names:
+        r = report[name]
+        t = r["ms"]
+        print(f"{name} | {r['flags'] if r['flags'].startswith('-D') else ''}"
+              f" | {t['min']:.4f} / {t['median']:.4f} / {t['max']:.4f} | "
+              f"{r.get('within_tolerance', 'not checked (stage probe)')}")
+    print(json.dumps({"card": card, "n": args.n, "m": args.m,
+                      "dtype": args.dtype, "variants": report}))
+    bad = [n for n in names if report[n].get("within_tolerance") is False]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
