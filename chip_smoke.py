@@ -8,16 +8,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card   — require a Hopper card; print its name and power limit.
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
-   one ``nvcc`` per source, all started together.
+   one ``nvcc`` per source, all started together; print ptxas's lines and,
+   for each instantiation of the int8 Gram kernels, its registers, stack
+   frame and spill bytes.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
    (the FX kernels, B.1 and its flat entry B.1b, and B.2; the Gram kernel
-   B.4 in bfloat16, on the tensor cores); the int8 Gram must be bit-exact.
-   Both Gram kernels run at the X-Engine's full width (F=256, T=8192,
+   B.4 in bfloat16); the int8 Gram must be bit-exact.  Both Gram dtypes
+   run on the tensor cores, at the X-Engine's full width (F=256, T=8192,
    S·P=128) in all three output forms and at k = 4 lane blocks (S·P=512,
-   F=16); the bf16 one is also timed from ``torch.profiler`` and beside
-   the library call ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
+   F=16); the int8 one also on bytes at the ends of the range (all −128;
+   −128 and 127 alternating) at full width.  Both are also timed from
+   ``torch.profiler``, the bf16 one beside the library call
+   ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
    [zr | zi].  At M = 16 both FX entries run ``fx_reg_kernel`` (the body
    ``hopper_kernels.fx_body`` names; the kernels record gives it), timed
    in f32, bf16 and int8 ingest.
@@ -123,6 +127,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -161,7 +166,7 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # (costas_kernel<order, halved gains> matches "costas_kernel"; the sin/cos
 # probe is counted by no wrapper and runs in no timed window)
 PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
-                "gram_kernel",
+                "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
                 "pfb_os_kernel", "fft_batched_kernel", "costas_kernel",
@@ -233,17 +238,36 @@ def frames(torch, gen, dtype, shape, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+def extreme_bytes(torch, f, t, sp, dev):
+    """int8 (zr, zi) [f, t, sp] at the ends of the byte range: the first
+    half of the channels all −128, the rest −128 and 127 alternating by
+    frame and column (zi the opposite of zr)."""
+    alt = (torch.arange(t, device=dev)[:, None]
+           + torch.arange(sp, device=dev)) % 2
+    zr = torch.where(alt == 1, 127, -128).to(torch.int8).expand(f, t, sp)
+    zr = zr.contiguous()
+    zr[: f // 2] = -128
+    zi = (-1 - zr.to(torch.int16)).to(torch.int8)
+    zi[: f // 2] = -128
+    return zr, zi
+
+
 def gram_phase(torch, hk, gen, dev) -> dict:
     """B.4 against its plain form in all three output forms; returns the
-    bfloat16 error and the kernel and plain times, and for bfloat16 the
-    kernel's device time and the library call's."""
+    bfloat16 error and the kernel and plain times, and for each dtype at
+    full width the kernel's device time, for bfloat16 the library call's."""
     res = {"bf16_err": 0.0}
     cases = [("int8", torch.int8, XE_F, XE_S * XE_P),
+             ("int8 extreme", torch.int8, XE_F, XE_S * XE_P),
              ("int8 k=4", torch.int8, 16, 512),
              ("bf16", torch.bfloat16, XE_F, XE_S * XE_P),
              ("bf16 k=4", torch.bfloat16, 16, 512)]
     for label, dt, f, sp in cases:
-        zr, zi = (frames(torch, gen, dt, (f, XE_T, sp), dev) for _ in range(2))
+        if label == "int8 extreme":
+            zr, zi = extreme_bytes(torch, f, XE_T, sp, dev)
+        else:
+            zr, zi = (frames(torch, gen, dt, (f, XE_T, sp), dev)
+                      for _ in range(2))
         shape = f"[{f}x{XE_T}x{sp}]"
         for form in ("xengine_gram_stacked_tri", "xengine_gram_stacked_blocks",
                      "xengine_gram_stacked"):
@@ -260,26 +284,60 @@ def gram_phase(torch, hk, gen, dev) -> dict:
             else:
                 res["bf16_err"] = max(res["bf16_err"], check(
                     torch, f"{form} {label} {shape}", got, want))
+        if label == "int8 extreme":
+            del zr, zi, got, want
+            continue
         res[label] = (
             time_ms(torch, lambda: hk.xengine_gram_stacked_tri(zr, zi)),
             time_ms(torch, lambda: hk.xengine_gram_stacked_tri_plain(zr, zi),
                     reps=3, warmup=1))
         phase("time", f"xengine_gram_stacked_tri {label} {shape}: kernel "
                       f"{res[label][0]:.4f} ms, plain {res[label][1]:.4f} ms")
-        if label == "bf16":
-            res["bf16 device"] = device_busy_ms(
+        if label in ("int8", "bf16"):
+            res[f"{label} device"] = device_busy_ms(
                 torch, lambda: hk.xengine_gram_stacked_tri(zr, zi), 10)
-            res["bf16 library"], res["library label"] = gram_library_ms(
-                torch, zr, zi)
-            shown = ("not measured" if res["bf16 device"] is None
-                     else f"{res['bf16 device']:.4f} ms")
+            shown = ("not measured" if res[f"{label} device"] is None
+                     else f"{res[f'{label} device']:.4f} ms")
+            lib = ""
+            if label == "bf16":
+                res["bf16 library"], res["library label"] = gram_library_ms(
+                    torch, zr, zi)
+                lib = (f"; {res['library label']} (library) "
+                       f"{res['bf16 library']:.4f} ms")
             phase("time", f"xengine_gram_stacked_tri {label} {shape}: device "
-                          f"{shown} (torch.profiler); "
-                          f"{res['library label']} (library) "
-                          f"{res['bf16 library']:.4f} ms")
+                          f"{shown} (torch.profiler){lib}")
         del zr, zi, got, want
         torch.cuda.empty_cache()
     return res
+
+
+def ptxas_summary(log: str, names) -> dict:
+    """Registers, stack frame and spill bytes of each instantiation of the
+    named kernels in an ``nvcc -Xptxas -v`` log, keyed ``name<true>`` /
+    ``name<false>`` for a kernel templated on one bool."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            for name in names:
+                if name in m.group(1):
+                    arg = re.search(name + r"ILb([01])E", m.group(1))
+                    cur = (f"{name}<{('false', 'true')[int(arg.group(1))]}>"
+                           if arg else name)
+                    out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def gram_library_ms(torch, zr, zi) -> tuple[float, str]:
@@ -448,6 +506,9 @@ def xengine_phase(torch, hk, gen, dev) -> dict:
 
     # device step: feeds already on the card, one integration per call
     step_ms = time_ms(torch, lambda: r.step(*feeds[0]), reps=6, warmup=2)
+    # the step's marshal alone: raw bytes to channel-major int8 (zr, zi)
+    marshal_ms = time_ms(torch, lambda: xe._decode_int(feeds[0]), reps=6,
+                         warmup=2)
     # host to product: numpy bytes in, the emitted matrix back on the host
     host = [[f.cpu().numpy() for f in fr] for fr in feeds[:2]]
     products = []
@@ -472,10 +533,13 @@ def xengine_phase(torch, hk, gen, dev) -> dict:
         fail("the host-fed run differs from the device-fed one")
     in_mb = XE_S * xe.quantum / 2 ** 20
     phase("xengine", f"device step {step_ms:.4f} ms per integration "
-                     f"({XE_S * XE_T * XE_F / step_ms / 1e3:.1f} MSPS in all);"
+                     f"({XE_S * XE_T * XE_F / step_ms / 1e3:.1f} MSPS in all),"
+                     f" of which the marshal (XEngine._decode_int) "
+                     f"{marshal_ms:.4f} ms alone;"
                      f" host-to-product {h2p_ms:.2f} ms per integration "
                      f"({in_mb:.0f} MiB of bytes in)")
-    return {"launches": launches, "step_ms": step_ms, "h2p_ms": h2p_ms}
+    return {"launches": launches, "step_ms": step_ms,
+            "marshal_ms": marshal_ms, "h2p_ms": h2p_ms}
 
 
 def fm_taps():
@@ -1172,6 +1236,11 @@ def main() -> None:
     for line in _build.last_build["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             phase("ptxas", line.strip())
+    gram_ptxas = ptxas_summary(_build.last_build["log"],
+                               ("gram_int8_diag_kernel",
+                                "gram_int8_quad_kernel"))
+    for name, info in gram_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1444,7 +1513,17 @@ def main() -> None:
 
     gm, nout_p = 2 * A * M, N_ENTRY // M
     sp = XE_S * XE_P
-    nbt = (sp // 128) * (sp // 128 + 1) // 2
+
+    def gram_bound(f, t, width, elem, rate):
+        # zr and zi read once, the a and gi blocks (4 bytes) written once;
+        # the products the _tri form needs: a's lower triangle, w (w + 1) / 2
+        # entries of 2 multiply-adds, and gi = b - b^T below the diagonal,
+        # w (w - 1) / 2 entries of 2: 2 w^2 multiply-adds, 4 w^2 operations
+        # a frame
+        nbt = (width // 128) * (width // 128 + 1) // 2
+        return bound(2 * elem * f * t * width + 4 * 2 * f * nbt * 128 * 128,
+                     4 * f * width * width * t, rate)
+
     plan49 = hk.OfsPlan(fm_taps()[0])
 
     def ofs_bound(plan):
@@ -1459,11 +1538,10 @@ def main() -> None:
                      2 * nout_p * gm * w + 8 * A * nout_p * M * M),
         "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
         "fx dense": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL, False)),
-        "gram": bound(2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
-                      6 * XE_F * sp * sp * XE_T, INT8_OPS),
-        "gram bf16": bound(
-            2 * 2 * XE_F * XE_T * sp + 4 * 2 * XE_F * nbt * 128 * 128,
-            6 * XE_F * sp * sp * XE_T, BF16_OPS),
+        "gram": gram_bound(XE_F, XE_T, sp, 1, INT8_OPS),
+        "gram bf16": gram_bound(XE_F, XE_T, sp, 2, BF16_OPS),
+        "gram k=4": gram_bound(16, XE_T, 512, 1, INT8_OPS),
+        "gram bf16 k=4": gram_bound(16, XE_T, 512, 2, BF16_OPS),
         "ofs": ofs_bound(plan49),
         "ofs 1601": ofs_bound(hk.OfsPlan(fm_taps()[3])),
         "fir": bound(4 * 2 * (2 * FM_N + k49 - 1) + 4 * k49,
@@ -1492,8 +1570,13 @@ def main() -> None:
         dict(entry("fx_correlate_streams", "fx_correlate.cu", 876,
                    flat_launches, max(errs["fx1"], errs["fx1 path"]),
                    *times["fx1"], bounds["fx1"]), body=hk.fx_body(M)),
-        entry("xengine_gram_stacked", "xengine_gram.cu", 2142,
-              xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
+        dict(entry("xengine_gram_stacked", "xengine_gram_int8.cu", 2142,
+                   xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
+             device_ms=gram_res["int8 device"],
+             k4_ms_plain_ms=gram_res["int8 k=4"],
+             k4_bound_ms=bounds["gram k=4"][0],
+             k4_bound_by=bounds["gram k=4"][1],
+             cuda_kernels=sorted(gram_ptxas), ptxas=gram_ptxas),
         dict(entry("xengine_gram_stacked_bf16", "xengine_gram_bf16.cu", 2142,
                    xe_bf16["launches"],
                    max(gram_res["bf16_err"], xe_bf16["err"]),
@@ -1501,7 +1584,9 @@ def main() -> None:
                    gram_res["bf16 library"]),
              device_ms=gram_res["bf16 device"],
              library_call=gram_res["library label"],
-             k4_ms_plain_ms=gram_res["bf16 k=4"]),
+             k4_ms_plain_ms=gram_res["bf16 k=4"],
+             k4_bound_ms=bounds["gram bf16 k=4"][0],
+             k4_bound_by=bounds["gram bf16 k=4"][1]),
         dict(entry("ofs_filter_planar", "ofs_filter.cu", 1909,
                    fm["fd"]["launches"]["ofs_filter_planar"], fmk["ofs"],
                    *fmk["ofs 49"][:2], bounds["ofs"], fmk["conv1d 49"]),
@@ -1537,6 +1622,7 @@ def main() -> None:
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
         "xengine_step_ms": xe["step_ms"],
+        "xengine_marshal_ms": xe["marshal_ms"],
         "xengine_host_to_product_ms": xe["h2p_ms"],
         "fir_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
                             if k.startswith("fir ")},

@@ -8,15 +8,17 @@
 // for zr/zi [F, T, S*P] bfloat16 with float32 sums, S*P = 128*kb, T % 16 == 0.
 // Replaces the bfloat16 path of clenabled_tpu/dsp/pallas_kernels.py:2142
 // (_xengine_gram_stacked_call, kernel body _xengine_gram_kernel :1955), which
-// puts the same products on the TPU's matrix unit; the int8 path stays in
-// xengine_gram.cu, whose C entry clen_xengine_gram launches these kernels for
-// dtype 1.  Output layouts as there: a_blk [F, nbt, 128, 128], gi_blk
-// [F, nbt, 128, 128] in tri_blocks order, b_blk [F, kb, kb, 128, 128].
+// puts the same products on the TPU's matrix unit; the int8 path is
+// xengine_gram_int8.cu, of the same structure, and xengine_gram.cu's C entry
+// clen_xengine_gram launches these kernels for dtype 1.  Output layouts as
+// there: a_blk [F, nbt, 128, 128], gi_blk [F, nbt, 128, 128] in tri_blocks
+// order, b_blk [F, kb, kb, 128, 128].
 //
 // Bound on the H100 at the reference configuration (F = 256, T = 8192,
 // S*P = 128): 1.07 GB of operands and 67 MB of outputs at 3.35 TB/s is
-// 0.33 ms; the 4 products of 128 x 128 x 8192 a channel are 2.75e11 flop
-// (chip_smoke.py counts 2.06e11 operations), 0.21-0.28 ms at 989 TFLOP/s.
+// 0.33 ms; the 4 products of 128 x 128 x 8192 a channel are 2.75e11 flop,
+// of which the function needs 1.37e11 (a's lower triangle and all of b, as
+// chip_smoke.py counts them), 0.14-0.28 ms at 989 TFLOP/s.
 // So the kernel is bound by bytes once the products run on the tensor cores.
 // mma.sync reaches only about half of that rate, so the design reads each
 // operand byte from device memory once and skips the products that a

@@ -13,9 +13,10 @@ ported so far:
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
   branch sums plus per-group inverse DFT of the planar pipeline.
 - ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
-  (``csrc/xengine_gram.cu``, and ``csrc/xengine_gram_bf16.cu`` on the
-  tensor cores for bfloat16): the X-Engine's per-channel stacked Gram,
-  lower block-triangle only, int8 exact.
+  (``csrc/xengine_gram.cu``'s entry, on the tensor cores in
+  ``csrc/xengine_gram_int8.cu`` for int8 and ``csrc/xengine_gram_bf16.cu``
+  for bfloat16): the X-Engine's per-channel stacked Gram, lower
+  block-triangle only, int8 exact.
 - ``fir_direct`` (``csrc/fir_direct.cu``), also bound as
   ``fir_direct_mxu``: the real-tap direct FIR of both planar components in
   one launch, decimating in the kernel.
@@ -534,8 +535,9 @@ def xengine_gram_stacked_plain(zr, zi):
 
 
 def _launch_gram(zr, zi, emit_gi: bool):
-    """Launch ``csrc/xengine_gram.cu`` (int8; its entry hands bfloat16 to
-    ``csrc/xengine_gram_bf16.cu``); (a_blk, b_blk or gi_blk, tri)."""
+    """Launch ``csrc/xengine_gram.cu``'s entry, which hands int8 to
+    ``csrc/xengine_gram_int8.cu`` and bfloat16 to
+    ``csrc/xengine_gram_bf16.cu``; (a_blk, b_blk or gi_blk, tri)."""
     _require_cuda(zr, zi)
     f, t, sp, kb, tri = _check_gram(zr, zi)
     if zr.dtype not in _GRAM_DTYPES:
@@ -556,11 +558,10 @@ def _launch_gram(zr, zi, emit_gi: bool):
         zr.data_ptr(), zi.data_ptr(), _GRAM_DTYPES[zr.dtype], f, t, sp,
         int(emit_gi), a_blk.data_ptr(), b_blk.data_ptr(), _stream(dev))
     if err != 0:
-        smem = ("" if zr.dtype == torch.int8 else
-                f" ({lib.clen_gram_bf16_smem_bytes()} B of shared memory "
-                f"per block)")
+        smem = (lib.clen_gram_int8_smem_bytes() if zr.dtype == torch.int8
+                else lib.clen_gram_bf16_smem_bytes())
         raise RuntimeError(f"xengine_gram launch failed: CUDA error {err}"
-                           f"{smem}")
+                           f" ({smem} B of shared memory per block)")
     return a_blk, b_blk, tri
 
 

@@ -11,8 +11,8 @@ frames: the carrier-recovery path's frame (BPSK with noise at 0.005
 rad/sample of carrier offset, order 2) and QPSK (order 4), at
 ``CostasLoop(0.00628)``'s gains, from a zero state.  Times are CUDA events
 around ``--calls`` back-to-back calls, the variants taken in turn (forward,
-then backward) for ``--rounds`` rounds; the table gives the least, the
-median and the largest per-call time.  Every variant's outputs and state
+then backward) for ``--rounds`` rounds (``tools/variant_ab.py``); the
+table gives the least, the median and the largest per-call time.  Every variant's outputs and state
 are held bit for bit to the first variant's, and each variant to the plain
 form on ``clip_two_stream`` (every clipped error 2, the largest the float32
 clip gives).  Prints the ptxas lines, the table, the card's name and power
@@ -22,11 +22,8 @@ limit, and one JSON line.  Without a card it exits non-zero.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -36,6 +33,8 @@ import torch
 from clenabled_tpu_torch import _build
 from clenabled_tpu_torch.dsp import demod
 from clenabled_tpu_torch.dsp import hopper_kernels as hk
+from clenabled_tpu_torch.runtime.device import card_info
+from clenabled_tpu_torch.tools import variant_ab as ab
 
 PATH_BW, OFFSET = 0.00628, 0.005
 
@@ -87,29 +86,6 @@ def frames(n: int, order: int, seed: int) -> np.ndarray:
     return np.stack([x.real, x.imag]).astype(np.float32)
 
 
-def build(sources: dict[str, Path], out_dir: Path) -> tuple[dict, dict]:
-    """Compile each source into its own library; returns the loaded
-    libraries and each one's ptxas lines."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    libs = {name: out_dir / f"costas_{name}.so" for name in sources}
-    done = _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                             "-shared", "-o", str(libs[name]), str(src)]
-                            for name, src in sources.items()])
-    loaded, ptxas = {}, {}
-    args, res = _build._SIGNATURES["clen_costas"]
-    for name, proc in zip(sources, done):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        lib = ctypes.CDLL(str(libs[name]))
-        lib.clen_costas.argtypes = args
-        lib.clen_costas.restype = res
-        loaded[name] = lib
-        ptxas[name] = [ln.strip() for ln in (proc.stdout + proc.stderr)
-                       .splitlines() if "ptxas" in ln or "bytes stack" in ln]
-    return loaded, ptxas
-
-
 class Call:
     """One variant's clen_costas on fixed inputs, outputs allocated once."""
 
@@ -135,50 +111,23 @@ class Call:
                 and torch.equal(self.st_out, other.st_out))
 
 
-def per_call_ms(fn, calls: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def card_line() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi not read"
-
-
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="Costas kernel variants A/B")
-    ap.add_argument("sources", nargs="*", metavar="name=path")
+    ap = ab.arg_parser("Costas kernel variants A/B", "sources", "name=path")
     ap.add_argument("--n", type=int, default=1 << 16)
-    ap.add_argument("--rounds", type=int, default=7)
-    ap.add_argument("--calls", type=int, default=10)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if not torch.cuda.is_available():
-        print("costas_ab: no CUDA device", file=sys.stderr)
+    if not ab.have_card("costas_ab"):
         return 1
     dev = torch.device("cuda", 0)
     sources = dict(s.split("=", 1) for s in args.sources) or {
         "tree": str(_build.SRC_DIR / "costas.cu")}
-    sources = {k: Path(v).resolve() for k, v in sources.items()}
-    libs, ptxas = build(sources, _build.BUILD_DIR / "costas_ab")
-    for name in libs:
-        for ln in ptxas[name]:
-            print(f"[ptxas {name}] {ln}")
+    libs, ptxas = ab.build(
+        {k: ([Path(v).resolve()], []) for k, v in sources.items()},
+        _build.BUILD_DIR / "costas_ab", "clen_costas",
+        ("ptxas", "bytes stack"))
 
     alpha, beta = demod.costas_gains(PATH_BW)
     zero = torch.zeros(3, device=dev)
@@ -199,14 +148,9 @@ def main(argv=None) -> int:
         for name in names:
             report[name][f"same_as_{names[0]}_order{order}"] = (
                 by_name[name].same(first))
-        times = {name: [] for name in names}
-        for r in range(args.rounds):
-            for name in names if r % 2 == 0 else names[::-1]:
-                times[name].append(per_call_ms(by_name[name], args.calls))
-        for name in names:
-            ts = sorted(times[name])
-            report[name][f"order{order}_ms"] = {
-                "min": ts[0], "median": statistics.median(ts), "max": ts[-1]}
+        for name, t in ab.time_in_turns(by_name, args.rounds,
+                                        args.calls).items():
+            report[name][f"order{order}_ms"] = t
 
     # the clipped-error stream against the plain form, from a phase the
     # bound of |e| <= 1 would clear although the group crosses 2π
@@ -225,17 +169,16 @@ def main(argv=None) -> int:
                 torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                 and torch.equal(got[2], torch.stack(want[2:])))
 
-    card = card_line()
+    card = card_info()
     print(f"Costas kernel variants, {args.n} samples, {args.rounds} rounds "
           f"of {args.calls} calls (CUDA events), {card}:")
     print("variant | order 2 ms min / median / max | order 4 ms min / median"
           " / max | same outputs as first | exact on clip-2 stream (2, 4)")
     for name in names:
         r = report[name]
-        t2, t4 = r["order2_ms"], r["order4_ms"]
-        print(f"{name} | {t2['min']:.4f} / {t2['median']:.4f} / "
-              f"{t2['max']:.4f} | {t4['min']:.4f} / {t4['median']:.4f} / "
-              f"{t4['max']:.4f} | {r[f'same_as_{names[0]}_order2']} "
+        print(f"{name} | {ab.ms_cell(r['order2_ms'])} | "
+              f"{ab.ms_cell(r['order4_ms'])} | "
+              f"{r[f'same_as_{names[0]}_order2']} "
               f"{r[f'same_as_{names[0]}_order4']} | "
               f"{r['clip_two_exact_order2']} {r['clip_two_exact_order4']}")
     print(json.dumps({"card": card, "n": args.n, "variants": report}))

@@ -17,8 +17,8 @@ at M = 16 (its own at another ``--m``) and the ``fx_tail_len`` tail.  A
 source from before the body argument (no ``int body`` in it) is called
 with the older C signature.  Times are CUDA events around ``--calls``
 back-to-back calls, the variants in turn (forward, then backward) for
-``--rounds`` rounds; the table gives the least, the median and the largest
-per-call time.  Every complete variant (no ``FX_STOP_AFTER``) is held to
+``--rounds`` rounds (``tools/variant_ab.py``); the table gives the least,
+the median and the largest per-call time.  Every complete variant (no ``FX_STOP_AFTER``) is held to
 the plain form at 1e-4 × max|plain|.  Prints the ptxas lines, the table,
 the card's name and power limit, and one JSON line.  Without a card it
 exits non-zero.
@@ -27,9 +27,7 @@ exits non-zero.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import statistics
 import sys
 from pathlib import Path
 
@@ -39,6 +37,7 @@ from clenabled_tpu_torch import _build
 from clenabled_tpu_torch import pipelines as P
 from clenabled_tpu_torch.dsp import hopper_kernels as hk
 from clenabled_tpu_torch.runtime.device import card_info
+from clenabled_tpu_torch.tools import variant_ab as ab
 
 A = 4
 TOL = 1e-4
@@ -51,32 +50,20 @@ def build(variants: dict[str, str], out_dir: Path) -> tuple[dict, dict]:
     """Compile each variant into its own library; returns the loaded
     libraries (with whether each takes the body argument) and each one's
     ptxas lines."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
     tree = _build.SRC_DIR / "fx_correlate.cu"
-    cmds, srcs = [], {}
-    for name, v in variants.items():
-        src, flags = (tree, v.split()) if v.startswith("-D") else (
-            Path(v).resolve(), [])
-        srcs[name] = src
-        cmds.append([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", *flags,
-                     f"-I{_build.SRC_DIR}", "-shared", "-o",
-                     str(out_dir / f"fx_{name}.so"), str(src)])
-    done = _build._run_all(cmds)
-    loaded, ptxas = {}, {}
-    args, res = _build._SIGNATURES["clen_fx_correlate"]
-    for name, proc in zip(variants, done):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        lib = ctypes.CDLL(str(out_dir / f"fx_{name}.so"))
-        with_body = "int tile, int body" in srcs[name].read_text()
-        lib.clen_fx_correlate.argtypes = (args if with_body
-                                          else args[:17] + args[18:])
-        lib.clen_fx_correlate.restype = res
+    srcs = {name: (tree, v.split()) if v.startswith("-D")
+            else (Path(v).resolve(), []) for name, v in variants.items()}
+    libs, ptxas = ab.build(
+        {name: ([src], [*flags, f"-I{_build.SRC_DIR}"])
+         for name, (src, flags) in srcs.items()}, out_dir,
+        "clen_fx_correlate", ("fx_reg", "fx_tile", "registers", "spill"))
+    args = _build._SIGNATURES["clen_fx_correlate"][0]
+    loaded = {}
+    for name, lib in libs.items():
+        with_body = "int tile, int body" in srcs[name][0].read_text()
+        if not with_body:
+            lib.clen_fx_correlate.argtypes = args[:17] + args[18:]
         loaded[name] = (lib, with_body)
-        ptxas[name] = [ln.strip() for ln in (proc.stdout + proc.stderr)
-                       .splitlines() if "fx_reg" in ln or "fx_tile" in ln
-                       or "registers" in ln or "spill" in ln]
     return loaded, ptxas
 
 
@@ -118,42 +105,24 @@ class Call:
                 self.out[self.nfd * m:].view(self.nb, 2 * m))
 
 
-def per_call_ms(fn, calls: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="FX kernel variants A/B")
-    ap.add_argument("variants", nargs="*", metavar="name=path|name=-Dflags")
+    ap = ab.arg_parser("FX kernel variants A/B", "variants",
+                       "name=path|name=-Dflags")
     ap.add_argument("--n", type=int, default=1 << 23)
     ap.add_argument("--m", type=int, default=16)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16", "int8"])
-    ap.add_argument("--rounds", type=int, default=7)
-    ap.add_argument("--calls", type=int, default=10)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if not torch.cuda.is_available():
-        print("fx_ab: no CUDA device", file=sys.stderr)
+    if not ab.have_card("fx_ab"):
         return 1
     dev = torch.device("cuda", 0)
     variants = dict(v.split("=", 1) for v in args.variants) or {
         "tree": str(_build.SRC_DIR / "fx_correlate.cu"), **STAGE_PROBES}
     libs, ptxas = build(variants, _build.BUILD_DIR / "fx_ab")
-    for name in libs:
-        for ln in ptxas[name]:
-            print(f"[ptxas {name}] {ln}")
 
     dt = getattr(torch, args.dtype)
     taps_rm, ntaps = P._prototype(args.m, 100e6)
@@ -184,14 +153,8 @@ def main(argv=None) -> int:
         tol = TOL * max(float(w.abs().max()) for w in want)
         report[name]["max_abs_err"] = err
         report[name]["within_tolerance"] = err <= tol
-    times = {name: [] for name in names}
-    for r in range(args.rounds):
-        for name in names if r % 2 == 0 else names[::-1]:
-            times[name].append(per_call_ms(calls[name], args.calls))
-    for name in names:
-        ts = sorted(times[name])
-        report[name]["ms"] = {"min": ts[0], "median": statistics.median(ts),
-                              "max": ts[-1]}
+    for name, t in ab.time_in_turns(calls, args.rounds, args.calls).items():
+        report[name]["ms"] = t
 
     card = card_info()
     print(f"FX kernel variants, {A} x {args.n} {args.dtype}, M = {args.m}, "
@@ -200,9 +163,8 @@ def main(argv=None) -> int:
     print("variant | flags | ms min / median / max | within 1e-4 x max|plain|")
     for name in names:
         r = report[name]
-        t = r["ms"]
         print(f"{name} | {r['flags'] if r['flags'].startswith('-D') else ''}"
-              f" | {t['min']:.4f} / {t['median']:.4f} / {t['max']:.4f} | "
+              f" | {ab.ms_cell(r['ms'])} | "
               f"{r.get('within_tolerance', 'not checked (stage probe)')}")
     print(json.dumps({"card": card, "n": args.n, "m": args.m,
                       "dtype": args.dtype, "variants": report}))

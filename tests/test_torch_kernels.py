@@ -499,6 +499,21 @@ def test_fx_body_refuses_m_not_dividing_128():
             hk.fx_body(m)
 
 
+def test_fx_ab_cli_arguments():
+    """The FX variants tool's arguments; without a card it exits non-zero."""
+    from clenabled_tpu_torch.tools import fx_ab as cli
+
+    args = cli.parse_args([])
+    assert (args.variants, args.n, args.m, args.dtype, args.rounds,
+            args.calls) == ([], 1 << 23, 16, "float32", 7, 10)
+    args = cli.parse_args(["a=x.cu", "b=-DFX_STOP_AFTER=2", "--m", "8",
+                           "--dtype", "int8", "--rounds", "3"])
+    assert (args.variants, args.m, args.dtype, args.rounds) == (
+        ["a=x.cu", "b=-DFX_STOP_AFTER=2"], 8, "int8", 3)
+    if not torch.cuda.is_available():
+        assert cli.main(["--n", "64"]) == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_fx_entries_launch_their_body_on_card(card, m):

@@ -544,6 +544,405 @@ def test_gram_bf16_fragments_rebuild_gram(shape, emit_gi):
         equal(got, want)
 
 
+# --------------------------------------------------------------------------
+# the int8 tensor-core Gram (csrc/xengine_gram_int8.cu), modelled in numpy:
+# byte tiles, ldmatrix.x4.trans.b16 on column pairs, the prmt regrouping,
+# PTX's m16n8k32 s8 fragment layouts and the two kernels' ownership of the
+# outputs
+# --------------------------------------------------------------------------
+
+# the kernels' (tile columns, tiles a stage, threads, frames a tile):
+# diagonal (kDiagFrames), quadrant (kQuadFrames); and tile lengths tried
+# in tuning
+I8_DIAG, I8_QUAD = (128, 2, 384, 256), (64, 4, 128, 64)
+I8_TILE_CASES = [(I8_DIAG, 64), (I8_DIAG, 128), (I8_DIAG, 256),
+                 (I8_QUAD, 32), (I8_QUAD, 64), (I8_QUAD, 128)]
+G8, T8 = LANE >> 2, LANE & 3
+# mma.m16n8k32 .s8: element i of A register q of lane (g, t) is A[g + 8 (q
+# % 2)][4t + i + 16 (q // 2)]; element i of B register q is B[4t + i + 16 q]
+# [g]; D element e is D[g + 8 (e // 2)][2t + e % 2]
+_A_RC = (G8[None, :, None] + 8 * (np.arange(4) % 2)[:, None, None]
+         + 0 * np.arange(4),
+         4 * T8[None, :, None] + np.arange(4)
+         + 16 * (np.arange(4) // 2)[:, None, None])
+_B_RC = (4 * T8[None, :, None] + np.arange(4)
+         + 16 * np.arange(2)[:, None, None], G8[None, :, None] + 0 * np.arange(4))
+_D_RC = (G8[:, None] + 8 * (np.arange(4) // 2), 2 * T8[:, None] + np.arange(4) % 2)
+
+
+def _swz_i8(row, chunk, chunks):
+    """Byte offset of 16-byte chunk ``chunk`` of frame ``row`` in a tile of
+    ``chunks`` (8 or 4) chunks a row."""
+    key = (row // (8 // chunks)) % chunks
+    return row * chunks * 16 + ((chunk ^ key) << 4)
+
+
+def _stage_phases_i8(cols, tiles, threads, frames):
+    """Byte addresses of a stage's cp.async copies, one row per 8-thread
+    phase: thread tid copies e = tid + threads·u."""
+    chunks = cols // 16
+    per = frames * chunks
+    total = tiles * per
+    phases = []
+    for u in range(-(-total // threads)):
+        e = np.arange(threads) + threads * u
+        e = e[e < total]
+        s, rem = e // per, e % per
+        addr = s * frames * cols + _swz_i8(rem // chunks, rem % chunks, chunks)
+        phases += list(addr.reshape(-1, 8))
+    return phases
+
+
+def _frag_addr_i8(chunk, ks, chunks):
+    """Per-lane ldmatrix row address (bytes): lane l gives frame 32 ks + l
+    of the chunk."""
+    return _swz_i8(32 * ks + LANE, chunk, chunks)
+
+
+@pytest.mark.parametrize(
+    "kernel,frames", I8_TILE_CASES,
+    ids=[f"{'diag' if k is I8_DIAG else 'quad'}-{n}" for k, n in I8_TILE_CASES])
+def test_gram_int8_tile_banks(kernel, frames):
+    """Every cp.async store phase (8 threads) and every 8-address phase of
+    every ldmatrix.x4.trans the int8 kernels issue hits 32 distinct banks,
+    and the stores fill the stage exactly once."""
+    cols, tiles, threads, _ = kernel
+    chunks = cols // 16
+    phases = _stage_phases_i8(cols, tiles, threads, frames)
+    addr = np.concatenate(phases)
+    assert sorted(addr) == list(range(0, tiles * frames * cols, 16))
+    for ph in phases:
+        assert _distinct_banks(ph)
+    for chunk in range(chunks):
+        for ks in range(frames // 32):
+            lanes = _frag_addr_i8(chunk, ks, chunks)
+            for q in range(4):
+                assert _distinct_banks(lanes[8 * q:8 * q + 8])
+
+
+def _ldsm_x4_trans_i8(tile, addr):
+    """ldmatrix.sync.aligned.m8n8.x4.trans.b16 on a byte tile: lane l gives
+    the row address of row l % 8 of matrix l // 8 (8 b16 elements, 16
+    bytes); register q of lane t holds elements M_q[2(t%4) + h][t // 4],
+    h = 0, 1, each a little-endian byte pair.  Returns bytes [32, 4, 4]."""
+    m = np.stack([tile[addr[8 * q:8 * q + 8, None] + np.arange(16)]
+                  for q in range(4)])            # [q, row, byte]
+    return np.stack([m[:, 2 * T8 + h, 2 * G8 + b] for h in (0, 1)
+                     for b in (0, 1)], -1).transpose(1, 0, 2)
+
+
+def _prmt(x, y, sel):
+    """prmt.b32 (``__byte_perm``) without sign replication, per lane."""
+    xy = np.concatenate([x, y], -1)
+    return xy[:, [(sel >> 4 * n) & 7 for n in range(4)]]
+
+
+def _frag_i8(tile, addr):
+    """frag(): [32, 4 registers, 4 bytes]: the A fragment of a chunk, and
+    registers (0, 2) / (1, 3) its even / odd columns' B fragments."""
+    r = _ldsm_x4_trans_i8(tile, addr)
+    return np.stack([_prmt(r[:, 0], r[:, 1], 0x6420),
+                     _prmt(r[:, 0], r[:, 1], 0x7531),
+                     _prmt(r[:, 2], r[:, 3], 0x6420),
+                     _prmt(r[:, 2], r[:, 3], 0x7531)], 1)
+
+
+def _mma_m16n8k32(a, b0, b1):
+    """mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 on PTX's fragment
+    layouts: a [32, 4, 4], b0/b1 [32, 4]; returns d [32, 4] (c0..c3)."""
+    am = np.zeros((16, 32), np.int64)
+    bm = np.zeros((32, 8), np.int64)
+    am[_A_RC] = a.transpose(1, 0, 2)
+    bm[_B_RC] = np.stack([b0, b1])
+    return (am @ bm)[_D_RC]
+
+
+def _mma_piece_i8(acc, a, b):
+    """mma_piece: acc [2, 4, 32, 4] += A Bᵀ over 32 frames."""
+    for mi in range(2):
+        for yj in range(2):
+            for p in range(2):
+                acc[mi, 2 * yj + p] += _mma_m16n8k32(a[mi], b[yj][:, p],
+                                                     b[yj][:, p + 2])
+
+
+def _mma_piece_lower_i8(acc, a):
+    """mma_piece_lower: a diagonal piece's a, chunk pairs (0, 0), (1, 0),
+    (1, 1)."""
+    for mi, yj in ((0, 0), (1, 0), (1, 1)):
+        for p in range(2):
+            acc[mi, 2 * yj + p] += _mma_m16n8k32(a[mi], a[yj][:, p],
+                                                 a[yj][:, p + 2])
+
+
+def _stage_tile_i8(z, kt, c0, cols, frames):
+    """One swizzled [frames × cols] byte tile of channel frames z [T, S·P]
+    from frame frames·kt, frames past T zero (the cp.async zero-fill)."""
+    chunks = cols // 16
+    row, chunk = np.divmod(np.arange(frames * chunks), chunks)
+    fr = kt * frames + row
+    ok = fr < z.shape[0]
+    tile = np.zeros(frames * cols, np.int64)
+    off = _swz_i8(row, chunk, chunks)[ok]
+    tile[off[:, None] + np.arange(16)] = z[fr[ok, None],
+                                          c0 + 16 * chunk[ok, None]
+                                          + np.arange(16)]
+    return tile
+
+
+def _frags_i8(tile, piece, ks, chunks):
+    return [_frag_i8(tile, _frag_addr_i8(2 * piece + h, ks, chunks))
+            for h in range(2)]
+
+
+def _piece_tile_i8(acc, s_ri, s_ii, s_rj, s_ij, chunks, rows, cols, same,
+                   ri):
+    """piece_tile: one staged tile into acc [3 (a, ir, ri), 2, 4, 32, 4]."""
+    for ks in range(len(s_ri) // (chunks * 16 * 32)):
+        ar, ai = (_frags_i8(t, rows, ks, chunks) for t in (s_ri, s_ii))
+        if same:
+            _mma_piece_lower_i8(acc[0], ar)
+            _mma_piece_lower_i8(acc[0], ai)
+            _mma_piece_i8(acc[1], ai, ar)
+            continue
+        br, bim = (_frags_i8(t, cols, ks, chunks) for t in (s_rj, s_ij))
+        _mma_piece_i8(acc[0], ar, br)
+        _mma_piece_i8(acc[0], ai, bim)
+        _mma_piece_i8(acc[1], ai, br)
+        if ri:
+            _mma_piece_i8(acc[2], ar, bim)
+
+
+def _ri_tile_i8(acc, s_r, s_i, last):
+    """ri_tile: ri of lower pieces (1, 0), (2, 0), (2, 1), or with last
+    (3, 0), (3, 1), (3, 2), into acc[0..2]."""
+    for ks in range(len(s_r) // (8 * 16 * 32)):
+        b0, b1 = (_frags_i8(s_i, p, ks, 8) for p in (0, 1))
+        if last:
+            a0, x = _frags_i8(s_r, 3, ks, 8), _frags_i8(s_i, 2, ks, 8)
+            for k, (aa, bb) in enumerate([(a0, b0), (a0, b1), (a0, x)]):
+                _mma_piece_i8(acc[k], aa, bb)
+        else:
+            a0, x = _frags_i8(s_r, 1, ks, 8), _frags_i8(s_r, 2, ks, 8)
+            for k, (aa, bb) in enumerate([(a0, b0), (x, b0), (x, b1)]):
+                _mma_piece_i8(acc[k], aa, bb)
+
+
+def _at(acc, mi, yj, hr, j):
+    """at(): piece entry (16 mi + 2g + hr, 16 yj + 4t + j) of every lane."""
+    return acc[mi, 2 * yj + (j & 1), :, 2 * hr + (j >> 1)]
+
+
+def _put_piece_i8(xs, acc):
+    """put_piece: the lanes' parts of a piece into a [32, 33] slot."""
+    for mi, yj, hr, j in np.ndindex(2, 2, 2, 4):
+        xs[16 * mi + 2 * G8 + hr, 16 * yj + 4 * T8 + j] = _at(acc, mi, yj,
+                                                              hr, j)
+
+
+def _owned(out, seen):
+    """A writer into ``out`` [..., 128, 128] that requires one owner per
+    element (the kernel's lanes of one store included)."""
+    def put(r, c, val):
+        assert len(np.unique(r * 128 + c)) == len(r)
+        assert not seen[r, c].any()
+        seen[r, c] = True
+        out[r, c] = val
+    return put
+
+
+def _model_gram_int8(zr, zi, emit_gi):
+    """Both int8 kernels' walks and epilogues for zr/zi [F, T, S·P] int8
+    values in int64: (a_blk, gi_blk or b_blk) as they write them, and
+    whether every element was written."""
+    f, t, sp = zr.shape
+    kb = sp // 128
+    nbt = kb * (kb + 1) // 2
+    d_frames, q_frames = I8_DIAG[3], I8_QUAD[3]
+    a_blk = np.zeros((f, nbt, 128, 128), np.int64)
+    b_blk = np.zeros((f, nbt, 128, 128) if emit_gi else (f, kb, kb, 128, 128),
+                     np.int64)
+    seen_a, seen_b = np.zeros(a_blk.shape, bool), np.zeros(b_blk.shape, bool)
+    for ch in range(f):
+        for bi in range(kb):                        # gram_int8_diag_kernel
+            n = bi * (bi + 1) // 2 + bi
+            acc = np.zeros((12, 3, 2, 4, 32, 4), np.int64)
+            for kt in range(-(-t // d_frames)):
+                s_r, s_i = (_stage_tile_i8(z[ch], kt, bi * 128, 128, d_frames)
+                            for z in (zr, zi))
+                for w, (rr, cc) in enumerate(DIAG_ROLES):
+                    _piece_tile_i8(acc[w], s_r, s_i, s_r, s_i, 8, rr, cc,
+                                   same=w < 4, ri=False)
+                for w in range(2):
+                    _ri_tile_i8(acc[10 + w], s_r, s_i, last=w == 1)
+            # the exchange, a sentinel where no warp writes
+            xs = np.full((10, 32, 33), 1 << 40, np.int64)
+            for w in range(2):
+                for p in range(3):
+                    _put_piece_i8(xs[3 * w + p], acc[10 + w, p])
+            if emit_gi:
+                for w in range(4):
+                    _put_piece_i8(xs[6 + DIAG_ROLES[w][0]], acc[w, 1])
+            put_a = _owned(a_blk[ch, n], seen_a[ch, n])
+            put_b = (_owned(b_blk[ch, n], seen_b[ch, n]) if emit_gi
+                     else _owned(b_blk[ch, bi, bi], seen_b[ch, bi, bi]))
+            for w, (rr, cc) in enumerate(DIAG_ROLES):
+                for mi, yj, hr in np.ndindex(2, 2, 2):
+                    pr, pc = 16 * mi + 2 * G8 + hr, 16 * yj + 4 * T8
+                    r, c = rr * 32 + pr, cc * 32 + pc
+                    for j in range(4):
+                        va = _at(acc[w, 0], mi, yj, hr, j)
+                        vb = _at(acc[w, 1], mi, yj, hr, j)
+                        if w < 4:
+                            if (mi, yj) == (1, 0):
+                                put_a(c + j, r, va)
+                            if mi >= yj:
+                                put_a(r, c + j, va)
+                            put_b(r, c + j, vb - xs[6 + rr][pc + j, pr]
+                                  if emit_gi else vb)
+                            continue
+                        ri = xs[w - 4][pr, pc + j]
+                        put_a(r, c + j, va)
+                        put_a(c + j, r, va)
+                        if emit_gi:
+                            put_b(r, c + j, vb - ri)
+                            put_b(c + j, r, -(vb - ri))
+                        else:
+                            put_b(r, c + j, vb)
+                            put_b(c + j, r, ri)
+        for m in range(kb * (kb - 1) // 2):         # gram_int8_quad_kernel
+            bi = 1
+            while (bi + 1) * bi // 2 <= m:
+                bi += 1
+            bj = m - bi * (bi - 1) // 2
+            n = bi * (bi + 1) // 2 + bj
+            put_a = _owned(a_blk[ch, n], seen_a[ch, n])
+            put_ij = (_owned(b_blk[ch, n], seen_b[ch, n]) if emit_gi
+                      else _owned(b_blk[ch, bi, bj], seen_b[ch, bi, bj]))
+            put_ji = (None if emit_gi
+                      else _owned(b_blk[ch, bj, bi], seen_b[ch, bj, bi]))
+            for quad in range(4):
+                qr, qc = quad >> 1, quad & 1
+                row0, col0 = bi * 128 + qr * 64, bj * 128 + qc * 64
+                acc = np.zeros((4, 3, 2, 4, 32, 4), np.int64)
+                for kt in range(-(-t // q_frames)):
+                    tiles = [_stage_tile_i8(z[ch], kt, c0, 64, q_frames)
+                             for c0 in (row0, col0) for z in (zr, zi)]
+                    for w in range(4):
+                        _piece_tile_i8(acc[w], *tiles, 4, w >> 1, w & 1,
+                                       same=False, ri=True)
+                for w in range(4):
+                    for mi, yj, hr in np.ndindex(2, 2, 2):
+                        r = qr * 64 + (w >> 1) * 32 + 16 * mi + 2 * G8 + hr
+                        c = qc * 64 + (w & 1) * 32 + 16 * yj + 4 * T8
+                        for j in range(4):
+                            va, vb, ri = (_at(acc[w, x], mi, yj, hr, j)
+                                          for x in range(3))
+                            put_a(r, c + j, va)
+                            if emit_gi:
+                                put_ij(r, c + j, vb - ri)
+                            else:
+                                put_ij(r, c + j, vb)
+                                put_ji(c + j, r, ri)
+    return a_blk, b_blk, seen_a.all() and seen_b.all()
+
+
+def test_gram_int8_mma_layout_is_a_bijection():
+    """The modelled m16n8k32 fragment maps cover A [16 × 32], B [32 × 8] and
+    D [16 × 8] once each, and a frag() of a chunk holds every (column,
+    frame) byte of its 32 frames once, in the A rows and K slots of the
+    head note (row g ↔ column 2g, row g + 8 ↔ column 2g + 1; K slot 4t + j
+    ↔ frame 2t + j, j < 2, or 2t + 6 + j)."""
+    for rc, shape in ((_A_RC, (16, 32)), (_B_RC, (32, 8)), (_D_RC, (16, 8))):
+        flat = np.ravel_multi_index([np.broadcast_to(x, rc[0].shape)
+                                     for x in rc], shape).ravel()
+        assert sorted(flat) == list(range(shape[0] * shape[1]))
+    # a tile whose byte is (column, frame) coded as 32 column + frame
+    tile = np.zeros(32 * 128, np.int64)
+    row, col = np.divmod(np.arange(32 * 128), 128)
+    off = _swz_i8(row, col // 16, 8) + col % 16
+    tile[off] = 32 * col + row
+    for chunk in range(8):
+        fr = _frag_i8(tile, _frag_addr_i8(chunk, 0, 8))
+        am = np.zeros((16, 32), np.int64)
+        am[_A_RC] = fr.transpose(1, 0, 2)
+        k = np.arange(32)
+        frame = 16 * (k // 16) + 2 * ((k % 16) // 4) + np.where(
+            k % 4 < 2, k % 4, k % 4 + 6)
+        m = np.arange(16)
+        column = 16 * chunk + 2 * (m % 8) + m // 8
+        np.testing.assert_array_equal(am, 32 * column[:, None] + frame)
+
+
+# (channels, frames, S·P): the last tile ragged (frames past T zero-filled)
+# at kb = 1 (two diagonal tiles) and kb = 4, whose six off-diagonal blocks
+# run the quadrant kernel
+@pytest.mark.parametrize("emit_gi", [True, False], ids=["tri", "blocks"])
+@pytest.mark.parametrize("shape", [(2, 288, 128), (1, 96, 512)],
+                         ids=["k1_t288", "k4_t96"])
+def test_gram_int8_fragments_rebuild_gram(shape, emit_gi):
+    """The modelled int8 kernels (ldmatrix.trans.b16, the prmt selectors,
+    the m16n8k32 fragment ownership, the diagonal role map and the
+    epilogue's permuted writes) write every output element once and rebuild
+    a, gi = b − bᵀ and b = zi·zrᵀ equal to int64 np.einsum, and equal to
+    the port's plain forms; bytes at −128 and 127 included."""
+    f, t, sp = shape
+    kb = sp // 128
+    rng = np.random.default_rng(17)
+    zr, zi = rng.integers(-128, 128, (2, f, t, sp))
+    zr[:, :8], zi[:, 8:16] = -128, 127
+    a_blk, b_blk, every = _model_gram_int8(zr, zi, emit_gi)
+    assert every
+    a = np.einsum("ftk,ftl->fkl", zr, zr) + np.einsum("ftk,ftl->fkl", zi, zi)
+    b = np.einsum("ftk,ftl->fkl", zi, zr)
+    gi = b - b.transpose(0, 2, 1)
+    tri = [(i, j) for i in range(kb) for j in range(i + 1)]
+
+    def blk(x, i, j):
+        return x[:, i * 128:(i + 1) * 128, j * 128:(j + 1) * 128]
+
+    for n, (i, j) in enumerate(tri):
+        np.testing.assert_array_equal(a_blk[:, n], blk(a, i, j))
+        if emit_gi:
+            np.testing.assert_array_equal(b_blk[:, n], blk(gi, i, j))
+    if not emit_gi:
+        for i in range(kb):
+            for j in range(kb):
+                np.testing.assert_array_equal(b_blk[:, i, j], blk(b, i, j))
+    zt = [_t(z, "int8") for z in (zr, zi)]
+    form = (hk.xengine_gram_stacked_tri if emit_gi
+            else hk.xengine_gram_stacked_blocks)
+    for got, want in zip(form(*zt)[:2], (a_blk, b_blk)):
+        equal(got, want)
+
+
+def test_gram_ab_cli_arguments(tmp_path):
+    """The int8 Gram variants tool: its arguments, the sources each kind of
+    variant builds, and without a card a non-zero exit."""
+    from clenabled_tpu_torch.tools import gram_ab as cli
+
+    args = cli.parse_args([])
+    assert (args.variants, args.f, args.t, args.sp, args.rounds,
+            args.calls) == ([], 256, 8192, 128, 7, 10)
+    tree = ["xengine_gram.cu", "xengine_gram_int8.cu", "xengine_gram_bf16.cu"]
+    srcs, flags = cli.variant_sources("tree")
+    assert [s.name for s in srcs] == tree and flags == []
+    srcs, flags = cli.variant_sources(cli.PROBES["mma_only"])
+    assert [s.name for s in srcs] == tree
+    assert flags == ["-DGRAM_I8_COMPUTE_ONLY", "-DGRAM_I8_MMA_ONLY"]
+    old = tmp_path / "xengine_gram_dp4a.cu"       # int8 in the file itself
+    old.write_text("int clen_gram_bf16_launch(const void* zr);\n"
+                   "int clen_gram_int8_launch(const void* zr) {\n"
+                   "  return 0;\n}\n"
+                   "int f() { return clen_gram_int8_launch(0) + "
+                   "clen_gram_bf16_launch(0); }\n")
+    srcs, flags = cli.variant_sources(f"{old} -DNDEBUG")
+    assert [s.name for s in srcs] == [old.name, "xengine_gram_bf16.cu"]
+    assert flags == ["-DNDEBUG"] and all(s.exists() for s in srcs)
+    if not torch.cuda.is_available():
+        assert cli.main(["--f", "1", "--t", "32"]) == 1
+
+
 def test_gram_checks_match_jax():
     z = torch.zeros((2, 64, 100), dtype=torch.int8)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -682,15 +1081,39 @@ def test_state_from_reference_continues_jax_run(ref):
 
 # (channels, frames, S·P): k = 1, 2 and 3, with a ragged last T tile
 CARD_SHAPES = [(8, 4096, 128), (4, 1056, 256), (2, 544, 384)]
+# int8 only: T % 64 == 32 (half a quadrant tile; the diagonal kernel's
+# 256-frame tiles ragged too), kb = 4, one channel, and extreme bytes: all
+# −128, and −128 / 127 alternating
+I8_CARD_CASES = [("k1-t2080", (2, 2080, 128), "randint"),
+                 ("k4", (2, 1056, 512), "randint"),
+                 ("f1", (1, 4096, 256), "randint"),
+                 ("k1-min", (4, 2048, 128), "min"),
+                 ("k2-alt", (2, 1056, 256), "alt")]
+CARD_CASES = ([pytest.param(s, dt, "randint", id=f"k{k}-{dt}")
+               for k, s in enumerate(CARD_SHAPES, 1)
+               for dt in ("int8", "bfloat16")]
+              + [pytest.param(s, "int8", fill, id=f"{name}-int8")
+                 for name, s, fill in I8_CARD_CASES])
+
+
+def _card_bytes(shape, fill):
+    """(zr, zi) int values: seeded in [−127, 127], all −128, or −128 and
+    127 alternating by frame and column (zi the opposite of zr)."""
+    if fill == "randint":
+        return _ints(8, (2, *shape))
+    if fill == "min":
+        return np.full((2, *shape), -128)
+    _, t, sp = shape
+    alt = np.where((np.arange(t)[:, None] + np.arange(sp)) % 2, 127, -128)
+    return np.repeat(np.stack([alt, -1 - alt])[:, None], shape[0], 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", GRAM_FORMS)
-@pytest.mark.parametrize("dt", ["int8", "bfloat16"])
-@pytest.mark.parametrize("shape", CARD_SHAPES, ids=["k1", "k2", "k3"])
-def test_gram_kernel_matches_plain_on_card(card, shape, dt, form):
+@pytest.mark.parametrize("shape,dt,fill", CARD_CASES)
+def test_gram_kernel_matches_plain_on_card(card, shape, dt, fill, form):
     f, t, sp = shape
-    qr, qi = _ints(8, (2, f, t, sp))
+    qr, qi = _card_bytes(shape, fill)
     zr, zi = _t(qr, dt, card), _t(qi, dt, card)
     before = hk.gram_launches()
     got = getattr(hk, form)(zr, zi)
@@ -743,18 +1166,18 @@ def test_gram_bf16_randn_matches_plain_on_card(card, shape, form):
 
 @pytest.mark.cuda
 def test_gram_launches_its_kernels_on_card(card):
-    """A bf16 CUDA call runs the tensor-core kernels (at kb = 2 the
-    diagonal and the quadrant kernel, once each) and nothing of the int8
-    kernel; the int8 forms run the dp4a kernel and stay equal to their
-    plain forms."""
+    """A CUDA call runs its dtype's tensor-core kernels (at kb = 2 the
+    diagonal and the quadrant kernel, once each) and nothing of the other
+    dtype's; the int8 forms stay equal to their plain forms."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
     qr, qi = _ints(12, (2, 2, 512, 256))
     for dt, names, other in (
             ("bfloat16", ("gram_bf16_diag_kernel", "gram_bf16_quad_kernel"),
-             "gram_kernel"),
-            ("int8", ("gram_kernel",), "gram_bf16")):
+             "gram_int8"),
+            ("int8", ("gram_int8_diag_kernel", "gram_int8_quad_kernel"),
+             "gram_bf16")):
         zr, zi = _t(qr, dt, card), _t(qi, dt, card)
         before = hk.gram_launches()
         with profile(activities=[ProfilerActivity.CPU,
