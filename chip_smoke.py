@@ -9,8 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card   — require a Hopper card; print its name and power limit.
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
    one ``nvcc`` per source, all started together; print ptxas's lines and,
-   for each instantiation of the int8 Gram kernels, its registers, stack
-   frame and spill bytes.
+   for each instantiation of the int8 Gram kernels and of
+   ``pfb_os_reg_kernel``, its registers, stack frame and spill bytes.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
@@ -72,7 +72,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 10. oversampled channelizer — the fused kernel (B.3) against its plain
    form at 16 channels R=8 (2^23 samples, the path's shape), 64 channels
    R=16 with a 1600-tap prototype (1792-sample tail), 32 channels R=4 and
-   a rotation offset, and a channel subset through the streaming form;
+   a rotation offset, then at 16 channels R=4, 2 and 1 (L = 4, 8, 16) and
+   with 1600 taps on ragged last blocks (2^21 + 80 samples), each case
+   printing the body ``hopper_kernels.os_body`` ran (``pfb_os_reg_kernel``
+   at M ≤ 16, ``pfb_os_kernel`` above); the first body, ``pfb_os_kernel``,
+   on the path's call through the C entry (body 0, no wrapper counting
+   it), held to the plain form and timed beside the new one; and a channel
+   subset through the streaming form;
    then counts reset, a ``Flowgraph`` of ``PolyphaseChannelizer(proto,
    2**23, 16, 8, list(range(16)), planar=True, fused=True)`` (the 155-tap
    ``firdes.low_pass(1.0, 16.0, 0.5, 0.25)`` zero-padded to 160) over 4
@@ -114,7 +120,8 @@ The kernels record gives, for every kernel, the least time the
 card could take for its work at the measured shape (``bound_ms``: the
 larger of the bytes it must move at 3.35 TB/s and its operations at the
 published peak for their type; the FX step's M-point transforms counted as
-FFTs, beside the dense-DFT count of earlier records), and the time of one
+FFTs, beside the dense-DFT count of earlier records; so the oversampled
+PFB's, with its bytes and both operation counts beside it), and the time of one
 PyTorch library call computing the same function where there is one.
 
 The second-to-last line is the kernels' JSON record, the last line
@@ -169,7 +176,8 @@ PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
-                "pfb_os_kernel", "fft_batched_kernel", "costas_kernel",
+                "pfb_os_kernel", "pfb_os_reg_kernel", "fft_batched_kernel",
+                "costas_kernel",
                 "costas_sincos_probe_kernel")
 
 
@@ -314,7 +322,8 @@ def gram_phase(torch, hk, gen, dev) -> dict:
 def ptxas_summary(log: str, names) -> dict:
     """Registers, stack frame and spill bytes of each instantiation of the
     named kernels in an ``nvcc -Xptxas -v`` log, keyed ``name<true>`` /
-    ``name<false>`` for a kernel templated on one bool."""
+    ``name<false>`` for a kernel templated on one bool, ``name<16, 2>`` for
+    one templated on ints."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -323,8 +332,14 @@ def ptxas_summary(log: str, names) -> dict:
             for name in names:
                 if name in m.group(1):
                     arg = re.search(name + r"ILb([01])E", m.group(1))
-                    cur = (f"{name}<{('false', 'true')[int(arg.group(1))]}>"
-                           if arg else name)
+                    ints = re.search(name + r"I((?:Li\d+E)+)E", m.group(1))
+                    if arg:
+                        cur = f"{name}<{('false', 'true')[int(arg.group(1))]}>"
+                    elif ints:
+                        vals = re.findall(r"Li(\d+)E", ints.group(1))
+                        cur = f"{name}<{', '.join(vals)}>"
+                    else:
+                        cur = name
                     out[cur] = {}
             continue
         if cur is None:
@@ -822,10 +837,57 @@ def os_proto(m: int, ntaps: int | None = None):
     return np.concatenate([proto, np.zeros((-len(proto)) % m, np.float32)])
 
 
-def os_bound(n: int, h: int, m: int, r: int, w: int) -> tuple:
+def os_bounds(n: int, h: int, m: int, r: int, w: int) -> dict:
+    """The least time of one pfb_oversampled_fused call: the frame, tail and
+    taps read and [n/R, M] of both components written once (``bytes_ms``);
+    the FIR's 2·W multiply-adds an output and component with the M-point
+    transforms as FFTs (5·M·log2 M flops a group, as pfb_os_reg_kernel runs
+    them; ``operations_ms``) or as dense DFTs (8·M², as pfb_os_kernel does;
+    ``dense_operations_ms``), at FP32's peak; ``bound`` is the larger of
+    the first two, with what sets it."""
     nout = n // r
-    return bound(4 * (2 * n + 2 * h + w * m + 2 * nout * m),
-                 4 * nout * m * w + 8 * nout * m * m)
+    nbytes = 4 * (2 * n + 2 * h + w * m + 2 * nout * m)
+    fir = 4 * nout * m * w
+    fft = fir + nout * 5 * m * math.log2(m)
+    return {"bound": bound(nbytes, fft), "bytes_ms": nbytes / HBM_BPS * 1e3,
+            "operations_ms": fft / FP32_OPS * 1e3,
+            "dense_operations_ms": (fir + nout * 8 * m * m) / FP32_OPS * 1e3}
+
+
+def os_first_body_times(torch, hk, args, want) -> dict:
+    """The first body, ``pfb_os_kernel``, on the same call through the C
+    entry with body 0 (the body M ≥ 32 runs): held to the plain form, then
+    its device time (``torch.profiler``) and per-call time (CUDA events).
+    No wrapper counts these launches."""
+    xr, xi, tr, ti, taps, m, r, ioff = args
+    zr = torch.empty((xr.shape[-1] // r, m), device=xr.device)
+    zi = torch.empty_like(zr)
+    tw = hk._twiddles(m, xr.device)
+    lib = hk._load()
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+
+    def call():
+        err = lib.clen_pfb_oversampled(
+            xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            taps.data_ptr(), tw.data_ptr(), zr.data_ptr(), zi.data_ptr(),
+            xr.shape[-1], tr.shape[-1], m, r, taps.shape[0], ioff,
+            max(1, hk._OS_GROUPS // m), hk.OS_BODIES.index("pfb_os_kernel"),
+            stream)
+        if err != 0:
+            fail(f"pfb_os_kernel launch failed: CUDA error {err}")
+
+    call()
+    torch.cuda.synchronize()
+    err = check(torch, f"pfb_oversampled 16ch R=8 [{xr.shape[-1]}] on "
+                       f"pfb_os_kernel (the first body)", (zr, zi), want)
+    events = time_ms(torch, call)
+    busy = device_busy_ms(torch, call, 10)
+    shown = "not measured" if busy is None else f"{busy:.4f} ms"
+    phase("time", f"pfb_os_kernel (the first body) 16ch R=8 "
+                  f"[{xr.shape[-1]}]: device {shown}, per call (events) "
+                  f"{events:.4f} ms")
+    return {"ms": events if busy is None else busy, "events_ms": events,
+            "max_abs_err": err}
 
 
 def os_phase(torch, hk, gen, dev) -> dict:
@@ -835,11 +897,19 @@ def os_phase(torch, hk, gen, dev) -> dict:
     from clenabled_tpu_torch.dsp import planar
     from clenabled_tpu_torch.streaming import Flowgraph
 
-    res = {"err": 0.0}
+    res = {"err": 0.0, "bodies": {}}
+    # the path's shape, 64 and 32 channels (the first body) and a rotation
+    # offset; then L = 4, 8, 16 and 1600 taps at M = 16, each on a ragged
+    # last block (n/R not a multiple of 128)
+    ragged = OS_DEEP_N + 80
     cases = [("16ch R=8", OS_M, OS_R, None, OS_N, 0),
              ("64ch R=16 1600 taps", 64, 16, 1600, OS_DEEP_N, 0),
              ("32ch R=4 96 taps", 32, 4, 96, OS_DEEP_N, 0),
-             ("16ch R=8 i_offset 5", OS_M, OS_R, None, OS_DEEP_N, 5)]
+             ("16ch R=8 i_offset 5", OS_M, OS_R, None, OS_DEEP_N, 5),
+             ("16ch R=4 i_offset 3", 16, 4, None, ragged, 3),
+             ("16ch R=2", 16, 2, None, ragged, 0),
+             ("16ch R=1 i_offset 7", 16, 1, None, ragged, 7),
+             ("16ch R=8 1600 taps", 16, 8, 1600, ragged, 0)]
     for label, m, r, nt, n, ioff in cases:
         proto = os_proto(m, nt)
         taps_rm, ntaps = chan._pfb_constants(proto, m, r)
@@ -851,15 +921,17 @@ def os_phase(torch, hk, gen, dev) -> dict:
         got = hk.pfb_oversampled_fused(*args)
         torch.cuda.synchronize()
         want = hk.pfb_oversampled_fused_plain(*args)
+        res["bodies"][label] = hk.os_body(m)
         res["err"] = max(res["err"], check(
-            torch, f"pfb_oversampled {label} [{n}], W={taps.shape[0]}, H={h}",
-            got, want))
+            torch, f"pfb_oversampled {label} [{n}], W={taps.shape[0]}, H={h} "
+                   f"on {hk.os_body(m)}", got, want))
         if label == "16ch R=8":
             res["time"] = fm_times(
-                torch, f"pfb_oversampled {label} [{n}]",
+                torch, f"pfb_oversampled {label} [{n}] ({hk.os_body(m)})",
                 lambda: hk.pfb_oversampled_fused(*args),
                 lambda: hk.pfb_oversampled_fused_plain(*args))
-            res["bound"] = os_bound(n, h, m, r, taps.shape[0])
+            res["bounds"] = os_bounds(n, h, m, r, taps.shape[0])
+            res["first_body"] = os_first_body_times(torch, hk, args, want)
         del x, t, got, want
 
     # a channel subset through the streaming form
@@ -1241,6 +1313,9 @@ def main() -> None:
                                 "gram_int8_quad_kernel"))
     for name, info in gram_ptxas.items():
         phase("ptxas", f"{name}: {info}")
+    os_ptxas = ptxas_summary(_build.last_build["log"], ("pfb_os_reg_kernel",))
+    for name, info in os_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1600,8 +1675,14 @@ def main() -> None:
         entry("qdemod_fused", "qdemod.cu", 358,
               sum(fm[p]["launches"]["qdemod_fused"] for p in fm), fmk["qd"],
               *fmk["qd time"][:2], bounds["qd"]),
-        entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
-              osr["launches"], osr["err"], *osr["time"][:2], osr["bound"]),
+        dict(entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
+                   osr["launches"], osr["err"], *osr["time"][:2],
+                   osr["bounds"]["bound"]),
+             body=hk.os_body(OS_M), bodies=osr["bodies"],
+             first_body=osr["first_body"],
+             **{k: v for k, v in osr["bounds"].items() if k != "bound"},
+             cuda_kernels=sorted(os_ptxas) + ["pfb_os_kernel"],
+             ptxas=os_ptxas),
         dict(entry("fft_batched_fused", "fft_batched.cu", 505,
                    spr["launches"], spr["err"], *spr["time"][:2],
                    spr["bound"], spr["library_ms"]),

@@ -48,9 +48,9 @@ _SIGNATURES = {
     "clen_qdemod": ([_P, _P, _P, _P, _P, _I, ctypes.c_longlong,
                      ctypes.c_float, _P], _I),
     "clen_pfb_oversampled": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _P], _I),
-    "clen_os_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "clen_os_fits": ([_I, _I, _I], _I),
+                              _I, _I, _I, _I, _P], _I),
+    "clen_os_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "clen_os_fits": ([_I, _I, _I, _I], _I),
     "clen_fft_batched": ([_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                           _I, _I, _P], _I),
     "clen_fft_smem_bytes": ([_I], ctypes.c_longlong),

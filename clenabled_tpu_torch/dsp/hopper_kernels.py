@@ -26,7 +26,11 @@ ported so far:
   carried sample.
 - ``pfb_oversampled_fused`` (``csrc/pfb_oversampled.cu``): the oversampled
   (R < M, R | M) PFB channelizer step — branch sums over the virtual stream
-  tail ++ frame, the output rotation and the unscaled inverse DFT.
+  tail ++ frame, the output rotation and the unscaled inverse DFT.  Two
+  ``__global__`` bodies, chosen by M in ``os_body``:
+  ``pfb_os_reg_kernel`` (register-tiled phase FIR, in-register M-point
+  DFTs, the rotation as an L-th-root twiddle) for M in {2, 4, 8, 16},
+  ``pfb_os_kernel`` otherwise.
 - ``fft_batched_fused`` (``csrc/fft_batched.cu``): the batched unscaled FFT
   of the ``Fft`` block, windowed, in natural order.
 - ``costas_scalar`` (``csrc/costas.cu``): the exact sequential Costas loop,
@@ -938,19 +942,37 @@ qdemod_fused.launches = 0
 # Kernel 3: the fused oversampled PFB
 # --------------------------------------------------------------------------
 
-_OS_GROUPS = 2048          # outputs (groups × channels) per block, at most
+_OS_GROUPS = 2048    # pfb_os_kernel's outputs (groups × channels) a block, at most
+
+# the two __global__ bodies of csrc/pfb_oversampled.cu, by their C body code
+OS_BODIES = ("pfb_os_kernel", "pfb_os_reg_kernel")
+OS_REG_M = (2, 4, 8, 16)
+
+
+def os_body(m: int) -> str:
+    """The kernel body an oversampled PFB call with ``m`` channels
+    launches: ``pfb_os_reg_kernel`` (register-tiled phase FIR, in-register
+    M-point DFTs, the rotation as an L-th-root twiddle) for m in {2, 4, 8,
+    16}, where 16 points a thread hold 16/m groups; ``pfb_os_kernel``
+    (shared-memory operands, a dense DFT) for every other m dividing
+    128."""
+    if m < 1 or LANES % m:
+        raise ValueError(f"m must divide {LANES}; got {m}")
+    return OS_BODIES[1] if m in OS_REG_M else OS_BODIES[0]
 
 
 def os_window_fits(m: int, r: int, w: int, device) -> bool:
     """Whether the oversampled kernel can run M=m, R=r with W=w tap rows on
-    ``device``: one output group's window, branch sums and twiddles must fit
-    the card's opt-in shared memory per block (``csrc/pfb_oversampled.cu``
+    ``device``: the smallest block of the body ``os_body(m)`` — one output
+    group's window, branch sums and twiddles for ``pfb_os_kernel``, the
+    fixed block of 2048/m groups for ``pfb_os_reg_kernel`` — must fit the
+    card's opt-in shared memory per block (``csrc/pfb_oversampled.cu``
     sizes them).  The plain form on the CPU has no such limit."""
     device = torch.device(device)
     if device.type == "cpu":
         return True
     with torch.cuda.device(device):
-        fits = _load().clen_os_fits(m, r, w)
+        fits = _load().clen_os_fits(m, r, w, OS_BODIES.index(os_body(m)))
     if fits < 0:
         raise RuntimeError(f"cannot read {device}'s shared memory: CUDA "
                            f"error {-fits}")
@@ -1039,18 +1061,19 @@ def pfb_oversampled_fused(xr, xi, tail_r, tail_i, taps_rm, m: int, r: int,
         raise ValueError("the oversampled PFB kernel takes float32 streams")
     w, n, h = _check_os(xr, xi, tail_r, tail_i, taps, m, r)
     nout = n // r
+    body = OS_BODIES.index(os_body(m))
     lib = _load()
     zr = torch.empty((nout, m), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
     err = lib.clen_pfb_oversampled(
         xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
         taps.data_ptr(), tw.data_ptr(), zr.data_ptr(), zi.data_ptr(), n, h, m,
-        r, w, int(i_offset) % m, max(1, _OS_GROUPS // m), _stream(dev))
+        r, w, int(i_offset) % m, max(1, _OS_GROUPS // m), body, _stream(dev))
     if err != 0:
         raise RuntimeError(
-            f"pfb_oversampled launch failed: CUDA error {err} "
-            f"({lib.clen_os_smem_bytes(m, r, w, 1)} B of shared memory for "
-            f"one output group)")
+            f"pfb_oversampled launch failed ({OS_BODIES[body]}): CUDA error "
+            f"{err} ({lib.clen_os_smem_bytes(m, r, w, 1, body)} B of shared "
+            f"memory for its smallest block)")
     pfb_oversampled_fused.launches += 1
     return zr, zi
 

@@ -5,11 +5,13 @@ tunnel; the port instead names its device explicitly everywhere
 (``device=`` arguments, module buffers) and asks only two questions of the
 card: is it a Hopper part (the kernels are built for ``sm_90a``), and what
 are its name and power limit (recorded beside every measurement).
+``launched_kernels`` reads which kernels a call ran from ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -60,3 +62,38 @@ def card_info() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def launched_kernels(fn, least: int = 1, tries: int = 3):
+    """(fn(), the names of the device kernels it ran), read from
+    ``torch.profiler``.  The profiler can miss the first milliseconds of
+    device work in a trace (late in a long process, now and then in a fresh
+    one), so each trace opens with 30 ms of uncounted work, an elementwise
+    kernel on a scratch tensor, and only the device events that start in a
+    marked window around ``fn`` count.  A window holding fewer than
+    ``least`` device events is taken again, ``fn`` called anew, up to
+    ``tries`` times; the last take is returned."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    scratch = torch.zeros(1 << 16, device="cuda")
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.03:
+                scratch.add_(1.0)
+                torch.cuda.synchronize()
+            with record_function("launched_kernels"):
+                out = fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.name == "launched_kernels")
+        names = [e.name for e in events if e.device_type == cuda
+                 and e.name != "launched_kernels"
+                 and e.time_range.start >= start]
+        if len(names) >= least:
+            break
+    return out, names

@@ -410,19 +410,388 @@ def test_runner_state_from_reference(ref, fused):
 
 
 # --------------------------------------------------------------------------
+# pfb_os_reg_kernel (csrc/pfb_oversampled.cu, M in {2, 4, 8, 16}) modelled
+# in numpy: 2048 outputs of each component a block (G = 2048/M output
+# groups on U = G/L window rows), 128 threads, FIR strips of S = 16 rows
+# (8 at L = 16) with 2 pad rows of M words after each strip's rows
+# --------------------------------------------------------------------------
+
+OS_OUTS, OS_THREADS, OS_STRIP, OS_PAD_ROWS = 2048, 128, 16, 2
+# every (M, L) the body is instantiated for
+OS_REG_ML = [(m, ell) for m in (2, 4, 8, 16) for ell in (2, 4, 8, 16)
+             if ell <= m]
+
+
+def _zswz(x):
+    """The sums' word of logical float x (the kernel's zswz)."""
+    return x ^ (((x >> 5) & 15) << 1)
+
+
+def _os_shape(m, r, w):
+    """(G, U, S, wpad): a block's output groups, their window rows, the
+    FIR strip, and the padded window floats of one component (U + W + 1
+    rows: the FIR's last refill of a strip reads row U + W)."""
+    g = OS_OUTS // m
+    u = g // (m // r)
+    s = min(u, OS_STRIP)
+    return g, u, s, -(-(u + w + 1) // s) * (s + OS_PAD_ROWS) * m
+
+
+def _os_word(k, m, s):
+    """The window word of window sample k: 2·M pad words after every S·M
+    samples."""
+    return k + k // (s * m) * OS_PAD_ROWS * m
+
+
+def _os_stage(frame, tail, blk, m, r, w, vec=True):
+    """The kernel's staging of tail ++ frame for block ``blk``: 4-sample
+    group i of a component holds window samples k = 4i .. 4i + 3 (v index
+    base + k, base = blk·U·M); with ``vec`` (16-byte aligned streams) a
+    group inside the tail or the frame loads as one vector, any other
+    sample by sample; samples at or past span = (ucount + W)·M − R are 0;
+    each group is stored as one vector at _os_word(k); a component's groups
+    are counted up to whole store phases (8 lanes), the extra lanes idle.
+    Returns the [2, wpad] window (words never stored are 0), the valid
+    groups and the thread-ordered record of reads and vector stores."""
+    n, h = frame.shape[1], tail.shape[1]
+    g, u, s, wpad = _os_shape(m, r, w)
+    gcount = min(g, n // r - blk * g)
+    span = (gcount // (m // r) + w) * m - r
+    base = blk * u * m
+    groups = -(-span // 4)
+    per_c = -(-groups // 8) * 8
+    win = np.zeros((2, wpad), np.float32)
+    rec = {"reads_t": [], "reads_f": [], "vector_store": [], "staged": []}
+    for e in range(2 * per_c):
+        c, i = divmod(e, per_c)
+        if i >= groups:                           # an idle lane
+            rec["vector_store"].append(None)
+            continue
+        k = 4 * i
+        q = base + k
+        f = q - h
+        val = np.zeros(4, np.float32)
+        if vec and (f < 0 or f + 4 <= n):
+            src, lo, kind = ((frame, f, "reads_f") if f >= 0
+                             else (tail, q, "reads_t"))
+            assert lo % 4 == 0
+            rec[kind] += range(lo, lo + 4)
+            val[:] = src[c, lo:lo + 4]
+            val[k + np.arange(4) >= span] = 0
+        else:
+            for x in range(4):
+                if k + x < span:
+                    if q + x < h:
+                        rec["reads_t"].append(q + x)
+                        val[x] = tail[c, q + x]
+                    else:
+                        rec["reads_f"].append(q + x - h)
+                        val[x] = frame[c, q + x - h]
+        rec["staged"] += [(c, q + x) for x in range(4) if k + x < span]
+        word = _os_word(k, m, s)
+        win[c, word:word + 4] = val
+        rec["vector_store"].append(c * wpad + word)
+    return win, gcount, rec
+
+
+def _os_fir_lanes(m, r, w):
+    """The FIR jobs, thread-ordered (job e runs on thread e mod 128, a warp
+    takes 32 consecutive jobs): component c, strip q, phase p, branch j
+    (fastest); the lane's window column x = p·R + M − 1 − j (row shift 1
+    where x ≥ M) and its first window word."""
+    ell = m // r
+    _, u, s, wpad = _os_shape(m, r, w)
+    e = np.arange(2 * (u // s) * ell * m)
+    c, rem = np.divmod(e, (u // s) * ell * m)
+    q, rem = np.divmod(rem, ell * m)
+    p, j = np.divmod(rem, m)
+    x = p * r + m - 1 - j
+    return c, q, p, j, x, c * wpad + q * (s + OS_PAD_ROWS) * m + x
+
+
+def _os_fir(win, taps_rm, m, r, gcount):
+    """The FIR jobs on one block's window: S sums and an S-slot window of
+    rows u0 + sh .. in registers, one tap load and one window load per S
+    multiply-adds, the slots rotating with the tap step; the strip's last
+    row (S − 1) of a chunk sits PAD_ROWS·M words further where x ≥ M (it is
+    the next strip's first row); the sums stored at _zswz(g·M) ^ j of their
+    component, g = L·(u0 + s) + p.  Jobs whose strip holds no valid group
+    skip.  Returns the [2, 2048] sums buffer and every warp-wide word
+    address by kind (all lanes, skipped ones too)."""
+    w = taps_rm.shape[0]
+    ell = m // r
+    _, u, s, _ = _os_shape(m, r, w)
+    c, q, p, j, x, wp = _os_fir_lanes(m, r, w)
+    hop = np.where(x >= m, OS_PAD_ROWS * m, 0)
+    flat = win.reshape(-1)
+    tapr = taps_rm[::-1]                          # tapr[d, j] = taps[W-1-d, j]
+    seen = {"window": [], "sums": []}
+
+    def load(k):
+        a = wp + k * m + (hop if k == s - 1 else 0)
+        seen["window"].append(a)
+        return flat[a]
+
+    wv = [load(k) for k in range(s)]
+    acc = [np.zeros(len(c), np.float32) for _ in range(s)]
+    wp = wp + (s + OS_PAD_ROWS) * m
+    for d0 in range(0, w, s):
+        for rr in range(min(s, w - d0)):
+            tap = tapr[d0 + rr, j]
+            for ss in range(s):
+                acc[ss] = (tap * wv[(ss + rr) % s] + acc[ss]).astype(np.float32)
+            wv[rr] = load(rr)
+        wp = wp + (s + OS_PAD_ROWS) * m
+    live = q * s < gcount // ell
+    sums = np.zeros((2, OS_OUTS), np.float32)
+    for ss in range(s):
+        word = _zswz((ell * (q * s + ss) + p) * m) ^ j
+        sums[c[live], word[live]] = acc[ss][live]
+        seen["sums"].append(c * OS_OUTS + word)
+    return sums, seen
+
+
+def _os_twiddle(a, q, ell):
+    """a · exp(−2πi·q/L) as the kernel takes it: at L ≤ 4 whole quarter
+    turns as exact swaps and signs (at L = 2 a sign); at L = 8 and 16 one
+    complex product (float32) by the table entry exp(−2πi·q/L), built in
+    float64 and cast."""
+    ar, ai = a.real.astype(np.float32), a.imag.astype(np.float32)
+    if ell <= 4:
+        quarter = q * (4 // ell)
+        br, bi = np.where(quarter & 1, ai, ar), np.where(quarter & 1, -ar, ai)
+        sign = np.where(quarter & 2, -1, 1).astype(np.float32)
+        return br * sign + 1j * (bi * sign)
+    tw = np.exp(-2j * np.pi * np.arange(ell) / ell)
+    tw = np.where(abs(tw.real) < 1e-12, 0, tw.real) + 1j * np.where(
+        abs(tw.imag) < 1e-12, 0, tw.imag)             # sincospi: 0 at π/2
+    tw = tw.astype(np.complex64)[q]
+    cr, ci = tw.real, tw.imag
+    return ((ar * cr - ai * ci).astype(np.float32)
+            + 1j * (ar * ci + ai * cr).astype(np.float32))
+
+
+def _os_dft(sums, m, r, i_offset, gcount):
+    """The DFT stage: thread t loads the 16 sums 16t .. 16t + 15 of both
+    components (16/M groups) as float2 pairs at _zswz(16t) ^ 2k, takes
+    their unscaled inverse M-point DFTs (float64 here), multiplies output k
+    of group g by exp(−2πi·((g + i_offset)·k mod L)/L) and stores them back
+    in place; after a barrier, thread t copies out the valid floats
+    a = 4t + 512i, each 16-byte run from two float2 loads at _zswz(a) and
+    _zswz(a + 2).  Returns the valid groups' outputs [gcount, M] (complex)
+    and the float2 access words of each warp-wide access."""
+    ell = m // r
+    t = np.arange(OS_THREADS)
+    b = _zswz(16 * t)
+    vals = np.zeros((OS_THREADS, 16), np.complex128)
+    words = []
+    for k in range(8):
+        o = b ^ (2 * k)
+        words.append(o)
+        vals[:, 2 * k] = sums[0, o] + 1j * sums[1, o]
+        vals[:, 2 * k + 1] = sums[0, o + 1] + 1j * sums[1, o + 1]
+    y = np.fft.ifft(vals.reshape(OS_THREADS, 16 // m, m), axis=-1) * m
+    g = (16 // m) * t[:, None] + np.arange(16 // m)
+    q = ((g + i_offset) % ell)[..., None] * np.arange(m) % ell
+    y = _os_twiddle(y, q, ell).reshape(OS_THREADS, 16)
+    buf = np.zeros(OS_OUTS, np.complex128)
+    for k in range(8):
+        buf[b ^ (2 * k)] = y[:, 2 * k]
+        buf[(b ^ (2 * k)) + 1] = y[:, 2 * k + 1]
+    out = np.zeros(OS_OUTS, np.complex128)
+    for i in range(OS_OUTS // (4 * OS_THREADS)):
+        a = 4 * (t + OS_THREADS * i)
+        for x in (0, 2):
+            words.append(_zswz(a + x))
+            out[a + x] = buf[_zswz(a + x)]
+            out[a + x + 1] = buf[_zswz(a + x) + 1]
+    return out.reshape(-1, m)[:gcount], words
+
+
+def _banks_ok(words, width=1):
+    """Each warp access (32 lanes, ``width`` consecutive words a lane) is
+    served without a bank conflict: in each phase of 32/width lanes, no
+    two distinct words share a bank (equal words are a broadcast)."""
+    words = np.asarray(words).reshape(-1, 32)
+    lanes = 32 // width
+    for acc in words:
+        for ph in range(width):
+            seg = acc[ph * lanes:(ph + 1) * lanes]
+            wds = np.unique((seg[:, None] + np.arange(width)).reshape(-1))
+            if len(np.unique(wds % 32)) != len(wds):
+                return False
+    return True
+
+
+def _os_case(m, r, ntaps, n, seed=90):
+    taps_rm, nt = chan._pfb_constants(proto(m, ntaps), m, r)
+    h = hk.os_tail_len(m, r, nt)
+    return taps_rm, samples((n,), seed), samples((h,), seed + 1)
+
+
+# (M, R, ntaps, n, i_offset): L = 2, 4, 8 and 16, each n leaving a ragged
+# last tile (at M = 2 also a frame length that is 2 mod 4)
+OS_REPLAY = [(16, 8, None, 3200, 0), (16, 8, 1600, 3200, 0),
+             (16, 4, None, 3200, 3), (16, 2, None, 3200, 0),
+             (16, 1, None, 3216, 7), (8, 2, None, 2056, 5),
+             (4, 2, None, 1204, 0), (2, 1, None, 1202, 1)]
+OS_REPLAY_IDS = ["m16_r8", "m16_r8_1600taps", "m16_r4_ioff3", "m16_r2",
+                 "m16_r1_ioff7", "m8_r2_ioff5", "m4_r2", "m2_r1_ioff1"]
+
+
+@pytest.mark.parametrize("m,r,ntaps,n,i_offset", OS_REPLAY, ids=OS_REPLAY_IDS)
+def test_pfb_os_reg_schedule_matches_plain(m, r, ntaps, n, i_offset):
+    """A replay of pfb_os_reg_kernel's staging, FIR and DFT/twiddle
+    schedule rebuilds pfb_oversampled_fused_plain's outputs on the block
+    whose window crosses the tail/frame seam and on the ragged last
+    tile."""
+    taps_rm, frame, tail = _os_case(m, r, ntaps, n)
+    w, h = taps_rm.shape[0], tail.shape[1]
+    zr, zi = hk.pfb_oversampled_fused_plain(
+        *(torch.from_numpy(a) for a in (frame[0], frame[1], tail[0], tail[1])),
+        taps_rm, m, r, i_offset)
+    want = np_of(zr) + 1j * np_of(zi)
+    g, u, _, _ = _os_shape(m, r, w)
+    nblk = -(-(n // r) // g)
+    assert (n // r) % g                          # the last tile is ragged
+    seam = (h - 1) // (u * m)                    # its window holds v[h-1], v[h]
+    assert seam < nblk - 1
+    for blk in (seam, nblk - 1):
+        win, gcount, rec = _os_stage(frame, tail, blk, m, r, w)
+        assert bool(rec["reads_t"]) == (blk == seam) and rec["reads_f"]
+        sums, _ = _os_fir(win, taps_rm, m, r, gcount)
+        got, _ = _os_dft(sums, m, r, i_offset, gcount)
+        close(got, want[blk * g: blk * g + gcount])
+
+
+@pytest.mark.parametrize("m,r,ntaps,n,vec", [
+    (16, 8, 1600, 3200, True), (16, 1, None, 3216, True),
+    (2, 1, None, 1202, True), (2, 1, None, 1202, False),
+    (8, 2, None, 2056, False)],
+    ids=["m16_r8_1600taps", "m16_r1", "m2_r1_n2mod4", "m2_r1_scalar",
+         "m8_r2_scalar"])
+def test_pfb_os_reg_staging_reads_stay_inside(m, r, ntaps, n, vec):
+    """pfb_os_reg_kernel's staging, replayed for every block, with
+    16-byte-aligned streams (vector loads; at n = 2 mod 4 the frame's last
+    group sample by sample) and without (every sample alone): every read
+    lies inside the tail or the frame, and every sample the block's valid
+    outputs need is staged once."""
+    taps_rm, frame, tail = _os_case(m, r, ntaps, n)
+    w, h = taps_rm.shape[0], tail.shape[1]
+    g, u, _, _ = _os_shape(m, r, w)
+    for blk in range(-(-(n // r) // g)):
+        _, gcount, rec = _os_stage(frame, tail, blk, m, r, w, vec)
+        assert all(0 <= i < h for i in rec["reads_t"])
+        assert all(0 <= i < n for i in rec["reads_f"])
+        base, span = blk * u * m, (gcount // (m // r) + w) * m - r
+        assert base + span <= h + n
+        need = [(c, base + k) for c in range(2) for k in range(span)]
+        assert sorted(rec["staged"]) == need
+
+
+@pytest.mark.parametrize("m,ell", OS_REG_ML)
+def test_pfb_os_reg_shared_memory_banks(m, ell):
+    """Every warp-wide shared-memory access of pfb_os_reg_kernel is on 32
+    distinct banks: the staging's 16-byte stores (quarter-warp phases), the
+    FIR's window loads (the row-shifted lanes' hop included) and its sums'
+    stores, and the DFT stage's float2 loads and in-place stores and its
+    copy-out's float2 loads (half-warp phases).  The window layout and the
+    sums' swizzle are bijective."""
+    r = m // ell
+    for w in (10, 100):
+        taps_rm = np.ones((w, m), np.float32)
+        _, u, s, wpad = _os_shape(m, r, w)
+        frame, tail = samples((8 * OS_OUTS,), 3), samples((1024,), 4)
+        win, gcount, rec = _os_stage(frame, tail, 1, m, r, w)
+        st = rec["vector_store"]
+        for w0 in range(0, len(st) - 31, 32):
+            for ph in range(4):
+                seg = [x for x in st[w0 + 8 * ph: w0 + 8 * ph + 8]
+                       if x is not None]
+                words = np.add.outer(seg, np.arange(4)).reshape(-1)
+                assert len(np.unique(words % 32)) == len(words)
+        for kind, addrs in _os_fir(win, taps_rm, m, r, gcount)[1].items():
+            assert _banks_ok(addrs), kind
+        k = np.arange((u + w + 1) * m)
+        words = _os_word(k, m, s)
+        assert len(np.unique(words)) == k.size and words.max() < wpad
+    x = np.arange(OS_OUTS)
+    assert sorted(_zswz(x)) == list(x)
+    t, k = np.divmod(x, m)
+    assert (_zswz(x) == _zswz(t * m) ^ k).all()
+    sums = np.zeros((2, OS_OUTS), np.float32)
+    for o in _os_dft(sums, m, r, 0, 0)[1]:
+        assert _banks_ok(o, width=2)
+
+
+@pytest.mark.parametrize("ell", [2, 4, 8, 16])
+def test_pfb_os_twiddle_is_the_rotation(ell):
+    """The DFT stage's phase twiddle is exp(−2πi·q/L) for every q < L,
+    exactly (swaps and signs) where it is a whole number of quarter
+    turns."""
+    a = np.complex64(0.375 - 1.25j)
+    for q in range(ell):
+        got = _os_twiddle(np.array(a), np.array(q), ell)
+        want = a * np.exp(-2j * np.pi * q / ell)
+        assert abs(got - want) <= 1e-7 * abs(a)
+        if 4 * q % ell == 0:                      # quarter turns: exact
+            assert got == a * (1, -1j, -1, 1j)[4 * q // ell]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_os_body_by_m(m):
+    want = "pfb_os_reg_kernel" if m in (2, 4, 8, 16) else "pfb_os_kernel"
+    assert hk.os_body(m) == want
+    assert want in hk.OS_BODIES
+
+
+def test_os_body_refuses_m_not_dividing_128():
+    for m in (0, 3, 24, 256):
+        with pytest.raises(ValueError, match="divide"):
+            hk.os_body(m)
+
+
+def test_os_ab_cli_arguments():
+    """The oversampled-PFB variants tool's arguments; without a card it
+    exits non-zero."""
+    from clenabled_tpu_torch.tools import os_ab as cli
+
+    args = cli.parse_args([])
+    assert (args.variants, args.n, args.m, args.r, args.ntaps, args.rounds,
+            args.calls) == ([], 1 << 23, 16, 8, None, 7, 10)
+    args = cli.parse_args(["old=_local/pfb_oversampled_old.cu",
+                           "fir=-DOS_STOP_AFTER=2", "--m", "8", "--r", "2",
+                           "--ntaps", "1600", "--rounds", "3"])
+    assert (args.variants, args.m, args.r, args.ntaps, args.rounds) == (
+        ["old=_local/pfb_oversampled_old.cu", "fir=-DOS_STOP_AFTER=2"], 8, 2,
+        1600, 3)
+    if not torch.cuda.is_available():
+        assert cli.main(["--n", "4096"]) == 1
+
+
+# --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,r,ntaps,n,i_offset", [
     (16, 8, None, 1 << 20, 0), (64, 16, 1600, 1 << 18, 0),
-    (32, 4, 96, 1 << 18, 3), (8, 2, 40, 4096, 1)])
+    (32, 4, 96, 1 << 18, 3), (8, 2, 40, 4096, 1),
+    # pfb_os_reg_kernel at L = 2 .. 16, each n leaving a ragged last block
+    (16, 8, None, (1 << 20) + 80, 0), (16, 8, 1600, (1 << 18) + 80, 5),
+    (16, 4, None, (1 << 18) + 48, 3), (16, 2, None, (1 << 18) + 32, 0),
+    (16, 1, None, (1 << 18) + 16, 7), (8, 1, None, (1 << 16) + 8, 2),
+    (4, 2, None, (1 << 16) + 4, 0), (4, 1, None, (1 << 16) + 4, 3),
+    (2, 1, None, (1 << 16) + 2, 1)])
 def test_pfb_oversampled_kernel_matches_plain_on_card(card, m, r, ntaps, n,
                                                       i_offset):
+    """Both bodies against the plain form; the rows are allocated apart,
+    so every stream is 16-byte aligned (at M = 2 the frame is 2 mod 4
+    samples long: its last group loads sample by sample)."""
     taps_rm, nt = chan._pfb_constants(proto(m, ntaps), m, r)
     h = hk.os_tail_len(m, r, nt)
-    x = torch.from_numpy(samples((n,), seed=80)).to(card)
-    t = torch.from_numpy(samples((h,), seed=81)).to(card)
+    x = [torch.from_numpy(a).to(card) for a in samples((n,), seed=80)]
+    t = [torch.from_numpy(a).to(card) for a in samples((h,), seed=81)]
     args = (x[0], x[1], t[0], t[1], torch.as_tensor(taps_rm, device=card), m,
             r, i_offset)
     before = hk.pfb_oversampled_fused.launches
@@ -431,6 +800,50 @@ def test_pfb_oversampled_kernel_matches_plain_on_card(card, m, r, ntaps, n,
     assert hk.pfb_oversampled_fused.launches == before + 1
     want = hk.pfb_oversampled_fused_plain(*args)
     for g_, w_ in zip(got, want):
+        close(g_, w_, FLOW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,r,shift", [(16, 8, 1), (16, 1, 2), (2, 1, 3)])
+def test_pfb_os_reg_unaligned_streams_on_card(card, m, r, shift):
+    """Frame and tail rows that are not 16-byte aligned (views ``shift``
+    floats into their rows) are staged sample by sample, with the plain
+    form's outputs."""
+    n = (1 << 16) + 2 * m
+    taps_rm, nt = chan._pfb_constants(proto(m), m, r)
+    h = hk.os_tail_len(m, r, nt)
+    x = torch.from_numpy(samples((n + shift,), seed=84)).to(card)[:, shift:]
+    t = torch.from_numpy(samples((h + shift,), seed=85)).to(card)[:, shift:]
+    args = (x[0], x[1], t[0], t[1], torch.as_tensor(taps_rm, device=card), m,
+            r, 1)
+    assert x[0].data_ptr() % 16
+    got = hk.pfb_oversampled_fused(*args)
+    want = hk.pfb_oversampled_fused_plain(*args)
+    for g_, w_ in zip(got, want):
+        close(g_, w_, FLOW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 32, 64, 128])
+def test_pfb_oversampled_launches_its_body_on_card(card, m):
+    """A call at every M dividing 128 (R = M/2) launches the body that
+    os_body(m) names (torch.profiler's kernel names) and nothing of the
+    other, and agrees with its plain form."""
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+
+    r = m // 2
+    taps_rm, nt = chan._pfb_constants(proto(m), m, r)
+    h = hk.os_tail_len(m, r, nt)
+    x = torch.from_numpy(samples((1 << 15,), seed=86)).to(card)
+    t = torch.from_numpy(samples((h,), seed=87)).to(card)
+    args = (x[0], x[1], t[0], t[1], torch.as_tensor(taps_rm, device=card), m,
+            r, 0)
+    body = hk.os_body(m)
+    other, = set(hk.OS_BODIES) - {body}
+    got, events = launched_kernels(lambda: hk.pfb_oversampled_fused(*args))
+    assert sum(body in e for e in events) == 1
+    assert not any(other in e for e in events)
+    for g_, w_ in zip(got, hk.pfb_oversampled_fused_plain(*args)):
         close(g_, w_, FLOW_TOL)
 
 

@@ -520,7 +520,7 @@ def test_fx_entries_launch_their_body_on_card(card, m):
     """Both FX entries at every m dividing 128: each call launches the body
     that fx_body(m) names (torch.profiler's kernel names) and nothing of
     the other, and agrees with its plain form."""
-    from torch.profiler import ProfilerActivity, profile
+    from clenabled_tpu_torch.runtime.device import launched_kernels
 
     case = (f"m{m}", 4, "float32", 1 << 15, None, None, None, m)
     arrs, taps_rm, a, _, _, _, _ = _fx_inputs(case, seed=12)
@@ -530,16 +530,9 @@ def test_fx_entries_launch_their_body_on_card(card, m):
     c, hi = torch.from_numpy(comps).to(card), torch.from_numpy(hist).to(card)
     body = hk.fx_body(m)
     other, = set(hk.FX_BODIES) - {body}
-    cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(3):     # a trace that caught no kernel at all is taken again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            got = hk.fx_correlate_streams_v2(*args, taps, a, m)
-            got1 = hk.fx_correlate_streams(c, hi, taps, a, m)
-            torch.cuda.synchronize()
-        events = [e.name for e in prof.events() if e.device_type == cuda]
-        if any("fx_" in e for e in events):
-            break
+    (got, got1), events = launched_kernels(
+        lambda: (hk.fx_correlate_streams_v2(*args, taps, a, m),
+                 hk.fx_correlate_streams(c, hi, taps, a, m)), least=2)
     assert sum(body in e for e in events) == 2
     assert not any(other in e for e in events)
     for g, w in zip(got, hk.fx_correlate_streams_v2_plain(*args, taps, a, m)):

@@ -1169,9 +1169,8 @@ def test_gram_launches_its_kernels_on_card(card):
     """A CUDA call runs its dtype's tensor-core kernels (at kb = 2 the
     diagonal and the quadrant kernel, once each) and nothing of the other
     dtype's; the int8 forms stay equal to their plain forms."""
-    from torch.profiler import ProfilerActivity, profile
+    from clenabled_tpu_torch.runtime.device import launched_kernels
 
-    cuda = torch.autograd.DeviceType.CUDA
     qr, qi = _ints(12, (2, 2, 512, 256))
     for dt, names, other in (
             ("bfloat16", ("gram_bf16_diag_kernel", "gram_bf16_quad_kernel"),
@@ -1179,13 +1178,15 @@ def test_gram_launches_its_kernels_on_card(card):
             ("int8", ("gram_int8_diag_kernel", "gram_int8_quad_kernel"),
              "gram_bf16")):
         zr, zi = _t(qr, dt, card), _t(qi, dt, card)
-        before = hk.gram_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def call():
+            before = hk.gram_launches()
             got = [getattr(hk, form)(zr, zi) for form in GRAM_FORMS]
-            torch.cuda.synchronize()
-        assert hk.gram_launches() == before + len(GRAM_FORMS)
-        events = [e.name for e in prof.events() if e.device_type == cuda]
+            return got, hk.gram_launches() - before
+
+        (got, launched), events = launched_kernels(
+            call, least=len(names) * len(GRAM_FORMS))
+        assert launched == len(GRAM_FORMS)
         for name in names:
             assert sum(name in e for e in events) == len(GRAM_FORMS)
         assert not any(other in e for e in events)
