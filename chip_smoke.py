@@ -9,8 +9,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card   — require a Hopper card; print its name and power limit.
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
    one ``nvcc`` per source, all started together; print ptxas's lines and,
-   for each instantiation of the int8 Gram kernels and of
-   ``pfb_os_reg_kernel``, its registers, stack frame and spill bytes.
+   for each instantiation of the int8 Gram kernels, of
+   ``pfb_os_reg_kernel`` and of both direct-FIR bodies, its registers,
+   stack frame and spill bytes; a spill in ``fir_reg_kernel`` fails.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
@@ -47,14 +48,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    (complex float planar feeds, ``compute_dtype=bfloat16``, 1024 frames)
    for 2 integrations; counts read; the emission held to the plain engine
    on the same bf16 operands within 1e-4 × max|plain|.
-8. FM kernels — the direct FIR (B.7: 241 and 1601 taps, decimation
-   1 and 4, both planar components in one launch), the overlap-save
-   filter (B.6: 49, 241 and 1601 taps, and a frame of exactly one
-   quantum) and the quadrature demodulator (B.8: 2^21 samples and an
-   odd length) against their plain forms
-   at 2^21 samples, tolerance 1e-4 × max|plain|, with kernel and plain
-   times; the library call ``conv1d`` (TF32 off) held to the FIR kernel
-   at 49 taps and to the overlap-save kernel at 1601 taps, and timed.
+8. FM kernels — the direct FIR (B.7: 49, 241 and 1601 taps at
+   decimation 1, 241 and 1601 also at 4, both planar components in one
+   launch), the overlap-save filter (B.6: 49, 241 and 1601 taps, and a
+   frame of exactly one quantum) and the quadrature demodulator (B.8:
+   2^21 samples and an odd length) against their plain forms at 2^21
+   samples, tolerance 1e-4 × max|plain|, with kernel and plain times; the
+   library call ``conv1d`` (TF32 off) held to the FIR kernel at 49 and
+   1601 taps and to the overlap-save kernel at 1601 taps, and timed.
+   Each FIR case prints the body ``hopper_kernels.fir_body`` ran
+   (``fir_reg_kernel`` at decimation 1, ``fir_direct_kernel`` at 4); at
+   decimation 1 its output must equal the first body's
+   (``fir_direct_kernel`` through the C entry with body 0, no wrapper
+   counting it) bit for bit, here and at 1, 2, 3 and 50 taps, through the
+   history-in-front form at 50, 51 and 52 taps (a frame pointer 4, 8 and
+   12 bytes off 16-byte alignment), on a 100-sample frame at 241 taps
+   (shorter than the history) and on a ragged last block (2^20 + 13 at
+   1601 taps).  The first body is timed beside the new one at 49, 241
+   and 1601 taps, each beside its bound.
 9. FM paths — counts reset, then a ``Flowgraph`` of
    ``LowPassFilter(1, 1.0, 10e6, 1.5e6, 500e3, planar=True)`` (49 taps,
    the ``examples/streaming_ingest.py`` configuration) → ``QuadratureDemod
@@ -175,7 +186,8 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
-                "fir_direct_kernel", "ofs_filter_kernel", "qdemod_kernel",
+                "fir_direct_kernel", "fir_reg_kernel", "ofs_filter_kernel",
+                "qdemod_kernel",
                 "pfb_os_kernel", "pfb_os_reg_kernel", "fft_batched_kernel",
                 "costas_kernel",
                 "costas_sincos_probe_kernel")
@@ -590,16 +602,101 @@ def fm_times(torch, label: str, kernel, plain) -> tuple:
     return dev + call
 
 
+def fir_on_body(torch, hk, x, h, t, body: str):
+    """Both rows of ``x`` (history rows ``h``) through ``clen_fir_direct`` on
+    the named body at decimation 1, as the wrapper calls it but uncounted;
+    returns a call that writes and returns the [2, n] output."""
+    y = torch.empty_like(x)
+    lib = hk._load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = hk.FIR_BODIES.index(body)
+
+    def call():
+        err = lib.clen_fir_direct(
+            h[0].data_ptr(), x[0].data_ptr(), y[0].data_ptr(), h[1].data_ptr(),
+            x[1].data_ptr(), y[1].data_ptr(), 2, t.data_ptr(), t.shape[0],
+            x.shape[-1], 1, code, stream)
+        if err != 0:
+            fail(f"{body} launch failed: CUDA error {err}")
+        return y
+    return call
+
+
+def fir_bit_equal(torch, hk, label: str, got, x, h, t) -> str:
+    """Hold a D = 1 call's [2, n] output to the first body's on the same
+    inputs bit for bit; returns the body the call ran."""
+    body = hk.fir_body(t.shape[0], 1, x.device)
+    first = fir_on_body(torch, hk, x.contiguous(), h.contiguous(), t,
+                        "fir_direct_kernel")()
+    torch.cuda.synchronize()
+    if not torch.equal(got, first):
+        fail(f"{label}: {body} differs from fir_direct_kernel")
+    phase("check", f"{label} on {body}: bit-equal to fir_direct_kernel")
+    return body
+
+
+def fir_edge_cases(torch, hk, gen, dev) -> tuple[float, dict]:
+    """The direct FIR at the edges the wrappers accept: 1, 2, 3 and 50 taps
+    (seeded normal taps); the history-in-front form, whose frame pointer
+    is then (K − 1) mod 4 floats off 16-byte alignment; a frame shorter
+    than the history; a ragged last block.  Each held to the plain form
+    and, at D = 1, to the first body bit for bit; returns the largest
+    error and the body of each case."""
+    from clenabled_tpu_torch.dsp import planar
+
+    worst, bodies = 0.0, {}
+    cases = [("1 tap", 1, 1 << 20), ("2 taps", 2, 1 << 20),
+             ("3 taps", 3, 1 << 20), ("50 taps", 50, 1 << 20),
+             ("241 taps frame 100 < history", 241, 100),
+             ("1601 taps ragged 2^20+13", 1601, (1 << 20) + 13)]
+    for label, k, n in cases:
+        t = torch.randn(k, generator=gen, device=dev)
+        x = torch.randn((2, n), generator=gen, device=dev)
+        h = torch.randn((2, k - 1), generator=gen, device=dev)
+        got = hk.fir_direct(planar.PC(x[0], x[1]), t,
+                            history=planar.PC(h[0], h[1]))
+        torch.cuda.synchronize()
+        want = hk.fir_direct_plain(planar.PC(x[0], x[1]), t,
+                                   history=planar.PC(h[0], h[1]))
+        worst = max(worst, check(torch, f"fir_direct {label} [2x{n}]",
+                                 list(got), list(want)))
+        bodies[label] = fir_bit_equal(torch, hk, f"fir_direct {label}",
+                                      torch.stack(list(got)), x, h, t)
+    # history in front: the frame starts K−1 floats into its row
+    for k in (50, 51, 52):
+        t = torch.randn(k, generator=gen, device=dev)
+        row = torch.randn((2, k - 1 + (1 << 20)), generator=gen, device=dev)
+        got = torch.stack([hk.fir_direct(row[c], t) for c in range(2)])
+        torch.cuda.synchronize()
+        want = [hk.fir_direct_plain(row[c], t) for c in range(2)]
+        label = f"fir_direct {k} taps, history in front (frame pointer " \
+                f"{row[0, k - 1:].data_ptr() % 16} B off 16)"
+        worst = max(worst, check(torch, label, list(got), want))
+        bodies[f"{k} taps history in front"] = fir_bit_equal(
+            torch, hk, label, got, row[:, k - 1:], row[:, :k - 1], t)
+    return worst, bodies
+
+
+def fir_bound(n: int, k: int) -> tuple:
+    """The direct FIR's bound over both components at decimation 1: each
+    input and history sample read once, each output written once, the taps
+    read once; 2·K operations an output."""
+    return bound(4 * 2 * (2 * n + k - 1) + 4 * k, 2 * 2 * n * k)
+
+
 def fm_kernel_phase(torch, hk, gen, dev) -> dict:
     """B.6-B.8 against their plain forms at 2^21 samples; returns the
     largest errors and the kernel and plain times."""
     from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.runtime.device import device_time_ms
 
     lpf, _, rrc, deep = fm_taps()
     n = FM_N
     x = torch.randn((2, n), generator=gen, device=dev)
     pc = planar.PC(x[0], x[1])
-    res = {"fir": 0.0, "ofs": 0.0, "qd": 0.0}
+    res = {"fir": 0.0, "ofs": 0.0, "qd": 0.0, "fir bodies": {},
+           "fir first": {}, "fir bounds": {}}
+    conv = torch.nn.functional.conv1d
     for name, taps in (("49", lpf), ("241", rrc), ("1601", deep)):
         t = torch.as_tensor(taps, device=dev)
         h = torch.randn((2, len(taps) - 1), generator=gen, device=dev)
@@ -608,31 +705,53 @@ def fm_kernel_phase(torch, hk, gen, dev) -> dict:
             got = hk.fir_direct(pc, t, decimation=d, history=hist)
             torch.cuda.synchronize()
             want = hk.fir_direct_plain(pc, t, decimation=d, history=hist)
+            body = hk.fir_body(len(taps), d, dev)
             res["fir"] = max(res["fir"], check(
-                torch, f"fir_direct {name} taps D={d} [2x{n}]", got, want))
+                torch, f"fir_direct {name} taps D={d} [2x{n}] on {body}",
+                got, want))
+            if d == 1:
+                res["fir bodies"][f"{name} taps"] = fir_bit_equal(
+                    torch, hk, f"fir_direct {name} taps [2x{n}]",
+                    torch.stack(list(got)), x, h, t)
+            else:
+                res["fir bodies"][f"{name} taps D={d}"] = body
         res[f"fir {name}"] = fm_times(
-            torch, f"fir_direct {name} taps [2x{n}]",
+            torch, f"fir_direct {name} taps [2x{n}] "
+                   f"({hk.fir_body(len(taps), 1, dev)})",
             lambda: hk.fir_direct(pc, t, history=hist),
             lambda: hk.fir_direct_plain(pc, t, history=hist))
+        # uncounted by the wrappers, so timed where the trace must hold one
+        # kernel event a call
+        first = fir_on_body(torch, hk, x, h, t, "fir_direct_kernel")
+        events = time_ms(torch, first)
+        busy = device_time_ms(first, 10)
+        res["fir first"][name] = {"ms": events if busy is None else busy,
+                                  "events_ms": events}
+        shown = "not measured" if busy is None else f"{busy:.4f} ms"
+        res["fir bounds"][name] = fir_bound(n, len(taps))
+        phase("time", f"fir_direct_kernel (the first body) {name} taps "
+                      f"[2x{n}]: device {shown}, per call (events) "
+                      f"{events:.4f} ms; bound {res['fir bounds'][name][0]:.4f}"
+                      f" ms ({res['fir bounds'][name][1]})")
         plan = hk.OfsPlan(taps)
         tr, ti = torch.randn((2, plan.tail_len), generator=gen, device=dev)
         if name in ("49", "1601"):
             # the library call for the same function: one conv1d over both
             # components, history in front (TF32 off), held to the FIR
-            # kernel at 49 taps and to the OFS kernel at 1601
-            if name == "49":
-                key, kern = "fir", hk.fir_direct(pc, t, history=hist)
-                v = torch.cat([h, x], dim=-1)[:, None, :]
-            else:
-                key = "ofs"
+            # kernel at 49 and 1601 taps and to the OFS kernel at 1601
+            wts = t.flip(0)[None, None, :]
+            v = torch.cat([h, x], dim=-1)[:, None, :]
+            res["fir"] = max(res["fir"], check(
+                torch, f"conv1d {name} taps (library) vs fir kernel",
+                list(hk.fir_direct(pc, t, history=hist)),
+                list(conv(v, wts)[:, 0])))
+            if name == "1601":
                 kern = hk.ofs_filter_planar(x[0], x[1], tr, ti, plan)
                 tail = torch.stack([tr, ti])[:, plan.tail_len - len(taps) + 1:]
-                v = torch.cat([tail, x], dim=-1)[:, None, :]
-            wts = t.flip(0)[None, None, :]
-            conv = torch.nn.functional.conv1d
-            res[key] = max(res[key], check(
-                torch, f"conv1d {name} taps (library) vs {key} kernel",
-                list(kern), list(conv(v, wts)[:, 0])))
+                vo = torch.cat([tail, x], dim=-1)[:, None, :]
+                res["ofs"] = max(res["ofs"], check(
+                    torch, f"conv1d {name} taps (library) vs ofs kernel",
+                    list(kern), list(conv(vo, wts)[:, 0])))
             res[f"conv1d {name}"] = (
                 device_busy_ms(torch, lambda: conv(v, wts), 10)
                 or time_ms(torch, lambda: conv(v, wts)))
@@ -653,6 +772,10 @@ def fm_kernel_phase(torch, hk, gen, dev) -> dict:
             torch, f"ofs_filter_planar {name} taps [{n}], P={plan.fft_size}",
             lambda: hk.ofs_filter_planar(*args),
             lambda: hk.ofs_filter_planar_plain(*args))
+
+    err, bodies = fir_edge_cases(torch, hk, gen, dev)
+    res["fir"] = max(res["fir"], err)
+    res["fir bodies"].update(bodies)
 
     last = torch.randn((2, 1), generator=gen, device=dev)
     for m in (n, 1_000_001):
@@ -1316,6 +1439,14 @@ def main() -> None:
     os_ptxas = ptxas_summary(_build.last_build["log"], ("pfb_os_reg_kernel",))
     for name, info in os_ptxas.items():
         phase("ptxas", f"{name}: {info}")
+    fir_ptxas = ptxas_summary(_build.last_build["log"],
+                              ("fir_direct_kernel", "fir_reg_kernel"))
+    for name, info in fir_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
+    reg = fir_ptxas.get("fir_reg_kernel", {})
+    if "registers" not in reg or reg.get("spill_stores") or reg.get(
+            "spill_loads"):
+        fail(f"fir_reg_kernel: ptxas reports {reg or 'nothing'}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1619,8 +1750,7 @@ def main() -> None:
         "gram bf16 k=4": gram_bound(16, XE_T, 512, 2, BF16_OPS),
         "ofs": ofs_bound(plan49),
         "ofs 1601": ofs_bound(hk.OfsPlan(fm_taps()[3])),
-        "fir": bound(4 * 2 * (2 * FM_N + k49 - 1) + 4 * k49,
-                     2 * 2 * FM_N * k49),
+        "fir": fmk["fir bounds"]["49"],
         "qd": bound(4 * (3 * FM_N + 2), 7 * FM_N),
     }
 
@@ -1669,9 +1799,20 @@ def main() -> None:
                         "plain_ms": fmk["ofs 1601"][1],
                         "bound_ms": bounds["ofs 1601"][0],
                         "library_ms": fmk["conv1d 1601"]}),
-        entry("fir_direct", "fir_direct.cu", "280+128",
-              fm["td"]["launches"]["fir_direct"], fmk["fir"],
-              *fmk["fir 49"][:2], bounds["fir"], fmk["conv1d 49"]),
+        dict(entry("fir_direct", "fir_direct.cu", "280+128",
+                   fm["td"]["launches"]["fir_direct"], fmk["fir"],
+                   *fmk["fir 49"][:2], bounds["fir"], fmk["conv1d 49"]),
+             body=hk.fir_body(k49, 1, dev), bodies=fmk["fir bodies"],
+             by_ntaps={k: {"ms": fmk[f"fir {k}"][0],
+                           "plain_ms": fmk[f"fir {k}"][1],
+                           "events_ms": fmk[f"fir {k}"][2],
+                           "bound_ms": fmk["fir bounds"][k][0],
+                           "bound_by": fmk["fir bounds"][k][1],
+                           "first_body": fmk["fir first"][k],
+                           "library_ms": fmk.get(f"conv1d {k}")}
+                       for k in ("49", "241", "1601")},
+             first_body={k: v["ms"] for k, v in fmk["fir first"].items()},
+             cuda_kernels=sorted(fir_ptxas), ptxas=fir_ptxas),
         entry("qdemod_fused", "qdemod.cu", 358,
               sum(fm[p]["launches"]["qdemod_fused"] for p in fm), fmk["qd"],
               *fmk["qd time"][:2], bounds["qd"]),
@@ -1705,8 +1846,8 @@ def main() -> None:
         "xengine_step_ms": xe["step_ms"],
         "xengine_marshal_ms": xe["marshal_ms"],
         "xengine_host_to_product_ms": xe["h2p_ms"],
-        "fir_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
-                            if k.startswith("fir ")},
+        "fir_ms_plain_ms": {k: fmk[f"fir {k}"] for k in ("49", "241",
+                                                         "1601")},
         "ofs_ms_plain_ms": {k[4:]: v for k, v in fmk.items()
                             if k.startswith("ofs ")},
         "fm_path": {p: {k: fm[p][k] for k in ("err", "step_ms", "busy_ms",

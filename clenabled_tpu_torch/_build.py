@@ -40,8 +40,10 @@ _SIGNATURES = {
     "clen_xengine_gram": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "clen_gram_int8_smem_bytes": ([], ctypes.c_longlong),
     "clen_gram_bf16_smem_bytes": ([], ctypes.c_longlong),
-    "clen_fir_direct": ([_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P], _I),
-    "clen_fir_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "clen_fir_direct": ([_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+                        _I),
+    "clen_fir_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "clen_fir_smem_optin": ([], _I),
     "clen_ofs_filter": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P], _I),
     "clen_ofs_smem_bytes": ([_I], ctypes.c_longlong),

@@ -19,7 +19,9 @@ ported so far:
   block-triangle only, int8 exact.
 - ``fir_direct`` (``csrc/fir_direct.cu``), also bound as
   ``fir_direct_mxu``: the real-tap direct FIR of both planar components in
-  one launch, decimating in the kernel.
+  one launch, decimating in the kernel.  Two ``__global__`` bodies, chosen
+  in ``fir_body``: ``fir_reg_kernel`` (register-tiled sliding window) at
+  decimation 1 where its block fits, ``fir_direct_kernel`` otherwise.
 - ``ofs_filter_planar`` with ``OfsPlan`` (``csrc/ofs_filter.cu``): the
   overlap-save FFT filter with complex taps and a carried input tail.
 - ``qdemod_fused`` (``csrc/qdemod.cu``): the quadrature demodulator with one
@@ -666,6 +668,49 @@ def _fir_args(x, taps, decimation: int, history):
     return comps, hists, t, n
 
 
+# the two __global__ bodies of csrc/fir_direct.cu, by their C body code
+FIR_BODIES = ("fir_direct_kernel", "fir_reg_kernel")
+
+
+def _pick_fir_body(decimation: int, reg_smem: int, optin: int) -> str:
+    """``fir_reg_kernel`` at decimation 1 where its block's ``reg_smem``
+    bytes of shared memory fit the card's opt-in ``optin``,
+    ``fir_direct_kernel`` otherwise."""
+    return (FIR_BODIES[1] if decimation == 1 and reg_smem <= optin
+            else FIR_BODIES[0])
+
+
+@lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    with torch.cuda.device(index):
+        optin = _load().clen_fir_smem_optin()
+    if optin < 0:
+        raise RuntimeError(f"cannot read cuda:{index}'s shared memory: CUDA "
+                           f"error {-optin}")
+    return optin
+
+
+def fir_body(ntaps: int, decimation: int, device) -> str:
+    """The kernel body a direct-FIR call with ``ntaps`` taps and
+    ``decimation`` launches on the CUDA ``device``: ``fir_reg_kernel``
+    (register-tiled sliding window) at decimation 1 wherever its block
+    (``clen_fir_smem_bytes``) fits the card's opt-in shared memory,
+    ``fir_direct_kernel`` otherwise.  A pure choice made before the launch.
+    A CPU call runs the plain form, which has no body."""
+    if ntaps < 1 or decimation < 1:
+        raise ValueError(f"need ntaps >= 1 and decimation >= 1; got {ntaps}, "
+                         f"{decimation}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"fir_body names a CUDA kernel body; got {device}")
+    if decimation != 1:
+        return FIR_BODIES[0]
+    reg_smem = _load().clen_fir_smem_bytes(ntaps, 1, FIR_BODIES.index(
+        "fir_reg_kernel"))
+    return _pick_fir_body(decimation, reg_smem,
+                          _smem_optin(device.index or 0))
+
+
 def fir_direct_plain(x, taps, *, decimation: int = 1, history=None):
     """Plain torch form of ``fir_direct`` (any device): ``conv1d``."""
     comps, hists, t, _ = _fir_args(x, taps, decimation, history)
@@ -707,13 +752,15 @@ def fir_direct(x, taps, *, decimation: int = 1, history=None):
     ptrs = [(h.data_ptr(), c.data_ptr(), y.data_ptr())
             for h, c, y in zip(hists, comps, ys)]
     second = ptrs[1] if len(ptrs) > 1 else (None, None, None)
+    body = FIR_BODIES.index(fir_body(k, decimation, dev))
     lib = _load()
     err = lib.clen_fir_direct(*ptrs[0], *second, len(comps), t.data_ptr(), k,
-                              n, decimation, _stream(dev))
+                              n, decimation, body, _stream(dev))
     if err != 0:
-        smem = lib.clen_fir_smem_bytes(k, decimation)
-        raise RuntimeError(f"fir_direct launch failed: CUDA error {err} "
-                           f"({smem} B of shared memory per block)")
+        smem = lib.clen_fir_smem_bytes(k, decimation, body)
+        raise RuntimeError(f"fir_direct launch failed ({FIR_BODIES[body]}): "
+                           f"CUDA error {err} ({smem} B of shared memory per "
+                           f"block)")
     fir_direct.launches += 1
     return planar.PC(*ys) if isinstance(x, planar.PC) else ys[0]
 

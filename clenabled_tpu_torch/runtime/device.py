@@ -5,7 +5,8 @@ tunnel; the port instead names its device explicitly everywhere
 (``device=`` arguments, module buffers) and asks only two questions of the
 card: is it a Hopper part (the kernels are built for ``sm_90a``), and what
 are its name and power limit (recorded beside every measurement).
-``launched_kernels`` reads which kernels a call ran from ``torch.profiler``.
+``launched_kernels`` reads which kernels a call ran from ``torch.profiler``,
+``device_time_ms`` their device time per call.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def card_info() -> str:
     return out.stdout.strip()
 
 
-def launched_kernels(fn, least: int = 1, tries: int = 3):
-    """(fn(), the names of the device kernels it ran), read from
+def _device_events(fn, least: int, tries: int):
+    """(fn(), [(name, µs)] of the device events it ran), read from
     ``torch.profiler``.  The profiler can miss the first milliseconds of
     device work in a trace (late in a long process, now and then in a fresh
     one), so each trace opens with 30 ms of uncounted work, an elementwise
@@ -91,9 +92,29 @@ def launched_kernels(fn, least: int = 1, tries: int = 3):
         events = prof.events()
         start = min(e.time_range.start for e in events
                     if e.name == "launched_kernels")
-        names = [e.name for e in events if e.device_type == cuda
-                 and e.name != "launched_kernels"
-                 and e.time_range.start >= start]
-        if len(names) >= least:
+        window = [(e.name, e.time_range.elapsed_us()) for e in events
+                  if e.device_type == cuda and e.name != "launched_kernels"
+                  and e.time_range.start >= start]
+        if len(window) >= least:
             break
-    return out, names
+    return out, window
+
+
+def launched_kernels(fn, least: int = 1, tries: int = 3):
+    """(fn(), the names of the device kernels it ran), from
+    ``torch.profiler`` (``_device_events``: a window of fewer than
+    ``least`` events is taken again, up to ``tries`` times)."""
+    out, window = _device_events(fn, least, tries)
+    return out, [name for name, _ in window]
+
+
+def device_time_ms(fn, calls: int, tries: int = 3) -> float | None:
+    """Device time per call of ``fn`` (one kernel launch a call) over
+    ``calls`` back-to-back calls, from ``torch.profiler``
+    (``_device_events``); None when no take holds an event for each
+    call."""
+    _, window = _device_events(lambda: [fn() for _ in range(calls)], calls,
+                               tries)
+    if len(window) < calls:
+        return None
+    return sum(us for _, us in window) / calls / 1e3

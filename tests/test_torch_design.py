@@ -255,6 +255,7 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.tools.costas_ab",
             "clenabled_tpu_torch.tools.gram_ab",
             "clenabled_tpu_torch.tools.fx_ab",
+            "clenabled_tpu_torch.tools.fir_ab",
             "clenabled_tpu_torch.tools.os_ab",
             "clenabled_tpu_torch.tools.variant_ab"]
     code = ("import importlib, sys\n"

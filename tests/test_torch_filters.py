@@ -698,30 +698,418 @@ def test_clfilter_cli_arguments():
 
 
 # --------------------------------------------------------------------------
+# fir_reg_kernel's schedule, replayed in numpy (csrc/fir_direct.cu)
+# --------------------------------------------------------------------------
+
+FIR_THREADS = 256
+FIR_R = 16               # outputs a lane
+FIR_STAGE_UNROLL = 4
+
+
+def _fma32(a, b, c):
+    """fmaf as float64 product and sum rounded to float32 (the same
+    rounding on both sides of every comparison here)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _fir_swz(g):
+    """The stored 16-byte group of window group g (the kernel's fir_swz)."""
+    return g ^ ((g >> 3) & (FIR_R // 4 - 1))
+
+
+def _fir_kpad(ntaps):
+    return -(-ntaps // 4) * 4
+
+
+def _fir_stage(frame, hist, blk, ntaps, vec=True):
+    """The kernel's staging for block ``blk``: window group i (i <
+    (KP + 256·R)/4) holds frame samples f = o0 − KP + 4i .. + 3 (hist[K−1+f]
+    for f < 0, 0 past either end); with ``vec`` (a 16-byte aligned frame)
+    a group inside the frame loads as one vector, any other sample by
+    sample.  Thread t stores groups t + 256·(4·a + u) at _fir_swz.  Returns
+    the flat window (words never stored are 0) and a record of reads (by
+    source), vector reads and thread-ordered group stores."""
+    n, hl = frame.shape[-1], ntaps - 1
+    kp, outs = _fir_kpad(ntaps), FIR_THREADS * FIR_R
+    groups = (kp + outs) // 4
+    fbase = blk * outs - kp
+    win = np.zeros(-(-(kp + outs) // 32) * 32, np.float32)
+    rec = {"reads_h": [], "reads_f": [], "vector": [], "store": []}
+    for i0 in range(0, groups, FIR_STAGE_UNROLL * FIR_THREADS):
+        for u in range(FIR_STAGE_UNROLL):
+            for t in range(FIR_THREADS):
+                i = i0 + u * FIR_THREADS + t
+                rec["store"].append(None if i >= groups else _fir_swz(i))
+                if i >= groups:
+                    continue
+                f = fbase + 4 * i
+                val = np.zeros(4, np.float32)
+                if vec and f >= 0 and f + 4 <= n:
+                    rec["vector"].append(f)
+                    rec["reads_f"] += range(f, f + 4)
+                    val[:] = frame[f:f + 4]
+                else:
+                    for q in range(4):
+                        fq = f + q
+                        if -hl <= fq < 0:
+                            rec["reads_h"].append(hl + fq)
+                            val[q] = hist[hl + fq]
+                        elif 0 <= fq < n:
+                            rec["reads_f"].append(fq)
+                            val[q] = frame[fq]
+                g = _fir_swz(i)
+                win[4 * g:4 * g + 4] = val
+    return win, rec
+
+
+def _fir_compute(win, taps, ntaps, blk):
+    """The FIR on one block's window, lane by lane (vectorized over the 256
+    lanes): the ring of R/4 + 1 groups, slot (i − c) mod G for group gw −
+    c + i, each chunk loading group gw − c into slot −c mod G first; taps
+    4c .. 4c + 3 (the last chunk K mod 4 of them) in ascending order, each
+    output's sum one fma chain from 0.  Alongside the values, the ring
+    carries each word's frame index, so every multiply-add's operand is
+    checked to be frame sample o − k.  Returns the [256·R] sums in output
+    order, the window group loads (warp-wide, thread-ordered) and the
+    sums' group stores."""
+    r = FIR_R
+    s = r // 4
+    g_ = s + 1
+    kp, outs = _fir_kpad(ntaps), FIR_THREADS * r
+    lane = np.arange(FIR_THREADS)
+    gw = kp // 4 + lane * s - 1
+    fbase = blk * outs - kp
+    vals = np.zeros((g_, 4, FIR_THREADS), np.float32)
+    fidx = np.zeros((g_, 4, FIR_THREADS), np.int64)
+    loads = []
+
+    def load(slot, g):
+        assert (g >= 0).all() and (4 * g + 3 < kp + outs).all()
+        a = _fir_swz(g)
+        loads.append(a)
+        for q in range(4):
+            vals[slot, q] = win[4 * a + q]
+            fidx[slot, q] = fbase + 4 * g + q
+
+    for i in range(1, s + 1):
+        load(i, gw + i)
+    acc = np.zeros((r, FIR_THREADS), np.float32)
+    o = blk * outs + lane * r
+    for c in range(-(-ntaps // 4)):
+        load((-c) % g_, gw - c)
+        for j in range(min(4, ntaps - 4 * c)):
+            k = 4 * c + j
+            for rr in range(r):
+                w = rr - j + 4
+                slot = (w // 4 - c) % g_
+                assert (fidx[slot, w % 4] == o + rr - k).all()
+                acc[rr] = _fma32(taps[k], vals[slot, w % 4], acc[rr])
+    stores = [_fir_swz(lane * s + i) for i in range(s)]
+    out = np.zeros(outs, np.float32)
+    for i in range(s):
+        for q in range(4):
+            out[4 * stores[i] + q] = acc[4 * i + q]
+    t = np.arange(FIR_THREADS)
+    copy = [t + m * FIR_THREADS for m in range(r)]
+    words = [4 * _fir_swz(w // 4) + w % 4 for w in copy]
+    y = np.zeros(outs, np.float32)
+    for w, a in zip(copy, words):
+        y[w] = out[a]
+    return y, {"window": loads, "sums": stores, "copy_out": words}
+
+
+def _fir_reg(frame, hist, taps, vec=True):
+    """The whole kernel on one component: every block's staging, FIR and
+    copy-out (the ragged end masked)."""
+    n, k = frame.shape[-1], taps.shape[0]
+    outs = FIR_THREADS * FIR_R
+    y = np.zeros(n, np.float32)
+    for blk in range(-(-n // outs)):
+        win, _ = _fir_stage(frame, hist, blk, k, vec)
+        got, _ = _fir_compute(win, taps, k, blk)
+        valid = min(outs, n - blk * outs)
+        y[blk * outs: blk * outs + valid] = got[:valid]
+    return y
+
+
+def _fir_chain(frame, hist, taps):
+    """Every output's fma chain in ascending tap order, vectorized over the
+    outputs (fir_direct_kernel's order of sums)."""
+    k, n = taps.shape[0], frame.shape[-1]
+    v = np.concatenate([hist, frame])
+    acc = np.zeros(n, np.float32)
+    for j in range(k):
+        acc = _fma32(taps[j], v[k - 1 - j: k - 1 - j + n], acc)
+    return acc
+
+
+def _fir_case(ntaps, n, seed):
+    rng = np.random.default_rng(seed)
+    taps = rng.standard_normal(ntaps).astype(np.float32)
+    return (taps, rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(ntaps - 1).astype(np.float32))
+
+
+# (ntaps, n): K − 1 at 0, 1, 2 and 3 mod 4 (the history's start against the
+# frame's 16-byte groups); ragged n (n mod 4 = 1, 2, 3 and n mod 4096 ≠ 0),
+# n < K − 1 (a frame shorter than the history), n < 4096 (one block)
+FIR_REPLAY = [(1, 4101), (2, 8195), (3, 2050), (4, 1000), (49, 4107),
+              (50, 4097), (51, 7), (52, 4300), (241, 100), (241, 4099),
+              (1601, 1000), (1601, 4103)]
+
+
+@pytest.mark.parametrize("ntaps,n", FIR_REPLAY,
+                         ids=[f"k{k}_n{n}" for k, n in FIR_REPLAY])
+def test_fir_reg_schedule_matches_plain(ntaps, n):
+    """A replay of fir_reg_kernel's staging, register-ring FIR and copy-out
+    reads frame sample o − k for tap k of output o, in ascending k, so
+    its sums equal fir_direct_kernel's fma chains bit for bit and the
+    plain form within float32 rounding; with a 16-byte aligned frame and
+    without."""
+    taps, frame, hist = _fir_case(ntaps, n, seed=ntaps + n)
+    chain = _fir_chain(frame, hist, taps)
+    want = np_of(hk.fir_direct_plain(torch.from_numpy(frame),
+                                     torch.from_numpy(taps),
+                                     history=torch.from_numpy(hist)))
+    for vec in (True, False):
+        got = _fir_reg(frame, hist, taps, vec)
+        equal(got, chain)
+    close(chain, want, REL_FIR)
+
+
+@pytest.mark.parametrize("ntaps,n,vec", [
+    (1, 4101, True), (2, 8195, True), (50, 4097, False), (51, 7, True),
+    (241, 100, True), (1601, 4103, True), (1601, 1000, False)],
+    ids=["k1", "k2_n4099", "k50_scalar", "k51_n7", "k241_n100",
+         "k1601_ragged", "k1601_scalar"])
+def test_fir_reg_staging_reads_stay_inside(ntaps, n, vec):
+    """fir_reg_kernel's staging, replayed for every block: every read lies
+    inside the history or the frame, every vector read is a whole aligned
+    group of the frame, each stored group is stored once, and every sample
+    that a valid output needs (frame samples o − K + 1 .. o) is staged."""
+    taps, frame, hist = _fir_case(ntaps, n, seed=7)
+    outs = FIR_THREADS * FIR_R
+    for blk in range(-(-n // outs)):
+        win, rec = _fir_stage(frame, hist, blk, ntaps, vec)
+        assert all(0 <= i < ntaps - 1 for i in rec["reads_h"])
+        assert all(0 <= i < n for i in rec["reads_f"])
+        assert all(f % 4 == 0 and f + 4 <= n for f in rec["vector"])
+        if not vec:
+            assert not rec["vector"]
+        st = [g for g in rec["store"] if g is not None]
+        assert len(set(st)) == len(st)
+        valid = min(outs, n - blk * outs)
+        lo = max(blk * outs - (ntaps - 1), -(ntaps - 1))
+        need = set(range(lo, blk * outs + valid))
+        got = set(rec["reads_f"]) | {i - (ntaps - 1) for i in rec["reads_h"]}
+        assert need <= got
+
+
+def _fir_banks_ok(words, width):
+    """Each warp-wide access (32 lanes, ``width`` consecutive words a lane)
+    is served without a bank conflict: in each phase of 32/width lanes, no
+    two distinct words share a bank (equal words are a broadcast)."""
+    words = np.asarray(words).reshape(-1, 32)
+    lanes = 32 // width
+    for acc in words:
+        for ph in range(width):
+            seg = acc[ph * lanes:(ph + 1) * lanes]
+            wds = np.unique((seg[:, None] + np.arange(width)).reshape(-1))
+            if len(np.unique(wds % 32)) != len(wds):
+                return False
+    return True
+
+
+def test_fir_reg_shared_memory_banks():
+    """Every warp-wide shared-memory access of fir_reg_kernel hits 32
+    distinct banks: the staging's 16-byte group stores, the ring's 16-byte
+    window loads (at every chunk's offset), the sums' 16-byte stores and
+    the copy-out's 4-byte loads; the taps' 16-byte load is one broadcast.
+    The swizzle is a permutation of every 8-group block, so the window and
+    the sums stay inside their buffer."""
+    outs = FIR_THREADS * FIR_R
+    for ntaps in (13, 50):
+        kp = _fir_kpad(ntaps)
+        taps, frame, hist = _fir_case(ntaps, 3 * outs, seed=11)
+        win, rec = _fir_stage(frame, hist, 1, ntaps, True)
+        st = [kp + 4 * g for g in rec["store"] if g is not None]
+        assert _fir_banks_ok(st[:len(st) // 32 * 32], 4)
+        _, seen = _fir_compute(win, taps, ntaps, 1)
+        for kind in ("window", "sums"):
+            for a in seen[kind]:
+                assert _fir_banks_ok(kp + 4 * a, 4), kind
+        for a in seen["copy_out"]:
+            assert _fir_banks_ok(kp + a, 1)
+    g = np.arange(4096)
+    sw = _fir_swz(g)
+    assert (np.sort(sw.reshape(-1, 8), axis=1) == g.reshape(-1, 8)).all()
+
+
+def _fir_reg_smem_bytes(ntaps):
+    """fir_reg_kernel's block: the taps padded to a multiple of 4 (KP) and
+    the window of KP + 4096 floats rounded up to whole 32-word swizzle
+    blocks (the card test holds it to clen_fir_smem_bytes)."""
+    kp = _fir_kpad(ntaps)
+    return 4 * (kp + -(-(kp + FIR_THREADS * FIR_R) // 32) * 32)
+
+
+H100_SMEM_OPTIN = 232448    # an H100's opt-in shared memory per block, B
+
+
+def test_fir_body_by_shape():
+    """fir_reg_kernel at decimation 1 wherever its block fits the opt-in
+    shared memory (here an H100's 232,448 B), fir_direct_kernel at D > 1
+    and past that size; fir_body names a CUDA body only, and refuses
+    ntaps or decimation below 1 before it asks a card."""
+    assert hk.FIR_BODIES == ("fir_direct_kernel", "fir_reg_kernel")
+    optin = H100_SMEM_OPTIN
+    assert _fir_reg_smem_bytes(1601) == 4 * (1604 + 5728)
+    assert _fir_reg_smem_bytes(27008) == optin
+    for k in (1, 2, 3, 49, 50, 241, 1601, 27008, 27009):
+        smem = _fir_reg_smem_bytes(k)
+        assert hk._pick_fir_body(1, smem, optin) == (
+            "fir_reg_kernel" if k <= 27008 else "fir_direct_kernel")
+        for d in (2, 4):
+            assert hk._pick_fir_body(d, smem, optin) == "fir_direct_kernel"
+    for k, d in ((0, 1), (49, 0)):
+        with pytest.raises(ValueError):
+            hk.fir_body(k, d, "cuda")
+    with pytest.raises(ValueError):
+        hk.fir_body(49, 1, "cpu")
+
+
+def test_fir_ab_cli_arguments():
+    """The direct-FIR variants tool's arguments; without a card it exits
+    non-zero."""
+    from clenabled_tpu_torch.tools import fir_ab as cli
+
+    args = cli.parse_args([])
+    assert (args.variants, args.n, args.ntaps, args.rounds, args.calls) == (
+        [], 1 << 21, [49, 241, 1601], 7, 10)
+    args = cli.parse_args(["old=_local/fir_direct_old.cu",
+                           "s1=-DFIR_STOP_AFTER=1", "pr3=first_body", "--ntaps", "1601", "--n",
+                           "65536", "--rounds", "3"])
+    assert (args.variants, args.ntaps, args.n, args.rounds) == (
+        ["old=_local/fir_direct_old.cu", "s1=-DFIR_STOP_AFTER=1",
+         "pr3=first_body"],
+        [1601], 1 << 16, 3)
+    assert set(cli.STAGE_PROBES.values()) == {"-DFIR_STOP_AFTER=1",
+                                              "-DFIR_STOP_AFTER=2"}
+    if not torch.cuda.is_available():
+        assert cli.main(["--n", "4096"]) == 1
+
+
+# --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ntaps", [49, 241, 1601])
-@pytest.mark.parametrize("decim", [1, 4])
-def test_fir_kernel_matches_plain_on_card(card, ntaps, decim):
-    t = torch.from_numpy(deep(ntaps)).to(card)
-    rng = np.random.default_rng(ntaps + decim)
-    n = (1 << 16) + 4 * 1000             # a ragged last block
+def _fir_on_body(x, h, taps, decim, body):
+    """Both planar rows of ``x`` (history rows ``h``) through the C entry on
+    the given body, uncounted."""
+    lib = hk._load()
+    y = torch.empty((2, x.shape[-1] // decim), device=x.device)
+    err = lib.clen_fir_direct(
+        h[0].data_ptr(), x[0].data_ptr(), y[0].data_ptr(), h[1].data_ptr(),
+        x[1].data_ptr(), y[1].data_ptr(), 2, taps.data_ptr(), taps.shape[0],
+        x.shape[-1], decim, hk.FIR_BODIES.index(body),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    assert err == 0, err
+    return y
+
+
+def _fir_card_taps(card, ntaps):
+    """``deep(ntaps)`` from 49 taps on; seeded normal taps below, where the
+    windowed sinc is nearly all zeros."""
+    taps = deep(ntaps) if ntaps >= 49 else np.random.default_rng(
+        ntaps).standard_normal(ntaps).astype(np.float32)
+    return torch.from_numpy(taps).to(card)
+
+
+def _fir_card_case(card, ntaps, n, seed):
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32)).to(card)
     h = torch.from_numpy(rng.standard_normal((2, ntaps - 1)).astype(
         np.float32)).to(card)
-    before = hk.fir_direct.launches
-    got = hk.fir_direct(planar.PC(x[0], x[1]), t, decimation=decim,
-                        history=planar.PC(h[0], h[1]))
-    one = hk.fir_direct(torch.cat([h[0], x[0]]), t, decimation=decim)
-    torch.cuda.synchronize()
-    assert hk.fir_direct.launches == before + 2
-    want = hk.fir_direct_plain(planar.PC(x[0], x[1]), t, decimation=decim,
+    return x, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps", [49, 241, 1601, 1, 2, 3, 50])
+@pytest.mark.parametrize("decim", [1, 4])
+def test_fir_kernel_matches_plain_on_card(card, ntaps, decim):
+    """A ragged last block (2^16 + 4000 outputs' worth), a frame shorter
+    than one block and, from 3 taps, shorter than the history; each also
+    through the history-in-front form, whose frame pointer is not 16-byte
+    aligned where (K − 1) mod 4 ≠ 0."""
+    t = _fir_card_taps(card, ntaps)
+    for n in sorted({(1 << 16) + 4 * 1000, 1000,
+                     max(decim, (ntaps - 1) // 2 // decim * decim)}):
+        # the first case keeps its seed from before the others joined
+        seed = ntaps + decim + (0 if n == (1 << 16) + 4 * 1000 else n)
+        x, h = _fir_card_case(card, ntaps, n, seed)
+        before = hk.fir_direct.launches
+        got = hk.fir_direct(planar.PC(x[0], x[1]), t, decimation=decim,
+                            history=planar.PC(h[0], h[1]))
+        one = hk.fir_direct(torch.cat([h[0], x[0]]), t, decimation=decim)
+        torch.cuda.synchronize()
+        assert hk.fir_direct.launches == before + 2
+        want = hk.fir_direct_plain(planar.PC(x[0], x[1]), t,
+                                   decimation=decim,
+                                   history=planar.PC(h[0], h[1]))
+        close(got.re, want.re, REL_CARD)
+        close(got.im, want.im, REL_CARD)
+        close(one, want.re, REL_CARD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps", [1, 2, 3, 4, 49, 50, 51, 52, 241, 1601])
+def test_fir_reg_equals_first_body_on_card(card, ntaps):
+    """At decimation 1 fir_reg_kernel's output equals fir_direct_kernel's
+    bit for bit (one fmaf chain an output in ascending tap order), on
+    ragged blocks, a frame shorter than one block and one shorter than the
+    history, and through the history-in-front form (an unaligned frame
+    pointer where (K − 1) mod 4 ≠ 0)."""
+    t = _fir_card_taps(card, ntaps)
+    assert hk.fir_body(ntaps, 1, card) == "fir_reg_kernel"
+    for n in (1, 7, 1000, 2049, (1 << 16) + 13, (1 << 18) + 4 * 1000):
+        x, h = _fir_card_case(card, ntaps, n, ntaps + n)
+        got = hk.fir_direct(planar.PC(x[0], x[1]), t,
+                            history=planar.PC(h[0], h[1]))
+        first = _fir_on_body(x, h, t, 1, "fir_direct_kernel")
+        assert torch.equal(torch.stack(list(got)), first)
+        one = hk.fir_direct(torch.cat([h[0], x[0]]), t)
+        assert torch.equal(one, first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps,decim", [(49, 1), (1601, 1), (49, 4),
+                                         (1601, 4), (28100, 1)])
+def test_fir_direct_launches_its_body_on_card(card, ntaps, decim):
+    """A call launches the body fir_body names (torch.profiler's kernel
+    names), once, and nothing of the other: fir_reg_kernel at D = 1,
+    fir_direct_kernel at D = 4 and at 28,100 taps, whose fir_reg_kernel
+    block would not fit the card's opt-in shared memory (its own block,
+    halved to fit, does)."""
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+
+    t = torch.from_numpy(deep(ntaps)).to(card)
+    x, h = _fir_card_case(card, ntaps, 1 << 14, 5)
+    body = hk.fir_body(ntaps, decim, card)
+    assert body == ("fir_reg_kernel" if decim == 1 and ntaps < 27009
+                    else "fir_direct_kernel")
+    if body == "fir_reg_kernel":
+        assert _fir_reg_smem_bytes(ntaps) == hk._load().clen_fir_smem_bytes(
+            ntaps, 1, 1)
+    other, = set(hk.FIR_BODIES) - {body}
+    args = (planar.PC(x[0], x[1]), t)
+    got, events = launched_kernels(lambda: hk.fir_direct(
+        *args, decimation=decim, history=planar.PC(h[0], h[1])))
+    assert sum(body in e for e in events) == 1
+    assert not any(other in e for e in events)
+    want = hk.fir_direct_plain(*args, decimation=decim,
                                history=planar.PC(h[0], h[1]))
     close(got.re, want.re, REL_CARD)
     close(got.im, want.im, REL_CARD)
-    close(one, want.re, REL_CARD)
 
 
 @pytest.mark.cuda
