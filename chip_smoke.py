@@ -10,8 +10,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
    one ``nvcc`` per source, all started together; print ptxas's lines and,
    for each instantiation of the int8 Gram kernels, of
-   ``pfb_os_reg_kernel`` and of both direct-FIR bodies, its registers,
-   stack frame and spill bytes; a spill in ``fir_reg_kernel`` fails.
+   ``pfb_os_reg_kernel``, of both direct-FIR bodies and of both packed-PFB
+   bodies, its registers, stack frame and spill bytes; a spill in
+   ``fir_reg_kernel`` or in any ``pfb_packed_reg_kernel<M>`` fails.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
@@ -25,13 +26,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
    [zr | zi].  At M = 16 both FX entries run ``fx_reg_kernel`` (the body
    ``hopper_kernels.fx_body`` names; the kernels record gives it), timed
-   in f32, bf16 and int8 ingest.
+   in f32, bf16 and int8 ingest.  The packed PFB (B.2) runs at the planar
+   step's shape ([8216, 128]: 4 antennas × 2^17, 16 channels, W = 25) and
+   at the fused step's width ([524312, 128]: 4 × 2^23), then at M = 8, 4
+   and 2, A = 1 and 3, W = 1 and 100, a ragged (8192 + 7 rows) and a short
+   (20 rows, fewer than a block) last block, and M = 32, each case
+   printing the body ``hopper_kernels.pfb_packed_body`` ran
+   (``pfb_packed_reg_kernel`` at M ≤ 16, ``pfb_packed_kernel`` at 32); at
+   both main shapes the first body, ``pfb_packed_kernel``, also runs
+   through the C entry (body 0, no wrapper counting it), held to the plain
+   form, and both bodies are timed from ``torch.profiler``
+   (``runtime.device.device_time_ms``) beside their CUDA-event times.
 4. main path — launch counts reset, then the fused step at full width
    (4 antennas × 2^23 samples, 16 channels, 400 taps) for 3 chained steps
    in f32 and int8 ingest, and the planar step at the entry shape (2^17);
    counts read; every step's outputs held to the plain forms, the fused
    sums checked for additivity over two chained frames, and the fused
-   step held to the complex64 torch.fft pipeline on a small input.
+   step held to the complex64 torch.fft pipeline on a small input.  The
+   planar step must launch ``pfb_packed_reg_kernel`` once a step
+   (``torch.profiler``'s kernel names); its device busy time and wall time
+   a step over its 3 chained steps are printed, with the packed PFB
+   kernel's share of the busy time.
 5. ingest — ``HostIngest`` feeds 8 host frames through the fused step;
    device step time, kernel and plain times and end-to-end MSPS.
 6. flat FX path — counts reset, 3 chained frames of 4 × 2^23 through
@@ -132,7 +147,8 @@ card could take for its work at the measured shape (``bound_ms``: the
 larger of the bytes it must move at 3.35 TB/s and its operations at the
 published peak for their type; the FX step's M-point transforms counted as
 FFTs, beside the dense-DFT count of earlier records; so the oversampled
-PFB's, with its bytes and both operation counts beside it), and the time of one
+PFB's and the packed PFB's, with their bytes and both operation counts
+beside them), and the time of one
 PyTorch library call computing the same function where there is one.
 
 The second-to-last line is the kernels' JSON record, the last line
@@ -184,6 +200,7 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # (costas_kernel<order, halved gains> matches "costas_kernel"; the sin/cos
 # probe is counted by no wrapper and runs in no timed window)
 PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
+                "pfb_packed_reg_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "fir_reg_kernel", "ofs_filter_kernel",
@@ -567,6 +584,134 @@ def xengine_phase(torch, hk, gen, dev) -> dict:
                      f"({in_mb:.0f} MiB of bytes in)")
     return {"launches": launches, "step_ms": step_ms,
             "marshal_ms": marshal_ms, "h2p_ms": h2p_ms}
+
+
+def pfb_inputs(torch, gen, dev, a: int, m: int, nout: int, ntaps=None):
+    """(y, hr) of the planar step's lane-packed stream: ``a`` antennas of
+    nout·m samples each behind their T−1 history, ``m`` channels, the
+    step's prototype (``pipelines._prototype``) or an ``ntaps``-tap
+    windowed sinc."""
+    import numpy as np
+
+    from clenabled_tpu_torch import pipelines as P
+    from clenabled_tpu_torch.dsp import channelizer as chan
+
+    proto = None if ntaps is None else (
+        np.sinc(np.linspace(-4, 4, ntaps)) * np.hanning(ntaps)).astype(
+            np.float32)
+    taps_rm, nt = P._prototype(m, 100e6, proto)
+    taps = torch.as_tensor(taps_rm, device=dev)
+    comps = torch.randn((2 * a, nt - 1 + nout * m), generator=gen, device=dev)
+    return chan._pack_streams(comps, taps, m, nt, nout)
+
+
+def pfb_bounds(nout: int, w: int, a: int, m: int) -> dict:
+    """The least time of one pfb_channelize_packed call: y, hr and the
+    output each moved once (``bytes_ms``); W multiply-adds an output lane
+    with the M-point transforms as FFTs (5·M·log2 M flops a group, as
+    pfb_packed_reg_kernel runs them; ``operations_ms``) or as dense DFTs
+    (8·M², as pfb_packed_kernel does; ``dense_operations_ms``), at FP32's
+    peak; ``bound`` is the larger of the first two, with what sets it."""
+    gm = 2 * a * m
+    nbytes = 4 * ((nout + w - 1) * gm + w * gm + nout * gm)
+    fir = 2 * nout * gm * w
+    fft = fir + a * nout * 5 * m * math.log2(m)
+    return {"bound": bound(nbytes, fft), "bytes_ms": nbytes / HBM_BPS * 1e3,
+            "operations_ms": fft / FP32_OPS * 1e3,
+            "dense_operations_ms": (fir + a * nout * 8 * m * m)
+            / FP32_OPS * 1e3}
+
+
+def pfb_on_body(torch, hk, y, hr, a: int, m: int, body: str):
+    """``clen_pfb_packed`` on the named body with its wrapper's rows a
+    block, as ``pfb_channelize_packed`` calls it but uncounted; returns a
+    call that writes and returns the output."""
+    w = hr.shape[0]
+    out = torch.empty((y.shape[0] - (w - 1), y.shape[1]), device=y.device)
+    lib = hk._load()
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    code = hk.PFB_PACKED_BODIES.index(body)
+    tile = hk.pfb_packed_tile(a, m, code)
+    tw = hk._twiddles(m, y.device)
+
+    def call():
+        err = lib.clen_pfb_packed(y.data_ptr(), hr.data_ptr(), tw.data_ptr(),
+                                  out.data_ptr(), out.shape[0], w, a, m, tile,
+                                  code, stream)
+        if err != 0:
+            fail(f"{body} launch failed: CUDA error {err}")
+        return out
+    return call
+
+
+def pfb_times(torch, label: str, call) -> dict:
+    """A call's device time (``runtime.device.device_time_ms``: one kernel
+    a call, 10 calls) and its time on CUDA events around 10 back-to-back
+    calls; ``ms`` is the device time, the events' where the profiler
+    records none."""
+    from clenabled_tpu_torch.runtime.device import device_time_ms
+
+    events = time_ms(torch, call)
+    dev = device_time_ms(call, 10)
+    shown = "not measured" if dev is None else f"{dev:.4f} ms"
+    phase("time", f"{label}: device {shown}, per call (events) "
+                  f"{events:.4f} ms")
+    return {"ms": events if dev is None else dev, "device_ms": dev,
+            "events_ms": events}
+
+
+def pfb_packed_phase(torch, hk, gen, dev) -> dict:
+    """B.2 against its plain form: the planar step's shape (4 antennas ×
+    2^17, 16 channels, W = 25) and the fused step's width (4 × 2^23), each
+    also on the first body through the C entry and timed beside it; then
+    M = 8, 4, 2, A = 1 and 3, W = 1 and 100, a ragged and a short last
+    block, and M = 32 (the first body), each printing the body it ran."""
+    res = {"err": 0.0, "bodies": {}, "shapes": {}}
+    cases = [("entry", A, M, N_ENTRY // M, None),
+             ("full width", A, M, N_FULL // M, None),
+             ("M=8", A, 8, N_ENTRY // 8, None),
+             ("M=4", A, 4, N_ENTRY // 4, None),
+             ("M=2", A, 2, N_ENTRY // 2, None),
+             ("A=1", 1, M, N_ENTRY // M, None),
+             ("A=3", 3, M, N_ENTRY // M, None),
+             ("W=1", A, M, N_ENTRY // M, M),
+             ("W=100", A, M, N_ENTRY // M, 100 * M),
+             ("ragged 8192+7", A, M, 8192 + 7, None),
+             ("nout 20 < rows", A, M, 20, None),
+             ("M=32", A, 32, N_ENTRY // 32, None)]
+    for label, a, m, nout, ntaps in cases:
+        y, hr = pfb_inputs(torch, gen, dev, a, m, nout, ntaps)
+        w = hr.shape[0]
+        body = hk.pfb_packed_body(m, w, dev)
+        got = hk.pfb_channelize_packed(y, hr, a, m)
+        torch.cuda.synchronize()
+        want = hk.pfb_channelize_packed_plain(y, hr, a, m)
+        res["bodies"][label] = body
+        shape = f"[{y.shape[0]}, {y.shape[1]}]"
+        res["err"] = max(res["err"], check(
+            torch, f"pfb_packed {label} {shape}, A={a}, M={m}, W={w} on "
+                   f"{body}", [got], [want]))
+        if label in ("entry", "full width"):
+            first = pfb_on_body(torch, hk, y, hr, a, m, "pfb_packed_kernel")
+            first_err = check(torch, f"pfb_packed {label} {shape} on "
+                                     f"pfb_packed_kernel (the first body)",
+                              [first()], [want])
+            new = pfb_times(torch, f"pfb_packed {label} {shape} ({body})",
+                            lambda: hk.pfb_channelize_packed(y, hr, a, m))
+            old = pfb_times(torch, f"pfb_packed {label} {shape} "
+                                   f"(pfb_packed_kernel, the first body)",
+                            first)
+            plain_ms = time_ms(torch, lambda: hk.pfb_channelize_packed_plain(
+                y, hr, a, m), reps=3, warmup=1)
+            phase("time", f"pfb_packed {label} {shape}: plain {plain_ms:.4f}"
+                          f" ms")
+            res["shapes"][label] = dict(
+                new, shape=shape, body=body, plain_ms=plain_ms,
+                first_body=dict(old, max_abs_err=first_err),
+                bounds=pfb_bounds(nout, w, a, m))
+        del y, hr, got, want
+    torch.cuda.empty_cache()
+    return res
 
 
 def fm_taps():
@@ -1396,6 +1541,41 @@ def costas_phase(torch, hk, dev) -> dict:
     return res
 
 
+def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms) -> dict:
+    """The planar step's device busy time (``torch.profiler``) and wall
+    time a step over its chained frames, with the packed PFB kernel's share
+    of the busy time; fails unless each step launched
+    ``pfb_packed_reg_kernel``."""
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+
+    def chain():
+        hr, hi = hr0, hi0
+        for xr, xi in frames:
+            o = step(xr, xi, hr, hi)
+            hr, hi = o[3], o[4]
+
+    chain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    busy = device_busy_ms(torch, chain, steps=1)
+    busy_ms = None if busy is None else busy / len(frames)
+    _, names = launched_kernels(chain, least=len(frames))
+    if sum("pfb_packed_reg_kernel" in n for n in names) != len(frames):
+        fail(f"the planar step did not launch pfb_packed_reg_kernel once a "
+             f"step: {names}")
+    share = None if busy_ms is None else kernel_ms / busy_ms
+    shown = "not measured" if busy_ms is None else (
+        f"{busy_ms:.4f} ms ({busy_ms / wall_ms:.0%} of the wall time; the "
+        f"packed PFB kernel {share:.0%} of it)")
+    phase("main", f"planar step {A}x{N_ENTRY} on pfb_packed_reg_kernel, per "
+                  f"step over {len(frames)} chained steps: device busy "
+                  f"{shown}, wall {wall_ms:.4f} ms")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kernel_share": share}
+
+
 def main() -> None:
     try:
         import torch
@@ -1409,7 +1589,6 @@ def main() -> None:
     sys.path.insert(0, here)
     from clenabled_tpu_torch import _build
     from clenabled_tpu_torch import pipelines as P
-    from clenabled_tpu_torch.dsp import channelizer as chan
     from clenabled_tpu_torch.dsp import hopper_kernels as hk
     from clenabled_tpu_torch.runtime.device import card_info, require_hopper
     from clenabled_tpu_torch.streaming import HostIngest
@@ -1447,6 +1626,16 @@ def main() -> None:
     if "registers" not in reg or reg.get("spill_stores") or reg.get(
             "spill_loads"):
         fail(f"fir_reg_kernel: ptxas reports {reg or 'nothing'}")
+    pk_ptxas = ptxas_summary(_build.last_build["log"],
+                             ("pfb_packed_kernel", "pfb_packed_reg_kernel"))
+    for name, info in pk_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
+    for m in hk.PFB_REG_M:
+        reg = pk_ptxas.get(f"pfb_packed_reg_kernel<{m}>", {})
+        if "registers" not in reg or reg.get("spill_stores") or reg.get(
+                "spill_loads"):
+            fail(f"pfb_packed_reg_kernel<{m}>: ptxas reports "
+                 f"{reg or 'nothing'}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1496,19 +1685,8 @@ def main() -> None:
                           f"{times[f'fx {label}'][0]:.3f} ms, plain "
                           f"{times[f'fx {label}'][1]:.3f} ms")
         del xr, xi, tr, ti, got, want
-    nout = N_ENTRY // M
-    comps = torch.randn((2 * A, ntaps - 1 + N_ENTRY), generator=gen, device=dev)
-    y, hrt = chan._pack_streams(comps, taps, M, ntaps, nout)
-    got = hk.pfb_channelize_packed(y, hrt, A, M)
-    torch.cuda.synchronize()
-    errs["pfb"] = check(torch, f"pfb_packed [{tuple(y.shape)}]", [got],
-                        [hk.pfb_channelize_packed_plain(y, hrt, A, M)])
-    times["pfb"] = (time_ms(torch, lambda: hk.pfb_channelize_packed(y, hrt, A, M)),
-                    time_ms(torch, lambda: hk.pfb_channelize_packed_plain(
-                        y, hrt, A, M)))
-    phase("time", f"pfb_packed: kernel {times['pfb'][0]:.3f} ms, plain "
-                  f"{times['pfb'][1]:.3f} ms")
-    del y, hrt, got, comps
+    pk = pfb_packed_phase(torch, hk, gen, dev)
+    errs["pfb"] = pk["err"]
     hl = taps.shape[0] * M - 1
     comps = torch.randn((2 * A, N_FULL), generator=gen, device=dev)
     hist = torch.randn((2 * A, hl), generator=gen, device=dev)
@@ -1566,6 +1744,8 @@ def main() -> None:
                   f"{launches}")
     if launches["fx"] < 1 or launches["pfb"] < 1:
         fail(f"a kernel of the main path was not launched: {launches}")
+    planar = planar_step_times(torch, planar_fn, planar_frames, ph0, pi0,
+                               pk["shapes"]["entry"]["ms"])
 
     for label, (fr, tr, ti) in runs.items():
         fn = fused[label][0]
@@ -1717,7 +1897,6 @@ def main() -> None:
         return (4 * A * n * w + A * (n // M) * dft
                 + nfd * (n // M) * (10 * M + dft) + nb * n * 8)
 
-    gm, nout_p = 2 * A * M, N_ENTRY // M
     sp = XE_S * XE_P
 
     def gram_bound(f, t, width, elem, rate):
@@ -1740,8 +1919,6 @@ def main() -> None:
     k49, p49 = plan49.ntaps, plan49.fft_size
     bounds = {
         "fx": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL)),
-        "pfb": bound(4 * ((nout_p + w - 1) * gm + w * gm + nout_p * gm),
-                     2 * nout_p * gm * w + 8 * A * nout_p * M * M),
         "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
         "fx dense": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL, False)),
         "gram": gram_bound(XE_F, XE_T, sp, 1, INT8_OPS),
@@ -1763,6 +1940,7 @@ def main() -> None:
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
+    pk_entry = pk["shapes"]["entry"]
     record = {"kernels": [
         dict(entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
                    launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
@@ -1770,8 +1948,24 @@ def main() -> None:
              ms_plain_ms_by_dtype={k[3:]: times[k] for k in (
                  "fx f32", "fx bf16", "fx int8")},
              dense_dft_bound_ms=bounds["fx dense"][0]),
-        entry("pfb_channelize_packed", "pfb_packed.cu", 1678, launches["pfb"],
-              errs["pfb"], *times["pfb"], bounds["pfb"]),
+        dict(entry("pfb_channelize_packed", "pfb_packed.cu", 1678,
+                   launches["pfb"], errs["pfb"], pk_entry["ms"],
+                   pk_entry["plain_ms"], pk_entry["bounds"]["bound"]),
+             body=pk_entry["body"], bodies=pk["bodies"],
+             shape=pk_entry["shape"], device_ms=pk_entry["device_ms"],
+             events_ms=pk_entry["events_ms"],
+             first_body={r["shape"]: r["first_body"]
+                         for r in pk["shapes"].values()},
+             by_shape={r["shape"]: {
+                 "body": r["body"], "ms": r["ms"], "device_ms": r["device_ms"],
+                 "events_ms": r["events_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bounds"]["bound"][0],
+                 "bound_by": r["bounds"]["bound"][1],
+                 **{k: v for k, v in r["bounds"].items() if k != "bound"},
+                 "first_body": r["first_body"]}
+                 for r in pk["shapes"].values()},
+             **{k: v for k, v in pk_entry["bounds"].items() if k != "bound"},
+             cuda_kernels=sorted(pk_ptxas), ptxas=pk_ptxas),
         dict(entry("fx_correlate_streams", "fx_correlate.cu", 876,
                    flat_launches, max(errs["fx1"], errs["fx1 path"]),
                    *times["fx1"], bounds["fx1"]), body=hk.fx_body(M)),
@@ -1854,7 +2048,7 @@ def main() -> None:
                                                "wall_ms")} for p in fm},
         "fft_bare_ms": spr["bare_ms"],
         "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
-                  "costas": cor["path"]}}
+                  "costas": cor["path"], "planar_step": planar}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "clen_fx_correlate": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "clen_fx_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
-    "clen_pfb_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "clen_pfb_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "clen_pfb_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "clen_pfb_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "clen_xengine_gram": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "clen_gram_int8_smem_bytes": ([], ctypes.c_longlong),
     "clen_gram_bf16_smem_bytes": ([], ctypes.c_longlong),

@@ -11,20 +11,64 @@
 // with F[k, j] = exp(+2*pi*i*j*k/m), per antenna, written back in the input's
 // lane layout.  The lane packing itself (channelizer._pack_streams) stays
 // plain torch outside the kernel, as it is XLA outside the kernel in JAX.
+// The TPU kernel applies the DFT as a [G*m, G*m] block matrix on its matrix
+// unit; neither body here does (TF32 would break the 1e-4 gate).
 //
-// Design.  Each block owns `tile` output rows: it stages rows
-// [i0, i0 + tile + W - 1) of y in shared memory (each input row is read from
-// device memory by at most two neighbouring blocks), forms the branch sums
-// into shared memory, then applies the DFT from a twiddle table, one thread
-// per (row, antenna, channel).
+// Two bodies (hopper_kernels.pfb_packed_body names the one a call runs):
 //
-// Bound on the H100: at the planar entry shape (2^17 samples, A = 4, W = 25)
-// the step is small; per output lane it reads 4 B and does W + 4m multiply-
-// adds, so it is FP32-core compute once the tile is staged, not bytes.  This
-// first version keeps every multiply-add on the FP32 cores; the DFT as a
-// wgmma product and TMA loads are work for later PRs.
+// pfb_packed_reg_kernel<M>, M in {2, 4, 8, 16}: 256 threads; a block owns
+// kPkRows = 32 output rows of one chunk of
+// C = min(A - a0, 64/M) antennas a0.. (blockIdx.y), always as 128 window
+// columns: 64 re lanes (columns a0*M..) then 64 im lanes ((A+a0)*M..), of
+// which C*M each are real and the rest idle, so that every warp access has
+// one geometry whatever A is (A = 1 and odd A leave a chunk part-filled).
+//   stage  window rows [i0, i0 + 32 + W) of the chunk's columns into
+//          [32 + W][128] floats, and the W tap rows of its columns into
+//          [W][128], with 16-byte cp.async copies, all of a thread's in
+//          flight at once, when y, hr and out are 16-byte aligned and every
+//          segment is a whole number of 16-byte groups (M >= 4, or even A);
+//          else word by word.  Rows past the valid outputs' reach
+//          (tvalid + W - 1) are zero-filled, never read from y.
+//   FIR    lane = (strip of S = 16 rows, column): S sums and an S-value
+//          window in registers, the slots rotating at compile time
+//          (fftcore::static_for), one tap load and one window load from
+//          shared memory per S FMAs (the last W mod S taps loaded ahead of
+//          their FMAs).  Each sum is an fmaf chain over ascending taps from
+//          0.f on the same operands as pfb_packed_kernel's (the numpy replay
+//          in tests/test_torch_kernels.py holds its schedule to that chain).
+//          A warp reads 32 consecutive words of a row: no
+//          bank conflict.  The sums go to two planes [32][64] (re, im) at
+//          pk_swz(r*64 + c).
+//   DFT    lane = 16 consecutive sums of a plane row (16/M groups), read as
+//          four float4 from each plane, fftcore::dft<M, s*M, true> in
+//          registers (unscaled inverse), written back in place.
+//   store  after a barrier, each warp copies one output row's re and im
+//          segments with 16-byte stores (coalesced 256-byte runs).
+//   pk_swz XORs a 16-byte group's bits 2-3 with bits 5-6 of its word index:
+//          every FIR store, DFT float4 load and store and copy-out load hits
+//          32 distinct banks (checked in tests/test_torch_kernels.py).
+// pfb_packed_kernel, any m (the first design): each block stages whole rows
+//   [i0, i0 + tile + W - 1) of y in shared memory one float at a time, forms
+//   the branch sums into shared memory (a tap load from device memory and a
+//   window load a multiply-add), then applies the DFT from a twiddle table,
+//   one thread per (row, antenna, channel).
+//
+// Bound on the H100: per output lane 4 B read (plus the W-1 halo rows of
+// each block) and 4 B written, W multiply-adds and the M-point transform
+// (5 M log2 M flops a group): memory bound at the planar step's shape (4
+// antennas, 16 channels, W = 25), 2.5 us at 2^17 samples, where launch and
+// tail latencies weigh, and 0.160 ms at 4 x 2^23.  pfb_packed_reg_kernel
+// runs its stages in series behind barriers; three resident blocks an SM
+// (at most 85 registers a thread) overlap one's staging with another's
+// arithmetic (tools/pfb_ab.py splits the time by stage).  64 rows a block
+// took 11-18% longer at 2^17 samples and were within 2.2% at 4 x 2^23; there,
+// taps read through the read-only cache took 4% longer, and 96 registers
+// with two blocks an SM 14-19% longer.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fft_core.cuh"
 
 namespace {
 
@@ -90,29 +134,263 @@ __global__ void pfb_packed_kernel(const float* __restrict__ y,
   }
 }
 
-}  // namespace
+// ---- pfb_packed_reg_kernel -------------------------------------------------
 
-// Returns a cudaError_t.
-extern "C" int clen_pfb_packed(const void* y, const void* hr, const void* tw,
-                               void* out, int nout, int w, int a, int m,
-                               int tile, void* stream) {
-  const long long bytes = pfb_smem_floats(a, m, w, tile) * (long long)sizeof(float);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+constexpr int kPkThreads = 256;
+constexpr int kPkRows = 32;    // output rows a block
+constexpr int kPkCols = 128;   // window columns a block: 64 re, then 64 im
+constexpr int kPkHalf = 64;    // columns a component, C*M of them real
+constexpr int kPkStrip = 16;   // rows a FIR lane sums over
+static_assert(kPkRows % kPkStrip == 0, "a block's rows are whole strips");
+// a timing probe's build (-DPFB_STOP_AFTER=1 or 2) stops each block after
+// the staging or the FIR; the library never sets it
+#ifndef PFB_STOP_AFTER
+#define PFB_STOP_AFTER 3
+#endif
+constexpr int kPkStopAfter = PFB_STOP_AFTER;
+
+// window of kPkRows + W rows (a strip's last refill reads row kPkRows + W -
+// 1), the two sums planes of kPkRows rows and W tap rows
+__host__ __device__ inline long long pk_reg_smem_bytes(int w) {
+  return 4LL * kPkCols * (2LL * kPkRows + 2LL * w);
+}
+
+// the shared-memory word of logical float x of a sums plane; it keeps each
+// 16-byte group whole: pk_swz(16 t + 4 k) = pk_swz(16 t) ^ 4 k
+__device__ __forceinline__ int pk_swz(int x) { return x ^ ((x >> 3) & 12); }
+
+__device__ __forceinline__ void pk_cp_async16(float* dst, const float* src,
+                                              int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+template <int M>
+__global__ void __launch_bounds__(kPkThreads, 3)
+pfb_packed_reg_kernel(const float* __restrict__ y, const float* __restrict__ hr,
+                      float* __restrict__ out, int nout, int w, int a,
+                      int vec) {
+  static_assert(M == 2 || M == 4 || M == 8 || M == 16, "M must be 2, 4, 8 or 16");
+  constexpr int S = kPkStrip;
+  constexpr int VPL = 16 / M;           // groups a DFT lane holds
+  constexpr int tile = kPkRows;
+  extern __shared__ float smem[];
+  const int rows = tile + w;
+  float* win = smem;                                   // [rows][128]
+  float* sre = smem + (long long)rows * kPkCols;       // [tile * 64], pk_swz
+  float* sim = sre + tile * kPkHalf;                   // [tile * 64], pk_swz
+  float* tsm = sim + tile * kPkHalf;                   // [w][128] taps
+
+  const int gm = 2 * a * M;
+  const int a0 = blockIdx.y * (kPkHalf / M);
+  const int cm = min(kPkHalf / M, a - a0) * M;         // real columns a component
+  const int off_re = a0 * M, off_im = (a + a0) * M;   // y's column of each
+  const long long i0 = (long long)blockIdx.x * tile;
+  const int tvalid = (int)min((long long)tile, (long long)nout - i0);
+  const int rvalid = tvalid + w - 1;
+  const float* src = y + i0 * gm;
+
+  // stage: item e = (row u, column); rows at or past rvalid are zeros;
+  // then the taps, item e = (tap row u, column)
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (kPkCols / 4); e += kPkThreads) {
+      const int u = e >> 5;
+      const int p = (e >> 4) & 1;
+      const int c = 4 * (e & 15);
+      if (c < cm) {
+        const bool in = u < rvalid;
+        pk_cp_async16(win + u * kPkCols + p * kPkHalf + c,
+                      in ? src + (long long)u * gm + (p ? off_im : off_re) + c : y, in ? 16 : 0);
+      }
+    }
+    for (int e = threadIdx.x; e < w * (kPkCols / 4); e += kPkThreads) {
+      const int u = e >> 5;
+      const int p = (e >> 4) & 1;
+      const int c = 4 * (e & 15);
+      if (c < cm)
+        pk_cp_async16(tsm + u * kPkCols + p * kPkHalf + c,
+                      hr + (long long)u * gm + (p ? off_im : off_re) + c, 16);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    for (int e = threadIdx.x; e < rows * kPkCols; e += kPkThreads) {
+      const int u = e >> 7;
+      const int p = (e >> 6) & 1;
+      const int c = e & 63;
+      if (c < cm) win[e] = u < rvalid ? src[(long long)u * gm + (p ? off_im : off_re) + c] : 0.f;
+    }
+    for (int e = threadIdx.x; e < w * kPkCols; e += kPkThreads) {
+      const int u = e >> 7;
+      const int p = (e >> 6) & 1;
+      const int c = e & 63;
+      if (c < cm) tsm[e] = hr[(long long)u * gm + (p ? off_im : off_re) + c];
+    }
+  }
+  __syncthreads();
+  if constexpr (kPkStopAfter < 2) return;
+
+  // branch FIR: job e = (strip q, column), column fastest; strips past the
+  // valid rows skip
+  const int nq = (tvalid + S - 1) / S;
+  for (int e = threadIdx.x; e < nq * kPkCols; e += kPkThreads) {
+    const int q = e >> 7;
+    const int col = e & 127;
+    const int p = col >> 6;
+    const int c = col & 63;
+    if (c >= cm) continue;
+    const float* tp = tsm + col;
+    const float* wp = win + q * S * kPkCols + col;
+    float wv[S], acc[S];
+    fftcore::static_for<S>([&](auto k) {
+      constexpr int kk = decltype(k)::value;
+      wv[kk] = wp[kk * kPkCols];
+      acc[kk] = 0.f;
+    });
+    wp += S * kPkCols;
+    int d0 = 0;
+    for (; d0 + S <= w; d0 += S) {
+      fftcore::static_for<S>([&](auto r) {
+        constexpr int rr = decltype(r)::value;
+        const float tap = tp[rr * kPkCols];
+        fftcore::static_for<S>([&](auto s) {
+          acc[s] = fmaf(tap, wv[(decltype(s)::value + rr) % S], acc[s]);
+        });
+        wv[rr] = wp[rr * kPkCols];
+      });
+      wp += S * kPkCols;
+      tp += S * kPkCols;
+    }
+    const int left = w - d0;
+    float tl[S];
+    fftcore::static_for<S>([&](auto r) {
+      constexpr int rr = decltype(r)::value;
+      tl[rr] = rr < left ? tp[rr * kPkCols] : 0.f;
+    });
+    fftcore::static_for<S>([&](auto r) {
+      constexpr int rr = decltype(r)::value;
+      if (rr < left) {
+        fftcore::static_for<S>([&](auto s) {
+          acc[s] = fmaf(tl[rr], wv[(decltype(s)::value + rr) % S], acc[s]);
+        });
+        wv[rr] = wp[rr * kPkCols];
+      }
+    });
+    float* dst = p ? sim : sre;
+    fftcore::static_for<S>([&](auto s) {
+      dst[pk_swz((q * S + decltype(s)::value) * kPkHalf + c)] = acc[s];
+    });
+  }
+  __syncthreads();
+  if constexpr (kPkStopAfter < 3) return;
+
+  // unscaled inverse DFT: lane t holds plane words 16t .. 16t+15 of both
+  // planes (row t/4, columns 16 (t%4) ..), 16/M groups
+  for (int t = threadIdx.x; t < tile * 4; t += kPkThreads) {
+    if ((t >> 2) >= tvalid || 16 * (t & 3) >= cm) continue;
+    const int b = pk_swz(16 * t);
+    float2 v[fftcore::kPts];
+    fftcore::static_for<4>([&](auto k) {
+      const int o = b ^ (4 * decltype(k)::value);
+      const float4 r4 = *reinterpret_cast<const float4*>(sre + o);
+      const float4 i4 = *reinterpret_cast<const float4*>(sim + o);
+      v[4 * k] = make_float2(r4.x, i4.x);
+      v[4 * k + 1] = make_float2(r4.y, i4.y);
+      v[4 * k + 2] = make_float2(r4.z, i4.z);
+      v[4 * k + 3] = make_float2(r4.w, i4.w);
+    });
+    fftcore::static_for<VPL>([&](auto s) {
+      fftcore::dft<M, decltype(s)::value * M, true>(v);
+    });
+    fftcore::static_for<4>([&](auto k) {
+      const int o = b ^ (4 * decltype(k)::value);
+      *reinterpret_cast<float4*>(sre + o) =
+          make_float4(v[4 * k].x, v[4 * k + 1].x, v[4 * k + 2].x, v[4 * k + 3].x);
+      *reinterpret_cast<float4*>(sim + o) =
+          make_float4(v[4 * k].y, v[4 * k + 1].y, v[4 * k + 2].y, v[4 * k + 3].y);
+    });
+  }
+  __syncthreads();
+
+  // copy-out: item e = (row, column) of the valid rows, as the staging
+  float* dst = out + i0 * gm;
+  if (vec) {
+    for (int e = threadIdx.x; e < tvalid * (kPkCols / 4); e += kPkThreads) {
+      const int r = e >> 5;
+      const int p = (e >> 4) & 1;
+      const int c = 4 * (e & 15);
+      if (c < cm) {
+        const float* pl = p ? sim : sre;
+        *reinterpret_cast<float4*>(dst + (long long)r * gm + (p ? off_im : off_re) + c) =
+            *reinterpret_cast<const float4*>(pl + pk_swz(r * kPkHalf + c));
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < tvalid * kPkCols; e += kPkThreads) {
+      const int r = e >> 7;
+      const int p = (e >> 6) & 1;
+      const int c = e & 63;
+      if (c < cm) dst[(long long)r * gm + (p ? off_im : off_re) + c] = (p ? sim : sre)[pk_swz(r * kPkHalf + c)];
+    }
+  }
+}
+
+template <int M>
+cudaError_t launch_pk_reg(const float* y, const float* hr, float* out, int nout,
+                          int w, int a, cudaStream_t stream) {
+  const long long bytes = pk_reg_smem_bytes(w);
+  const cudaError_t err = fftcore::set_smem(pfb_packed_reg_kernel<M>, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(pfb_packed_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int nblk = (nout + tile - 1) / tile;
-  pfb_packed_kernel<<<nblk, 256, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(hr),
-      static_cast<const float*>(tw), static_cast<float*>(out), nout, w, a, m, tile);
+  const int vec = (M % 4 == 0 || a % 2 == 0) &&
+                  ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(hr) |
+                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const dim3 grid((nout + kPkRows - 1) / kPkRows,
+                  (a + kPkHalf / M - 1) / (kPkHalf / M));
+  pfb_packed_reg_kernel<M><<<grid, kPkThreads, bytes, stream>>>(
+      y, hr, out, nout, w, a, vec);
   return cudaGetLastError();
 }
 
-extern "C" long long clen_pfb_smem_bytes(int a, int m, int w, int tile) {
-  return pfb_smem_floats(a, m, w, tile) * (long long)sizeof(float);
+}  // namespace
+
+// Shared memory of one block of the given body: pfb_packed_kernel's of
+// `tile` rows of all 2*a*m lanes, or pfb_packed_reg_kernel's of its 32 rows
+// and the taps of one 128-column chunk (independent of a, m and tile).
+extern "C" long long clen_pfb_smem_bytes(int a, int m, int w, int tile, int body) {
+  return body == 1 ? pk_reg_smem_bytes(w)
+                   : pfb_smem_floats(a, m, w, tile) * (long long)sizeof(float);
+}
+
+// y: [nout + w - 1, 2*a*m], hr: [w, 2*a*m], out: [nout, 2*a*m], all float32
+// row-major; tw: [2, m] cos and sin of 2 pi q / m (pfb_packed_kernel's
+// table).  tile: output rows a block.  body 0: pfb_packed_kernel (any m);
+// body 1: pfb_packed_reg_kernel (m in {2, 4, 8, 16}; tile must be its 32).
+// Returns a cudaError_t; cudaErrorInvalidValue when the sizes are
+// inconsistent or the block does not fit the card's opt-in shared memory.
+extern "C" int clen_pfb_packed(const void* y, const void* hr, const void* tw,
+                               void* out, int nout, int w, int a, int m,
+                               int tile, int body, void* stream) {
+  if (nout < 1 || w < 1 || a < 1 || m < 1 || tile < 1 || body < 0 || body > 1)
+    return cudaErrorInvalidValue;
+  const float* fy = static_cast<const float*>(y);
+  const float* fhr = static_cast<const float*>(hr);
+  float* fout = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (tile != kPkRows) return cudaErrorInvalidValue;
+    switch (m) {
+      case 2: return launch_pk_reg<2>(fy, fhr, fout, nout, w, a, st);
+      case 4: return launch_pk_reg<4>(fy, fhr, fout, nout, w, a, st);
+      case 8: return launch_pk_reg<8>(fy, fhr, fout, nout, w, a, st);
+      case 16: return launch_pk_reg<16>(fy, fhr, fout, nout, w, a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const long long bytes = clen_pfb_smem_bytes(a, m, w, tile, 0);
+  const cudaError_t err = fftcore::set_smem(pfb_packed_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int nblk = (nout + tile - 1) / tile;
+  pfb_packed_kernel<<<nblk, 256, bytes, st>>>(
+      fy, fhr, static_cast<const float*>(tw), fout, nout, w, a, m, tile);
+  return cudaGetLastError();
 }

@@ -11,7 +11,11 @@ ported so far:
   M in ``fx_body``: ``fx_reg_kernel`` (register-tiled FIR, in-register
   M-point DFTs) for M in {2, 4, 8, 16}, ``fx_tile_kernel`` otherwise.
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
-  branch sums plus per-group inverse DFT of the planar pipeline.
+  branch sums plus per-group inverse DFT of the planar pipeline.  Two
+  ``__global__`` bodies, chosen in ``pfb_packed_body``:
+  ``pfb_packed_reg_kernel`` (register-tiled column FIR, in-register M-point
+  DFTs) for M in {2, 4, 8, 16} where its block fits,
+  ``pfb_packed_kernel`` otherwise.
 - ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
   (``csrc/xengine_gram.cu``'s entry, on the tensor cores in
   ``csrc/xengine_gram_int8.cu`` for int8 and ``csrc/xengine_gram_bf16.cu``
@@ -399,6 +403,57 @@ def _check_packed(y_packed, hr, a: int, m: int):
     return w, nout, gm
 
 
+# the two __global__ bodies of csrc/pfb_packed.cu, by their C body code
+PFB_PACKED_BODIES = ("pfb_packed_kernel", "pfb_packed_reg_kernel")
+PFB_REG_M = (2, 4, 8, 16)
+PFB_REG_ROWS = 32       # pfb_packed_reg_kernel's kPkRows: its C entry
+                        # refuses any other rows a block
+
+
+def pfb_packed_tile(a: int, m: int, body: int) -> int:
+    """Output rows a block of the body with C code ``body``:
+    ``PFB_REG_ROWS`` for ``pfb_packed_reg_kernel`` (one 128-column chunk
+    of min(a, 64/m) antennas), 4096 / (2·a·m) for ``pfb_packed_kernel``
+    (all lanes)."""
+    return PFB_REG_ROWS if body == 1 else max(1, 4096 // (2 * a * m))
+
+
+def _pick_pfb_body(m: int, reg_smem: int, optin: int) -> str:
+    """``pfb_packed_reg_kernel`` for m in {2, 4, 8, 16} where its block's
+    ``reg_smem`` bytes of shared memory fit the card's opt-in ``optin``,
+    ``pfb_packed_kernel`` otherwise."""
+    return (PFB_PACKED_BODIES[1] if m in PFB_REG_M and reg_smem <= optin
+            else PFB_PACKED_BODIES[0])
+
+
+def pfb_packed_body(m: int, w: int, device) -> str:
+    """The kernel body a ``pfb_channelize_packed`` call with ``m`` channels
+    and ``w`` tap rows launches on the CUDA ``device``:
+    ``pfb_packed_reg_kernel`` (register-tiled column FIR, in-register
+    M-point DFTs) for m in {2, 4, 8, 16} wherever its block fits the card's
+    opt-in shared memory, ``pfb_packed_kernel`` otherwise.  A pure choice
+    made before the launch.  A CPU call runs the plain form, which has no
+    body."""
+    if m < 1 or w < 1:
+        raise ValueError(f"need m >= 1 and w >= 1; got {m}, {w}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"pfb_packed_body names a CUDA kernel body; got "
+                         f"{device}")
+    return PFB_PACKED_BODIES[_pfb_body_code(m, w, device.index or 0)]
+
+
+@lru_cache(maxsize=None)
+def _pfb_body_code(m: int, w: int, index: int) -> int:
+    """``pfb_packed_body``'s choice on card ``index``, as the C body code,
+    made once for each (m, w, card)."""
+    if m not in PFB_REG_M:
+        return 0
+    reg_smem = _load().clen_pfb_smem_bytes(1, m, w, PFB_REG_ROWS, 1)
+    return PFB_PACKED_BODIES.index(_pick_pfb_body(m, reg_smem,
+                                                  _smem_optin(index)))
+
+
 def pfb_channelize_packed_plain(y_packed, hr, num_antennas: int, m: int):
     """Plain torch form of ``pfb_channelize_packed`` (any device)."""
     a = num_antennas
@@ -411,7 +466,7 @@ def pfb_channelize_packed_plain(y_packed, hr, num_antennas: int, m: int):
 
 def pfb_channelize_packed(y_packed, hr, num_antennas: int, m: int):
     """Fused PFB filter + per-group inverse DFT (``csrc/pfb_packed.cu`` on
-    CUDA).
+    CUDA, the body ``pfb_packed_body`` names).
 
     Args:
       y_packed: [nout + W - 1, G·M] float32 — lane-packed reversed block
@@ -428,15 +483,17 @@ def pfb_channelize_packed(y_packed, hr, num_antennas: int, m: int):
     if y_packed.dtype != torch.float32 or hr.dtype != torch.float32:
         raise ValueError("y_packed and hr must be float32")
     w, nout, gm = _check_packed(y_packed, hr, a, m)
-    tile = max(1, 4096 // gm)           # output rows per block
+    body = _pfb_body_code(m, w, dev.index)
+    tile = pfb_packed_tile(a, m, body)
     out = torch.empty((nout, gm), dtype=torch.float32, device=dev)
     lib = _load()
     err = lib.clen_pfb_packed(
         y_packed.data_ptr(), hr.data_ptr(), _twiddles(m, dev).data_ptr(),
-        out.data_ptr(), nout, w, a, m, tile, _stream(dev))
+        out.data_ptr(), nout, w, a, m, tile, body, _stream(dev))
     if err != 0:
-        smem = lib.clen_pfb_smem_bytes(a, m, w, tile)
-        raise RuntimeError(f"pfb_packed launch failed: CUDA error {err} "
+        smem = lib.clen_pfb_smem_bytes(a, m, w, tile, body)
+        raise RuntimeError(f"pfb_packed launch failed "
+                           f"({PFB_PACKED_BODIES[body]}): CUDA error {err} "
                            f"({smem} B of shared memory per block)")
     pfb_channelize_packed.launches += 1
     return out

@@ -257,6 +257,8 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.tools.fx_ab",
             "clenabled_tpu_torch.tools.fir_ab",
             "clenabled_tpu_torch.tools.os_ab",
+            "clenabled_tpu_torch.tools.pfb_ab",
+            "clenabled_tpu_torch.tools.step_ab",
             "clenabled_tpu_torch.tools.variant_ab"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
