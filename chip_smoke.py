@@ -1,6 +1,6 @@
 """Drive the PyTorch / CUDA port's FX receive step, X-Engine path, FM
-receive path, oversampled channelizer, spectrum chain and carrier recovery
-once on one NVIDIA H100.
+receive path, oversampled channelizer, spectrum chain, carrier recovery
+and sharded main path once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -136,6 +136,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel runs for 3 s), and the latency bound (``latency_bound_ms``: the
    samples × the loop-carried chain's dependent operations × 4 cycles at
    that clock).
+
+13. sharded main path — a ``torch.distributed`` NCCL group of one rank
+   from a ``file://`` store in a temporary directory, and
+   ``sharding.make_mesh(device="cuda")``; counts reset, then
+   ``make_sharded_fx_pipeline_fused`` at full width (4 antennas × 2^23
+   samples, 16 channels, 400 taps) for 3 chained steps in f32 and int8
+   ingest; counts read (one ``fx_correlate_streams_v2`` launch a step and
+   no other kernel); every output and tail equal bit for bit to
+   ``make_fx_pipeline_fused`` on the same frames (at one rank the ring hop
+   is the identity and the sums add one rank) and within 1e-4 × max|plain|
+   of the plain form; ``fx_reg_kernel`` among the step's kernels
+   (``torch.profiler``), with the device time of each kernel of one
+   sharded and one unsharded step, the NCCL kernels' share, and the step
+   times on CUDA events (unsharded, sharded, sharded, unsharded) beside
+   the collectives' own.  Then the complex64 sharded step at 4 × 2^20
+   against ``make_fx_pipeline`` and the three halo filters (FIR at
+   decimation 4, overlap-add, the 16-channel R = 8 channelizer) against
+   their sequential forms, bit for bit over chained frames; the group is
+   destroyed, and ``entry.dryrun_multichip(1)`` runs its legs in one
+   spawned NCCL rank.  A run on one card has one rank (NCCL refuses two
+   ranks on one card); the exchange between ranks is tested on the CPU.
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -1576,6 +1597,201 @@ def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms) -> dict:
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kernel_share": share}
 
 
+def short_name(name: str) -> str:
+    """A device event's name without its namespace, template arguments and
+    parameters (``void a::b::fx_reg_kernel<float, 16>(...)`` → ``fx_reg_kernel``)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    head = re.split(r"[<(]", name, maxsplit=1)[0]
+    return head.split("::")[-1].strip() or name
+
+
+def step_events(torch, step) -> tuple[dict, float | None]:
+    """(device ms by kernel name, the collectives' ms) of one call of
+    ``step``, from ``torch.profiler``; the collectives' are the NCCL
+    kernels (``ncclDevKernel_*``), None when the trace holds none."""
+    from clenabled_tpu_torch.runtime.device import (_device_events,
+                                                    is_nccl_kernel)
+
+    _, window = _device_events(step, 1, 3)
+    by_name: dict = {}
+    coll = []
+    for name, us in window:
+        key = short_name(name)
+        by_name[key] = by_name.get(key, 0.0) + us / 1e3
+        if is_nccl_kernel(name):
+            coll.append(us / 1e3)
+    return by_name, (sum(coll) if coll else None)
+
+
+def sharded_phase(torch, hk, P, gen, dev) -> dict:
+    """The sharded main path on a world-size-1 NCCL group: the fused step
+    at full width in f32 and int8 for 3 chained steps, counted, bit-equal
+    to ``make_fx_pipeline_fused`` and within TOL of the plain form; the
+    complex64 step at 4 × 2^20 bit-equal to ``make_fx_pipeline``; the three
+    halo filters bit-equal to their sequential forms; then the group is
+    destroyed and ``entry.dryrun_multichip(1)`` runs a rank of its own."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from clenabled_tpu_torch import entry, sharding as S
+    from clenabled_tpu_torch.dsp import (channelizer, fft_filter, fir_filter,
+                                         firdes)
+    from clenabled_tpu_torch.runtime.device import host_ms
+
+    def same(label, gots, wants):
+        for g, w in zip(gots, wants):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"{label}: not bit-equal to the unsharded form")
+
+    out = {"launches": {}, "times": {}, "devices": {}}
+    cfg = P.FxPipelineConfig(num_antennas=A, num_channels=M,
+                             samples_per_step=N_FULL)
+    with tempfile.TemporaryDirectory(prefix="clen_smoke_") as workdir:
+        S.initialize_distributed("cuda", f"file://{workdir}/store", 1, 0)
+        try:
+            mesh = S.make_mesh(device="cuda")
+            phase("sharded", f"NCCL process group of 1 rank from a file "
+                             f"store; {mesh}")
+            for label, dt in (("f32", torch.float32), ("int8", torch.int8)):
+                sfn, (_, _, tr0, ti0) = P.make_sharded_fx_pipeline_fused(
+                    mesh, cfg=cfg, in_dtype=dt)
+                ufn, _ = P.make_fx_pipeline_fused(cfg, in_dtype=dt, device=dev)
+                frs = [(frames(torch, gen, dt, (A, N_FULL), dev),
+                        frames(torch, gen, dt, (A, N_FULL), dev))
+                       for _ in range(STEPS)]
+                torch.cuda.synchronize()
+                hk.reset_launch_counts()
+                outs, tr, ti = [], tr0, ti0
+                for xr, xi in frs:
+                    outs.append(sfn(xr, xi, tr, ti))
+                    tr, ti = outs[-1][3], outs[-1][4]
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in hk.launch_counts().items() if v}
+                out["launches"][label] = counts.get(
+                    "fx_correlate_streams_v2", 0)
+                phase("sharded", f"fused {label} {A}x{N_FULL}, {STEPS} "
+                                 f"chained steps: launches {counts}")
+                if counts != {"fx_correlate_streams_v2": STEPS}:
+                    fail(f"sharded fused {label}: expected one "
+                         f"fx_correlate_streams_v2 launch a step, {counts}")
+                tr, ti = tr0, ti0
+                for k, (xr, xi) in enumerate(frs):
+                    want = ufn(xr, xi, tr, ti)
+                    same(f"sharded fused {label} step {k}", outs[k], want)
+                    fd_sum, gram = hk.fx_correlate_streams_v2_plain(
+                        xr, xi, tr, ti, sfn.taps_rm, A, M)
+                    check(torch, f"sharded fused {label} step {k} vs plain",
+                          outs[k][:3],
+                          (torch.roll(fd_sum / (N_FULL // M), M // 2, dims=-1),
+                           gram[:, :M].T[:, :, None],
+                           gram[:, M:].T[:, :, None]))
+                    tr, ti = want[3], want[4]
+                phase("check", f"sharded fused {label}: {STEPS} steps equal "
+                               f"make_fx_pipeline_fused bit for bit (outputs "
+                               f"and tails)")
+                xr, xi = frs[0]
+                by_name, coll_ms = step_events(
+                    torch, lambda: sfn(xr, xi, tr0, ti0))
+                if not any("fx_reg_kernel" in n for n in by_name):
+                    fail(f"sharded fused {label}: fx_reg_kernel not in the "
+                         f"step's kernels {sorted(by_name)}")
+                u_names, _ = step_events(torch, lambda: ufn(xr, xi, tr0, ti0))
+                t = {"unsharded": [], "sharded": []}
+                for who in ("unsharded", "sharded", "sharded", "unsharded"):
+                    fn = ufn if who == "unsharded" else sfn
+                    t[who].append(time_ms(torch, lambda: fn(xr, xi, tr0, ti0),
+                                          reps=20))
+                # the step's collectives alone, on its shapes: the sums'
+                # all-reduce, the tails' broadcast (the ring hop is the
+                # identity at one rank)
+                sums = torch.zeros((A - 1) * M + A * (A + 1) * M, device=dev)
+                tails = torch.stack([tr0, ti0])
+
+                def coll():
+                    return S.psum(sums, mesh), S.broadcast(tails, mesh, 0)
+
+                t["collectives"] = time_ms(torch, coll, reps=20)
+                t["host"] = {
+                    "unsharded": host_ms(lambda: ufn(xr, xi, tr0, ti0)),
+                    "sharded": host_ms(lambda: sfn(xr, xi, tr0, ti0)),
+                    "collectives": host_ms(coll)}
+                out["times"][label] = t
+                out["devices"][label] = {
+                    "sharded_ms_by_kernel": by_name,
+                    "unsharded_ms_by_kernel": u_names,
+                    "collectives_ms": coll_ms}
+                shown = "none recorded" if coll_ms is None else \
+                    f"{coll_ms:.4f} ms"
+                phase("time", f"sharded fused {label} step (events, 20 "
+                              f"calls, in turns): {t['sharded']} ms against "
+                              f"the unsharded step's {t['unsharded']}; device "
+                              f"time of the collectives' kernels a step: "
+                              f"{shown}; the collectives alone (events) "
+                              f"{t['collectives']:.4f} ms")
+                phase("time", f"sharded fused {label} step, device ms by "
+                              f"kernel: {by_name}; unsharded: {u_names}")
+                phase("time", f"sharded fused {label}: host time to enqueue "
+                              f"a call (ms) {t['host']}")
+                del frs, outs
+            # the complex64 step at 4 x 2^20, on the plain torch forms
+            n_c = 1 << 20
+            ccfg = P.FxPipelineConfig(num_antennas=A, num_channels=M,
+                                      samples_per_step=n_c)
+            sfn, (_, sh) = P.make_sharded_fx_pipeline(mesh, cfg=ccfg)
+            ufn, (_, uh) = P.make_fx_pipeline(ccfg, device=dev)
+            for k in range(2):
+                x = torch.randn((A, n_c), generator=gen, device=dev,
+                                dtype=torch.complex64)
+                so, uo = sfn(x, sh), ufn(x, uh)
+                same(f"sharded complex64 step {k}", so, uo)
+                sh, uh = so[2], uo[2]
+            phase("check", f"sharded complex64 step {A}x{n_c}, 2 chained "
+                           f"steps: equal to make_fx_pipeline bit for bit")
+            # the three halo filters against their sequential forms
+            lp = firdes.low_pass(1.0, 1e6, 100e3, 50e3)
+            rrc = firdes.root_raised_cosine(1.0, 10e6, 1e6, 0.22, 241)
+            ch_taps = firdes.low_pass(1.0, 16.0, 0.5, 0.25)
+            plan = fft_filter.plan_fft_filter(rrc)
+            halos = {
+                "fir d=4": (S.make_sharded_fir_filter(lp, mesh, decimation=4),
+                            fir_filter.make_fir_filter(lp, decimation=4),
+                            1 << 20),
+                "ofa": (S.make_sharded_fft_filter(rrc, mesh)[:2],
+                        fft_filter.make_fft_filter(rrc)[:2],
+                        plan.nsamples * 4096),
+                "channelizer 16/8": (
+                    S.make_sharded_channelizer(ch_taps, 16, 8,
+                                               list(range(16)), mesh),
+                    channelizer.make_channelizer(ch_taps, 16, 8,
+                                                 list(range(16)), device=dev),
+                    1 << 20)}
+            for label, ((i_s, a_s), (i_q, a_q), n) in halos.items():
+                ss, sq = i_s(), i_q().to(dev)
+                for k in range(3):
+                    x = torch.randn(n, generator=gen, device=dev,
+                                    dtype=torch.complex64)
+                    ss, ys = a_s(ss, x)
+                    sq, yq = a_q(sq, x)
+                    same(f"sharded {label} frame {k}", (ys, ss[0]), (yq, sq))
+                phase("check", f"sharded {label}, 3 frames of {n}: equal to "
+                               f"the sequential filter bit for bit")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    legs = entry.dryrun_multichip(1, device="cuda")
+    for leg, vals in legs[0].items():
+        if not all(np.isfinite(np.asarray(v, np.complex64)).all()
+                   for v in vals):
+            fail(f"dryrun_multichip(1) leg {leg}: non-finite output")
+    phase("sharded", f"entry.dryrun_multichip(1, 'cuda'): legs "
+                     f"{sorted(legs[0])} in {time.perf_counter() - t0:.1f} s "
+                     f"(one spawned rank on NCCL)")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1882,6 +2098,11 @@ def main() -> None:
     # 12. carrier recovery, kernel and path
     cor = costas_phase(torch, hk, dev)
     phase("new paths", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 13. the sharded main path on a world-size-1 NCCL group, counted
+    sharded = sharded_phase(torch, hk, P, gen, dev)
+    phase("sharded", f"on {card}")
     print(card, flush=True)
 
     # the least time the card could take for each kernel's work at the
@@ -1944,7 +2165,7 @@ def main() -> None:
     record = {"kernels": [
         dict(entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
                    launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
-             body=hk.fx_body(M),
+             body=hk.fx_body(M), sharded_launches=sharded["launches"],
              ms_plain_ms_by_dtype={k[3:]: times[k] for k in (
                  "fx f32", "fx bf16", "fx int8")},
              dense_dft_bound_ms=bounds["fx dense"][0]),
@@ -2048,7 +2269,8 @@ def main() -> None:
                                                "wall_ms")} for p in fm},
         "fft_bare_ms": spr["bare_ms"],
         "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
-                  "costas": cor["path"], "planar_step": planar}}
+                  "costas": cor["path"], "planar_step": planar,
+                  "sharded": sharded}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

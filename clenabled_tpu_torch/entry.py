@@ -1,0 +1,64 @@
+"""Entry points, the port's twins of the JAX package's ``__graft_entry__``.
+
+- ``entry()``: the planar flagship step (4 antennas × 2^17 samples, 16
+  channels) on the card, as ``(fn, example_args)``.
+- ``dryrun_multichip(n)``: starts n ranks (``sharding.spawn``) and runs one
+  step of each sharded leg ported so far, at the JAX dry run's shapes:
+  leg 1, the complex64 sharded step (4 antennas, 512 samples a rank);
+  leg 1b, the fused sharded step on the hand-written FX kernel for each
+  ingest dtype (2 antennas, ``fx_tail_len(dtype)`` samples a rank: 1024,
+  2048, 4096); leg 2, the time-sharded overlap-add filter (one chunk of
+  ones a rank).  The JAX dry run's legs 2b-3e (the planar OFS halo, the
+  station-sharded and stacked X-Engines, the sharded oversampled PFB, the
+  sharded Costas channels, the sharded correlators) wait for
+  ``planar_halo``, ``xengine_sharded`` and ``xcorr_sharded``, and leg 4
+  (two processes over ``jax.distributed``) for the multi-host tool
+  (ROADMAP.md A.12, A.14).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch.dsp import firdes, hopper_kernels
+from clenabled_tpu_torch.runtime.device import get_context
+from clenabled_tpu_torch.sharding import launch
+from clenabled_tpu_torch.sharding.halo import make_sharded_fft_filter
+
+
+def entry(device=None):
+    """The planar step at 4 × 2^17 (``pipelines.make_fx_pipeline_planar``)
+    on ``device`` (None: ``cuda:0``, raising when no card is visible)."""
+    cfg = P.FxPipelineConfig(num_antennas=4, num_channels=16,
+                             samples_per_step=1 << 17)
+    return P.make_fx_pipeline_planar(cfg, device=device)
+
+
+def _dryrun_rank() -> dict:
+    """One step of each ported leg on this rank; its outputs by leg."""
+    mesh = get_context().mesh
+    out = {}
+    cfg = P.FxPipelineConfig(num_antennas=4, num_channels=16,
+                             samples_per_step=512)
+    fn, args = P.make_sharded_fx_pipeline(mesh, cfg=cfg)
+    out["1"] = fn(*args)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        cfg_f = P.FxPipelineConfig(
+            num_antennas=2, num_channels=16,
+            samples_per_step=hopper_kernels.fx_tail_len(dtype))
+        fnf, argsf = P.make_sharded_fx_pipeline_fused(mesh, cfg=cfg_f,
+                                                      in_dtype=dtype)
+        out[f"1b {hopper_kernels._dtype_name(dtype)}"] = fnf(*argsf)
+    taps = firdes.low_pass(1.0, 1e6, 100e3, 20e3)
+    init_f, apply_f, plan = make_sharded_fft_filter(taps, mesh)
+    out["2"] = apply_f(init_f(), torch.ones(plan.nsamples,
+                                            dtype=torch.complex64))
+    return out
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[dict]:
+    """Run the sharded legs once on ``n_devices`` ranks: NCCL on as many
+    cards (raises when fewer are visible), or gloo with
+    ``device="cpu"``.  Returns each rank's outputs by leg, as numpy."""
+    return launch.spawn(_dryrun_rank, n_devices, device)

@@ -13,9 +13,13 @@ pass ``device="cpu"`` to run the plain torch forms on the host.
 
 The TPU engine selectors of the JAX pipelines (``mxu_dtype``,
 ``branch_mxu``, ``deep_strategy``, ``karatsuba``, ``interpret``,
-``precision``) have no counterpart: the port always multiplies and
-accumulates in float32.  The sharded pipelines are not ported yet
-(ROADMAP.md A.4).
+``precision``, ``tile_rows``) have no counterpart: the port always
+multiplies and accumulates in float32.
+
+The sharded steps (``make_sharded_fx_pipeline[_fused]``) run one rank a
+process over a ``torch.distributed`` ``DeviceMesh`` (``sharding``): the
+stream is time-sharded, each rank holds its [A, L] block, the carried tail
+rides ``ring_forward`` and the sums ``psum``.
 
 The ``*_from_reference`` functions hand state over from the JAX package:
 the FX step's tails, an X-Engine integration, and a whole ``Runner``'s
@@ -35,7 +39,10 @@ from clenabled_tpu_torch.dsp import channelizer as dsp_chan
 from clenabled_tpu_torch.dsp import firdes, hopper_kernels, planar
 from clenabled_tpu_torch.dsp import xcorr as dsp_xcorr
 from clenabled_tpu_torch.dsp import xengine as dsp_xengine
-from clenabled_tpu_torch.runtime.device import get_device
+from clenabled_tpu_torch.runtime.device import get_device, mesh_device
+from clenabled_tpu_torch.sharding.collectives import (axis_index, axis_size,
+                                                      broadcast, pmean, psum,
+                                                      ring_forward)
 
 _IN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
@@ -223,6 +230,137 @@ def make_fx_pipeline_fused(cfg: FxPipelineConfig = FxPipelineConfig(),
     fn = FxPipelineFused(taps_rm, a, m, n, big_h, fd_pairs, xe_pairs, dev)
     x = torch.zeros((a, n), dtype=dtype, device=dev)
     tail = torch.zeros((a, big_h), dtype=dtype, device=dev)
+    return fn, (x, x, tail, tail)
+
+
+class ShardedFxPipeline(nn.Module):
+    """The complex64 step on one rank: forward(x [A, L] this rank's
+    block, hist [A, T-1] replicated) → (fd_avg [A-1, M], xmat [M, nb, 1],
+    new_hist [A, T-1]), the same on every rank of the axis."""
+
+    def __init__(self, taps_rm, ntaps: int, m: int, mesh, axis: str,
+                 device: torch.device):
+        super().__init__()
+        self.m, self.ntaps, self.mesh, self.axis = m, ntaps, mesh, axis
+        self.idx = axis_index(mesh, axis)
+        self.register_buffer("taps_rm", torch.as_tensor(taps_rm, device=device))
+        self.register_buffer("ch_map", torch.arange(m, device=device))
+
+    def forward(self, x, hist):
+        m, mesh, axis = self.m, self.mesh, self.axis
+        recv = ring_forward(_tail(x, self.ntaps - 1), mesh, axis)
+        full = torch.cat([hist if self.idx == 0 else recv, x], dim=-1)
+        spectra = dsp_chan._channelize(
+            full, self.taps_rm, self.ch_map, num_channels=m,
+            ninputs_per_iter=m, ntaps=self.ntaps)           # [A, L/M, M]
+        fd = pmean(dsp_xcorr.fd_xcorr(spectra).mean(dim=1), mesh, axis)
+        z = spectra.permute(1, 0, 2)[..., None]             # [T, S, F, 1]
+        xmat = psum(dsp_xengine.xengine_correlate(z, npol=1), mesh, axis)
+        # the frame's tail, for the next step: what rank 0 received
+        return fd, xmat, broadcast(recv, mesh, 0, axis)
+
+
+def make_sharded_fx_pipeline(mesh, axis: str = "shard",
+                             cfg: FxPipelineConfig = FxPipelineConfig(),
+                             samp_rate: float = 100e6):
+    """The complex64 step time-sharded over ``axis`` of ``mesh``: each rank
+    channelizes its block with the previous rank's input tail as its halo
+    (``hist`` on rank 0), averages its FD cross-correlation and integrates
+    its Gram, then ``pmean`` and ``psum`` over the axis.  Collectives a
+    step: one ring hop, two all-reduces and one broadcast.
+
+    ``cfg.samples_per_step`` is the block L a rank; the global frame is
+    D · L.  Returns (fn, example_args): fn an ``nn.Module`` on this rank's
+    device, the arguments this rank's zero [A, L] block and hist."""
+    dev = mesh_device(mesh)
+    a, m, n_local = cfg.num_antennas, cfg.num_channels, cfg.samples_per_step
+    taps_rm, ntaps = _prototype(m, samp_rate)
+    if n_local < ntaps - 1:
+        raise ValueError(
+            f"per-shard block ({n_local}) must be >= the channelizer halo "
+            f"({ntaps - 1} samples)")
+    fn = ShardedFxPipeline(taps_rm, ntaps, m, mesh, axis, dev)
+    x = torch.zeros((a, n_local), dtype=torch.complex64, device=dev)
+    hist = torch.zeros((a, ntaps - 1), dtype=torch.complex64, device=dev)
+    return fn, (x, hist)
+
+
+class ShardedFxPipelineFused(nn.Module):
+    """The fused step on one rank: forward(xr, xi [A, L] this rank's
+    block, tr, ti [A, H] the global stream's tail, replicated) → (fd
+    [A-1, M], xre, xim [M, nb, 1], new_tr, new_ti), the same on every rank
+    of the axis."""
+
+    def __init__(self, taps_rm, a: int, m: int, n_local: int, tail_len: int,
+                 mesh, axis: str, device: torch.device):
+        super().__init__()
+        self.a, self.m, self.n_local, self.tail_len = a, m, n_local, tail_len
+        self.mesh, self.axis = mesh, axis
+        self.idx, self.d = axis_index(mesh, axis), axis_size(mesh, axis)
+        self.nout_total = n_local * self.d // m
+        self.register_buffer("taps_rm", torch.as_tensor(taps_rm, device=device))
+
+    def forward(self, xr, xi, tr, ti):
+        a, m, n, h = self.a, self.m, self.n_local, self.tail_len
+        mesh, axis = self.mesh, self.axis
+        if xr.shape[-1] != n:
+            raise ValueError(f"block length {xr.shape[-1]} != samples_per_step "
+                             f"{n}")
+        xr, xi, tr, ti = (t.contiguous() for t in (xr, xi, tr, ti))
+        # this rank's tail: the left neighbour's last samples (rank 0: the
+        # previous step's, carried)
+        mine = torch.stack([xr[:, n - h:], xi[:, n - h:]])
+        recv = ring_forward(mine, mesh, axis)
+        my_tr, my_ti = (tr, ti) if self.idx == 0 else (recv[0], recv[1])
+        fd_sum, gram = hopper_kernels.fx_correlate_streams_v2(
+            xr, xi, my_tr, my_ti, self.taps_rm, a, m)
+        sums = psum(torch.cat([fd_sum.reshape(-1), gram.reshape(-1)]),
+                    mesh, axis)
+        fd_sum, gram = (sums[: fd_sum.numel()].view(fd_sum.shape),
+                        sums[fd_sum.numel():].view(gram.shape))
+        fd = torch.roll(fd_sum / self.nout_total, m // 2, dims=-1)
+        xre = gram[:, :m].T[:, :, None]
+        xim = gram[:, m:].T[:, :, None]
+        # the next step's tail: the last rank's frame tail, on every rank
+        new = broadcast(mine, mesh, self.d - 1, axis)
+        return fd, xre, xim, new[0], new[1]
+
+
+def make_sharded_fx_pipeline_fused(mesh, axis: str = "shard",
+                                   cfg: FxPipelineConfig = FxPipelineConfig(),
+                                   samp_rate: float = 100e6,
+                                   in_dtype=torch.float32):
+    """The fused step time-sharded over ``axis`` of ``mesh``, the
+    hand-written kernel (``hopper_kernels.fx_correlate_streams_v2``) on
+    every rank's block: the carried tail rides the ring (rank i's is rank
+    i-1's last ``fx_tail_len(in_dtype)`` samples; rank 0's the previous
+    step's), the FD and Gram sums are summed over the axis, and the next
+    tails are the last rank's, broadcast.  Collectives a step: one ring
+    hop, one all-reduce and one broadcast.
+
+    ``cfg.samples_per_step`` is the block L a rank: at least the tail, a
+    multiple of M.  The tail is ``fx_tail_len(in_dtype)`` as JAX's
+    sharded step takes it (1024/2048/4096 samples for float32/bfloat16/
+    int8; the default 400-tap prototype fits in each).  JAX's ``tile_rows``
+    rule, which also asks L / 128 for a power-of-two factor of at least
+    tail / 128 rows, tiles the TPU kernel only and is dropped.  Returns
+    (fn, example_args): fn an ``nn.Module`` on this rank's device, the
+    arguments this rank's zero [A, L] blocks and the replicated tails."""
+    dev = mesh_device(mesh)
+    a, m, n_local = cfg.num_antennas, cfg.num_channels, cfg.samples_per_step
+    dtype = _IN_DTYPES[hopper_kernels._dtype_name(in_dtype)]
+    taps_rm, ntaps = _prototype(m, samp_rate)
+    tail_len = hopper_kernels.fx_tail_len(dtype)
+    if n_local < tail_len:
+        raise ValueError(f"per-shard block ({n_local}) must be >= the "
+                         f"carried tail ({tail_len} samples)")
+    if n_local % m:
+        raise ValueError(f"per-shard block ({n_local}) must be a multiple "
+                         f"of {m}")
+    fn = ShardedFxPipelineFused(taps_rm, a, m, n_local, tail_len, mesh, axis,
+                                dev)
+    x = torch.zeros((a, n_local), dtype=dtype, device=dev)
+    tail = torch.zeros((a, tail_len), dtype=dtype, device=dev)
     return fn, (x, x, tail, tail)
 
 

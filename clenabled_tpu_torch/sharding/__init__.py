@@ -1,0 +1,37 @@
+"""Sharding layer: multi-card execution over a ``torch.distributed`` mesh.
+
+The port of ``clenabled_tpu.sharding`` so far: the data shard across the
+ranks of a ``DeviceMesh`` (one process a rank, NCCL on the cards or gloo on
+the CPU) and the reference's sequential carried state becomes
+communication:
+
+- ``mesh``: ``initialize_distributed`` and ``make_mesh``;
+- ``collectives``: ``ring_forward`` (JAX's ``ppermute`` on the forward
+  ring), ``psum``, ``pmean``, ``broadcast``, ``axis_index``, ``axis_size``;
+- ``halo``: the time-sharded FIR, overlap-add filter and PFB channelizer,
+  a ring halo each, bit-compatible with the sequential filters;
+- ``launch``: ``spawn``, which starts the ranks of a run.
+
+The sharded FX steps are ``pipelines.make_sharded_fx_pipeline[_fused]``.
+Not ported yet (ROADMAP.md A.12): ``planar_halo``, ``chain``,
+``xengine_sharded`` and ``xcorr_sharded``.
+"""
+
+from clenabled_tpu_torch.sharding.collectives import (  # noqa: F401
+    axis_index,
+    axis_size,
+    broadcast,
+    pmean,
+    psum,
+    ring_forward,
+)
+from clenabled_tpu_torch.sharding.halo import (  # noqa: F401
+    make_sharded_channelizer,
+    make_sharded_fft_filter,
+    make_sharded_fir_filter,
+)
+from clenabled_tpu_torch.sharding.launch import spawn  # noqa: F401
+from clenabled_tpu_torch.sharding.mesh import (  # noqa: F401
+    initialize_distributed,
+    make_mesh,
+)

@@ -259,9 +259,20 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.tools.os_ab",
             "clenabled_tpu_torch.tools.pfb_ab",
             "clenabled_tpu_torch.tools.step_ab",
-            "clenabled_tpu_torch.tools.variant_ab"]
+            "clenabled_tpu_torch.tools.variant_ab",
+            "clenabled_tpu_torch.sharding",
+            "clenabled_tpu_torch.sharding.mesh",
+            "clenabled_tpu_torch.sharding.collectives",
+            "clenabled_tpu_torch.sharding.halo",
+            "clenabled_tpu_torch.sharding.launch",
+            "clenabled_tpu_torch.entry",
+            "clenabled_tpu_torch.tools.sharded_scaling"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from clenabled_tpu_torch.runtime import (DeviceContext, "
+            "get_context, set_default_mesh)\n"
+            "from clenabled_tpu_torch.pipelines import ("
+            "make_sharded_fx_pipeline, make_sharded_fx_pipeline_fused)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' "
             "or k.startswith(('jax.', 'jaxlib', 'clenabled_tpu.')))\n"
             "print(bad)\n"

@@ -1,0 +1,624 @@
+"""Port parity: the sharded steps over ``torch.distributed`` against JAX's.
+
+Three runs of gloo ranks on the CPU (``sharding.spawn``): world sizes 2
+and 4 on a 1-D ``"shard"`` mesh, and a 2-D ``{"host": 2, "shard": 2}``
+mesh whose ring and sums run over ``"shard"`` (each host row computes the
+same stream).  Each run does all of its cases at once
+(``torch_sharding_ranks.run_cases``) on the same numpy inputs, made from a
+seed, that JAX's sharded functions take on a mesh of as many CPU devices.
+Outputs are held to 1e-4 × max|ref| (``tests/test_sharding.py``'s
+tolerance), carried tails and ring hops bit for bit, over chained steps.
+
+The fused step with bfloat16 or int8 ingest: the port multiplies in
+float32 and JAX's sharded step in bfloat16 (its MXU operands), which
+moves its sums past 1e-3 × max|ref|; so the sums are held at 1e-4 to
+JAX's unsharded fused step over the joined stream (``mxu_dtype=float32``,
+as ``tests/test_torch_pipelines.py`` does), and the carried tails to that
+step and to JAX's own sharded step bit for bit.
+
+In-process cases run a gloo group of world size 1: there the sharded
+steps and filters equal the unsharded ones bit for bit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+try:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec
+
+    from clenabled_tpu import pipelines as J
+    from clenabled_tpu import sharding as JS
+except ImportError:  # a card machine without JAX runs the card tests only
+    jax = None
+
+import torch_sharding_ranks as R
+from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch import sharding as S
+from clenabled_tpu_torch.dsp import channelizer as t_chan
+from clenabled_tpu_torch.dsp import fft_filter as t_ofa
+from clenabled_tpu_torch.dsp import fir_filter as t_fir
+from clenabled_tpu_torch.dsp import firdes
+from clenabled_tpu_torch.entry import dryrun_multichip, entry
+from clenabled_tpu_torch.runtime import device as t_device
+
+REL = 1e-4
+# world size, mesh shape (None: 1-D "shard" over the world), shard-axis size
+SPECS = {"2": (2, None, 2), "4": (4, None, 4),
+         "2x2": (4, {"host": 2, "shard": 2}, 2)}
+FX_CFG = dict(num_antennas=4, num_channels=16, samples_per_step=512)
+FUSED_N = {"float32": 1024, "bfloat16": 2048, "int8": 4096}   # fx_tail_len
+
+
+def close(got, want, rel=REL):
+    got, want = np.asarray(got, np.complex128), np.asarray(want, np.complex128)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rel,
+                               atol=rel * np.abs(want).max())
+
+
+def equal(got, want):
+    np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                  np.asarray(want, np.float32))
+
+
+def _cplx(rng, *shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _real(rng, dt: str, shape):
+    if dt == "int8":
+        return rng.integers(-127, 128, shape).astype(np.int8)
+    x = rng.standard_normal(shape).astype(np.float32)
+    # bfloat16 values, handed over as the float32 that holds them exactly
+    return torch.from_numpy(x).to(getattr(torch, dt)).float().numpy()
+
+
+def _fir_taps(decimation: int):
+    if decimation == 1:
+        return firdes.low_pass(1.0, 1e6, 100e3, 50e3)
+    return firdes.low_pass(1.0, 1e6, 50e3, 25e3)
+
+
+def _ofa_taps():
+    return firdes.root_raised_cosine(1.0, 10e6, 1e6, 0.22, 241)
+
+
+def _chan_taps(m: int):
+    return firdes.low_pass(1.0, float(m), 0.5, 0.25)
+
+
+def _cases(spec: str) -> dict:
+    """name → (kind, params, global frames) of one run."""
+    d = SPECS[spec][2]
+    rng = np.random.default_rng(40 + len(spec) + d)
+    cases = {
+        "ring_float32": ("ring", {}, [rng.standard_normal(
+            (3, 5 * d)).astype(np.float32)]),
+        "ring_int8": ("ring", {}, [_real(rng, "int8", (2, 7 * d))]),
+        "fir_1": ("fir", {"taps": _fir_taps(1), "decimation": 1},
+                  [_cplx(rng, 512 * d) for _ in range(3)]),
+        "fx": ("fx", {"cfg": FX_CFG},
+               [_cplx(rng, 4, 512 * d) for _ in range(2)]),
+        "fused_float32": ("fused", {"dtype": "float32", "cfg": dict(
+            num_antennas=2, num_channels=16, samples_per_step=1024)},
+            [(_real(rng, "float32", (2, 1024 * d)),
+              _real(rng, "float32", (2, 1024 * d))) for _ in range(2)]),
+    }
+    if spec == "2x2":
+        return cases
+    cases["fir_4"] = ("fir", {"taps": _fir_taps(4), "decimation": 4},
+                      [_cplx(rng, 1024 * d) for _ in range(2)])
+    plan_n = t_ofa.plan_fft_filter(_ofa_taps()).nsamples
+    cases["ofa"] = ("ofa", {"taps": _ofa_taps()},
+                    [_cplx(rng, 4 * plan_n * d) for _ in range(3)])
+    for r in (8, 4):
+        cases[f"chan_8_{r}"] = ("chan", {"taps": _chan_taps(8), "m": 8, "r": r},
+                                [_cplx(rng, 16 * 8 * d) for _ in range(2)])
+    for dt in ("bfloat16", "int8"):
+        n = FUSED_N[dt]
+        cases[f"fused_{dt}"] = ("fused", {"dtype": dt, "cfg": dict(
+            num_antennas=2, num_channels=16, samples_per_step=n)},
+            [(_real(rng, dt, (2, n * d)), _real(rng, dt, (2, n * d)))
+             for _ in range(2)])
+    return cases
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """spec → (cases, rows): the ranks' results of one spawn, in host rows
+    ordered by shard index."""
+    if jax is None:
+        pytest.skip("needs JAX, the reference")
+    done = {}
+
+    def get(spec: str):
+        if spec not in done:
+            world, shape, d = SPECS[spec]
+            cases = _cases(spec)
+            res = S.spawn(R.run_cases, world, "cpu", shape, cases)
+            rows = [res[h * d:(h + 1) * d] for h in range(world // d)]
+            for row in rows:
+                assert [r["index"] for r in row] == list(range(d))
+            done[spec] = cases, [[r["cases"] for r in row] for row in rows]
+        return done[spec]
+
+    return get
+
+
+def _jmesh(spec: str):
+    world, shape, _ = SPECS[spec]
+    return JS.make_mesh(shape, devices=jax.devices()[:world])
+
+
+def _joined(row, name: str, pick):
+    """A time-sharded output of every step, its rank blocks joined."""
+    steps = len(row[0][name][0])
+    return [np.concatenate([pick(r[name], k) for r in row], axis=0)
+            for k in range(steps)]
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("dt", ["float32", "int8"])
+def test_ring_forward(runs, spec, dt):
+    cases, rows = runs(spec)
+    (x,) = cases[f"ring_{dt}"][2]
+    jmesh = _jmesh(spec)
+    d = jmesh.shape["shard"]
+    spec_p = PartitionSpec(None, "shard")
+    hop = jax.jit(jax.shard_map(
+        lambda v: jax.lax.ppermute(v, "shard",
+                                   [(j, (j + 1) % d) for j in range(d)]),
+        mesh=jmesh, in_specs=spec_p, out_specs=spec_p))
+    want = np.asarray(hop(jnp.asarray(x)))
+    for row in rows:
+        got = np.concatenate([r[f"ring_{dt}"][0] for r in row], axis=-1)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def _check_stream(row, name, frames, jinit, japply, exact_state=True):
+    """Chained frames through JAX's sharded filter: outputs joined over
+    the ranks within 1e-4, the [D, K-1] state row by row bit for bit (an
+    input tail) or within 1e-4 (the overlap-add's output tail)."""
+    got = _joined(row, name, lambda c, k: c[0][k])
+    state = jinit()
+    for k, x in enumerate(frames):
+        state, want = japply(state, x)
+        close(got[k], want)
+    mine = np.concatenate([r[name][1] for r in row])
+    if exact_state:
+        equal(mine.view(np.float32), np.asarray(state).view(np.float32))
+    else:
+        close(mine, state)
+
+
+@pytest.mark.parametrize("spec,decimation",
+                         [("2", 1), ("2", 4), ("4", 1), ("4", 4), ("2x2", 1)])
+def test_sharded_fir(runs, spec, decimation):
+    cases, rows = runs(spec)
+    name = f"fir_{decimation}"
+    jinit, japply = JS.make_sharded_fir_filter(
+        _fir_taps(decimation), _jmesh(spec), decimation=decimation)
+    for row in rows:
+        _check_stream(row, name, cases[name][2], jinit, japply)
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+def test_sharded_ofa(runs, spec):
+    cases, rows = runs(spec)
+    jinit, japply, _ = JS.make_sharded_fft_filter(_ofa_taps(), _jmesh(spec))
+    _check_stream(rows[0], "ofa", cases["ofa"][2], jinit, japply,
+                  exact_state=False)
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+@pytest.mark.parametrize("r", [8, 4])
+def test_sharded_channelizer(runs, spec, r):
+    cases, rows = runs(spec)
+    jinit, japply = JS.make_sharded_channelizer(
+        _chan_taps(8), 8, r, list(range(8)), _jmesh(spec))
+    _check_stream(rows[0], f"chan_8_{r}", cases[f"chan_8_{r}"][2], jinit,
+                  japply)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_fx_pipeline(runs, spec):
+    cases, rows = runs(spec)
+    jfn, (_, hist) = J.make_sharded_fx_pipeline(
+        _jmesh(spec), cfg=J.FxPipelineConfig(**FX_CFG))
+    for k, x in enumerate(cases["fx"][2]):
+        fd, xmat, hist = jfn(x, hist)
+        for row in rows:
+            for r in row:                  # replicated on every rank
+                got = r["fx"][k]
+                close(got[0], fd)
+                close(got[1], xmat)
+                equal(got[2].view(np.float32),
+                      np.asarray(hist).view(np.float32))
+
+
+def _jax_fused_steps(fn, tails, frames, dt):
+    tr, ti = tails
+    outs = []
+    for xr, xi in frames:
+        o = fn(jnp.asarray(xr.astype(dt)), jnp.asarray(xi.astype(dt)), tr, ti)
+        outs.append([np.asarray(v, np.float32) for v in o])
+        tr, ti = o[3], o[4]
+    return outs
+
+
+def _jax_sharded_fused(spec, dt, cfg, frames):
+    """JAX's sharded fused step over the frames."""
+    fn, (_, _, tr, ti) = J.make_sharded_fx_pipeline_fused(
+        _jmesh(spec), cfg=J.FxPipelineConfig(**cfg), in_dtype=jnp.dtype(dt),
+        interpret=True)
+    return _jax_fused_steps(fn, (tr, ti), frames, dt)
+
+
+@pytest.mark.parametrize("spec,dt", [("2", "float32"), ("2", "bfloat16"),
+                                     ("2", "int8"), ("4", "float32"),
+                                     ("4", "bfloat16"), ("4", "int8"),
+                                     ("2x2", "float32")])
+def test_sharded_fused(runs, spec, dt):
+    cases, rows = runs(spec)
+    _, params, frames = cases[f"fused_{dt}"]
+    cfg = params["cfg"]
+    d = SPECS[spec][2]
+    sharded = _jax_sharded_fused(spec, dt, cfg, frames)
+    if dt == "float32":
+        ref = sharded
+    else:
+        # the unsharded step over the joined stream, float32 operands
+        whole = dict(cfg, samples_per_step=cfg["samples_per_step"] * d)
+        jfn, (_, _, tr, ti) = J.make_fx_pipeline_fused(
+            J.FxPipelineConfig(**whole), in_dtype=jnp.dtype(dt),
+            interpret=True, mxu_dtype=jnp.float32)
+        ref = _jax_fused_steps(jfn, (tr, ti), frames, dt)
+    for k in range(len(frames)):
+        for row in rows:
+            for r in row:                  # replicated on every rank
+                got = r[f"fused_{dt}"][k]
+                for g, w in zip(got[:3], ref[k][:3]):
+                    close(g, w)
+                for i in (3, 4):           # the tails: both references
+                    equal(got[i], ref[k][i])
+                    equal(got[i], sharded[k][i])
+
+
+# --------------------------------------------------------------------------
+# In-process: a gloo group of world size 1
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def world1():
+    """A 1-D CPU mesh over a gloo group of one rank, torn down after."""
+    with tempfile.TemporaryDirectory() as workdir:
+        S.initialize_distributed("cpu", f"file://{workdir}/store", 1, 0)
+        try:
+            yield S.make_mesh(device="cpu")
+        finally:
+            dist.destroy_process_group()
+
+
+def _seeded(dt: str, shape, seed: int, n: int = 2):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(_real(rng, dt, shape)).to(getattr(torch, dt))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "int8"])
+def test_world1_fused_equals_unsharded(world1, dt):
+    n = FUSED_N[dt]
+    cfg = P.FxPipelineConfig(num_antennas=2, num_channels=16,
+                             samples_per_step=n)
+    sfn, (_, _, str_, sti) = P.make_sharded_fx_pipeline_fused(
+        world1, cfg=cfg, in_dtype=getattr(torch, dt))
+    ufn, (_, _, utr, uti) = P.make_fx_pipeline_fused(
+        cfg, in_dtype=getattr(torch, dt), device="cpu")
+    assert str_.shape == utr.shape and str_.dtype == utr.dtype
+    for step in range(2):
+        xr, xi = _seeded(dt, (2, n), 60 + step)
+        so = sfn(xr, xi, str_, sti)
+        uo = ufn(xr, xi, utr, uti)
+        for g, w in zip(so, uo):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        str_, sti, utr, uti = so[3], so[4], uo[3], uo[4]
+
+
+def test_world1_fx_pipeline_equals_unsharded(world1):
+    cfg = P.FxPipelineConfig(**FX_CFG)
+    sfn, (_, sh) = P.make_sharded_fx_pipeline(world1, cfg=cfg)
+    ufn, (_, uh) = P.make_fx_pipeline(cfg, device="cpu")
+    rng = np.random.default_rng(61)
+    for _ in range(2):
+        x = torch.from_numpy(_cplx(rng, 4, 512))
+        so, uo = sfn(x, sh), ufn(x, uh)
+        for g, w in zip(so, uo):
+            assert torch.equal(g, w)
+        sh, uh = so[2], uo[2]
+
+
+def test_no_group_is_one_rank(monkeypatch):
+    """mesh=None: one rank, no process group, identity collectives; the
+    default context is one rank on cuda:0 and raises without a card."""
+    assert not dist.is_initialized()
+    t = torch.arange(5.0)
+    for op in (S.psum, S.pmean):
+        assert torch.equal(op(t, None), t)
+    assert S.ring_forward(t, None) is t
+    assert S.broadcast(t, None, 0) is t
+    assert (S.axis_size(None), S.axis_index(None)) == (1, 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_device.get_context()
+
+
+def test_context_is_the_group_mesh(world1):
+    ctx = t_device.get_context()
+    assert ctx.mesh.mesh_dim_names == ("shard",)
+    assert (ctx.num_devices, ctx.platform, ctx.device.type) == (1, "cpu",
+                                                                "cpu")
+    assert t_device.get_context() is ctx
+    two_d = S.make_mesh({"host": 1, "shard": 1}, device="cpu")
+    assert t_device.set_default_mesh(two_d).mesh is two_d
+    assert t_device.get_context().mesh is two_d
+
+
+@pytest.mark.parametrize("kind", ["fir", "ofa", "chan_8", "chan_4"])
+def test_world1_halo_equals_sequential(world1, kind):
+    rng = np.random.default_rng(62)
+    if kind == "fir":
+        init_s, apply_s = S.make_sharded_fir_filter(_fir_taps(4), world1,
+                                                    decimation=4)
+        init_q, apply_q = t_fir.make_fir_filter(_fir_taps(4), decimation=4)
+        n = 1024
+    elif kind == "ofa":
+        init_s, apply_s, plan = S.make_sharded_fft_filter(_ofa_taps(), world1)
+        init_q, apply_q, _ = t_ofa.make_fft_filter(_ofa_taps())
+        n = 4 * plan.nsamples
+    else:
+        r = int(kind[-1])
+        init_s, apply_s = S.make_sharded_channelizer(
+            _chan_taps(8), 8, r, list(range(8)), world1)
+        init_q, apply_q = t_chan.make_channelizer(
+            _chan_taps(8), 8, r, list(range(8)), device="cpu")
+        n = 128
+    ss, sq = init_s(), init_q()
+    for _ in range(3):
+        x = torch.from_numpy(_cplx(rng, n))
+        ss, ys = apply_s(ss, x)
+        sq, yq = apply_q(sq, x)
+        assert torch.equal(ys, yq)
+        assert torch.equal(ss[0], sq)
+
+
+def test_short_blocks_raise(world1):
+    """The block-size checks JAX makes, and the halo every block feeds."""
+    for dt, tail in (("float32", 1024), ("int8", 4096)):
+        cfg = P.FxPipelineConfig(num_antennas=2, samples_per_step=tail - 16)
+        with pytest.raises(ValueError, match="carried tail"):
+            P.make_sharded_fx_pipeline_fused(world1, cfg=cfg,
+                                             in_dtype=getattr(torch, dt))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        P.make_sharded_fx_pipeline_fused(
+            world1, cfg=P.FxPipelineConfig(samples_per_step=1032))
+    with pytest.raises(ValueError, match="channelizer halo"):
+        P.make_sharded_fx_pipeline(
+            world1, cfg=P.FxPipelineConfig(samples_per_step=398))
+    x = torch.zeros(40, dtype=torch.complex64)
+    init, apply = S.make_sharded_fir_filter(_fir_taps(1), world1)
+    with pytest.raises(ValueError, match="halo"):
+        apply(init(), x)
+    init, apply = S.make_sharded_channelizer(_chan_taps(8), 8, 8,
+                                             list(range(8)), world1)
+    with pytest.raises(ValueError, match="halo"):
+        apply(init(), x)
+    init, apply, plan = S.make_sharded_fft_filter(_ofa_taps(), world1)
+    with pytest.raises(ValueError, match="nsamples"):
+        apply(init(), torch.zeros(plan.nsamples + 1))
+
+
+def test_short_blocks_raise_in_jax():
+    """The same blocks JAX refuses (the reference's checks)."""
+    if jax is None:
+        pytest.skip("needs JAX, the reference")
+    mesh = JS.make_mesh(devices=jax.devices()[:1])
+    for dt, tail in ((jnp.float32, 1024), (jnp.int8, 4096)):
+        cfg = J.FxPipelineConfig(num_antennas=2, samples_per_step=tail - 16)
+        with pytest.raises(ValueError):
+            J.make_sharded_fx_pipeline_fused(mesh, cfg=cfg, in_dtype=dt)
+    with pytest.raises(ValueError):
+        J.make_sharded_fx_pipeline(
+            mesh, cfg=J.FxPipelineConfig(samples_per_step=398))
+
+
+def test_tile_rows_rule_dropped(world1):
+    """1152 samples a rank: JAX's sharded step refuses the block (1152/128
+    = 9 rows has no power-of-two tile of 8 rows or more, a TPU tiling
+    rule); the port takes it and equals its unsharded step."""
+    n = 1152
+    if jax is not None:
+        mesh = JS.make_mesh(devices=jax.devices()[:1])
+        with pytest.raises(ValueError, match="too small"):
+            J.make_sharded_fx_pipeline_fused(
+                mesh, cfg=J.FxPipelineConfig(num_antennas=2,
+                                             samples_per_step=n))
+    cfg = P.FxPipelineConfig(num_antennas=2, samples_per_step=n)
+    sfn, (_, _, tr, ti) = P.make_sharded_fx_pipeline_fused(world1, cfg=cfg)
+    ufn, _ = P.make_fx_pipeline_fused(cfg, device="cpu")
+    xr, xi = _seeded("float32", (2, n), 63)
+    for g, w in zip(sfn(xr, xi, tr, ti), ufn(xr, xi, tr, ti)):
+        assert torch.equal(g, w)
+
+
+def test_make_mesh_checks(world1, monkeypatch):
+    with pytest.raises(ValueError, match="mesh shape"):
+        S.make_mesh({"shard": 2}, device="cpu")
+    with pytest.raises(ValueError, match="nccl"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        S.make_mesh(device="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.make_mesh(device="cuda")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        S.make_mesh(device="tpu")
+
+
+def test_make_mesh_needs_a_group():
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        S.make_mesh(device="cpu")
+
+
+def test_entry_is_the_planar_step():
+    fn, args = entry(device="cpu")
+    cfg = P.FxPipelineConfig(num_antennas=4, num_channels=16,
+                             samples_per_step=1 << 17)
+    ref, ref_args = P.make_fx_pipeline_planar(cfg, device="cpu")
+    assert [a.shape for a in args] == [(4, 1 << 17)] * 2 + [(4, 399)] * 2
+    rng = np.random.default_rng(64)
+    xs = [torch.from_numpy(rng.standard_normal((4, 1 << 17)).astype(
+        np.float32)) for _ in range(2)]
+    for g, w in zip(fn(*xs, *args[2:]), ref(*xs, *ref_args[2:])):
+        assert torch.equal(g, w)
+
+
+def test_dryrun_multichip_on_cpu():
+    res = dryrun_multichip(2, device="cpu")
+    assert len(res) == 2
+    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2"}
+    for r in res:
+        assert set(r) == legs
+        assert all(np.isfinite(np.asarray(v, np.complex64)).all()
+                   for leg in r.values() for v in leg)
+    for leg in ("1", "1b float32", "1b bfloat16", "1b int8"):
+        for g, w in zip(res[0][leg], res[1][leg]):   # replicated outputs
+            np.testing.assert_array_equal(g, w)
+    plan = t_ofa.plan_fft_filter(firdes.low_pass(1.0, 1e6, 100e3, 20e3))
+    assert res[0]["2"][1].shape == (plan.nsamples,)
+
+
+def test_spawn_checks():
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        S.spawn(R.run_cases, 2, "tpu", None, {})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cards"):
+            S.spawn(R.run_cases, 2, "cuda", None, {})
+
+
+@pytest.mark.cuda
+def test_world1_nccl_fused_equals_unsharded_on_card():
+    """World size 1 on NCCL: the sharded fused step on the hand-written
+    kernel equals the unsharded step bit for bit on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as workdir:
+        S.initialize_distributed("cuda", f"file://{workdir}/store", 1, 0)
+        try:
+            mesh = S.make_mesh(device="cuda")
+            for dt in ("float32", "int8"):
+                n = 1 << 16
+                cfg = P.FxPipelineConfig(num_antennas=4, num_channels=16,
+                                         samples_per_step=n)
+                sfn, (_, _, str_, sti) = P.make_sharded_fx_pipeline_fused(
+                    mesh, cfg=cfg, in_dtype=getattr(torch, dt))
+                ufn, (_, _, utr, uti) = P.make_fx_pipeline_fused(
+                    cfg, in_dtype=getattr(torch, dt), device=dev)
+                before = P.hopper_kernels.fx_correlate_streams_v2.launches
+                for step in range(2):
+                    xr, xi = (x.to(dev) for x in _seeded(dt, (4, n),
+                                                         70 + step))
+                    so = sfn(xr, xi, str_, sti)
+                    uo = ufn(xr, xi, utr, uti)
+                    for g, w in zip(so, uo):
+                        assert torch.equal(g, w)
+                    str_, sti, utr, uti = so[3], so[4], uo[3], uo[4]
+                assert (P.hopper_kernels.fx_correlate_streams_v2.launches
+                        - before) == 4
+        finally:
+            dist.destroy_process_group()
+
+
+def test_rank_module_imports_no_jax():
+    """The rank functions' module, which every child imports, leaves JAX
+    and the JAX package unimported."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys\n"
+            f"sys.path[:0] = [{here!r}, {os.path.dirname(here)!r}]\n"
+            "import torch_sharding_ranks\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' "
+            "or k.startswith(('jax.', 'jaxlib', 'clenabled_tpu.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_runtime_imports_nothing_of_sharding():
+    """The runtime layer lies under ``sharding``: none of its modules
+    imports ``sharding``, at the top or inside a function."""
+    import ast
+
+    root = os.path.dirname(t_device.__file__)
+    for name in sorted(os.listdir(root)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(root, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            elif isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            else:
+                continue
+            assert not any(m.startswith("clenabled_tpu_torch.sharding")
+                           for m in mods), (name, mods)
+
+
+def test_device_event_helpers():
+    """``is_nccl_kernel`` picks NCCL's kernels out of a trace's names;
+    ``host_ms`` times the calls it makes on the CPU."""
+    assert t_device.is_nccl_kernel(
+        "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage)")
+    assert t_device.is_nccl_kernel("void ncclDevKernel_Broadcast_RING_LL()")
+    assert not t_device.is_nccl_kernel("void fx_reg_kernel<16>(float*)")
+    calls = []
+    ms = t_device.host_ms(lambda: calls.append(1), reps=5, device="cpu")
+    assert len(calls) == 6 and ms >= 0.0
+
+
+def test_sharded_scaling_on_cpu(capsys):
+    """The scaling tool on two gloo ranks: rank 0 within the tolerance of
+    the unsharded step over the joined stream at 4 antennas and 16
+    channels, float32 and int8, every call timed."""
+    from clenabled_tpu_torch.tools import sharded_scaling as T
+
+    with pytest.raises(SystemExit):            # fixed at the fused cell's
+        T.parse_args(["--a", "2"])
+    T.main(["--ranks", "2", "--device", "cpu", "--samples", "4096",
+            "--steps", "2", "--reps", "1"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["a"], rec["m"], rec["ranks"]) == (4, 16, 2)
+    for r in rec["results"]:
+        assert sorted(r) == ["float32", "int8"]
+        for res in r.values():
+            assert sorted(res["ms"]) == ["block", "collectives", "sharded"]
+            assert sorted(res["host_ms"]) == ["block", "sharded"]
+    for res in rec["results"][0].values():
+        assert res["worst_over_tol"] <= 1.0

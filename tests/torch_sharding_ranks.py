@@ -1,0 +1,97 @@
+"""Rank functions of tests/test_torch_sharding.py.
+
+``sharding.spawn`` pickles a rank function by its import path and every
+child process imports its module, so these live apart from the test module
+(which imports JAX): this module imports only torch, numpy and the port.
+
+``run_cases(shape, cases)`` runs on every rank of a gloo group.  ``cases``
+maps a name to (kind, params, frames), each frame the GLOBAL input of one
+step (numpy, time on the last axis); each rank takes its block along the
+``"shard"`` axis and returns, per case, its outputs of every chained step
+and its carried state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch.runtime.device import get_context
+from clenabled_tpu_torch.sharding import (axis_index, axis_size,
+                                          make_sharded_channelizer,
+                                          make_sharded_fft_filter,
+                                          make_sharded_fir_filter, make_mesh,
+                                          ring_forward)
+
+AXIS = "shard"
+
+
+def _block(x: np.ndarray, mesh) -> np.ndarray:
+    """This rank's time block of a global array."""
+    d, i = axis_size(mesh, AXIS), axis_index(mesh, AXIS)
+    n = x.shape[-1] // d
+    return np.ascontiguousarray(x[..., i * n:(i + 1) * n])
+
+
+def _stream(init, apply, frames, mesh):
+    state = init()
+    ys = []
+    for x in frames:
+        state, y = apply(state, torch.from_numpy(_block(x, mesh)))
+        ys.append(y)
+    return ys, state
+
+
+def _fx(params, frames, mesh):
+    cfg = P.FxPipelineConfig(**params["cfg"])
+    fn, (_, hist) = P.make_sharded_fx_pipeline(mesh, cfg=cfg)
+    outs = []
+    for x in frames:
+        o = fn(torch.from_numpy(_block(x, mesh)), hist)
+        outs.append(o)
+        hist = o[2]
+    return outs
+
+
+def _fused(params, frames, mesh):
+    cfg = P.FxPipelineConfig(**params["cfg"])
+    dtype = getattr(torch, params["dtype"])
+    fn, (_, _, tr, ti) = P.make_sharded_fx_pipeline_fused(mesh, cfg=cfg,
+                                                          in_dtype=dtype)
+    outs = []
+    for xr, xi in frames:
+        o = fn(*(torch.from_numpy(_block(x, mesh)).to(dtype)
+                 for x in (xr, xi)), tr, ti)
+        outs.append(o)
+        tr, ti = o[3], o[4]
+    return outs
+
+
+def run_case(kind: str, params: dict, frames, mesh):
+    if kind == "ring":
+        return [ring_forward(torch.from_numpy(_block(x, mesh)), mesh, AXIS)
+                for x in frames]
+    if kind == "fir":
+        return _stream(*make_sharded_fir_filter(
+            params["taps"], mesh, AXIS, params["decimation"]), frames, mesh)
+    if kind == "ofa":
+        init, apply, _ = make_sharded_fft_filter(params["taps"], mesh, AXIS)
+        return _stream(init, apply, frames, mesh)
+    if kind == "chan":
+        return _stream(*make_sharded_channelizer(
+            params["taps"], params["m"], params["r"], list(range(params["m"])),
+            mesh, AXIS), frames, mesh)
+    if kind == "fx":
+        return _fx(params, frames, mesh)
+    if kind == "fused":
+        return _fused(params, frames, mesh)
+    raise ValueError(f"unknown case kind {kind!r}")
+
+
+def run_cases(shape, cases: dict) -> dict:
+    torch.set_num_threads(1)              # the ranks share the host's cores
+    mesh = get_context().mesh if shape is None else make_mesh(shape, "cpu")
+    return {"index": axis_index(mesh, AXIS),
+            "cases": {name: run_case(kind, params, frames, mesh)
+                      for name, (kind, params, frames) in cases.items()}}
