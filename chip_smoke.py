@@ -1,6 +1,6 @@
 """Drive the PyTorch / CUDA port's FX receive step, X-Engine path, FM
-receive path, oversampled channelizer, spectrum chain, carrier recovery
-and sharded main path once on one NVIDIA H100.
+receive path, oversampled channelizer, spectrum chain, carrier recovery,
+sharded main path, correlators and typed FIRs once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -153,10 +153,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    the collectives' own.  Then the complex64 sharded step at 4 × 2^20
    against ``make_fx_pipeline`` and the three halo filters (FIR at
    decimation 4, overlap-add, the 16-channel R = 8 channelizer) against
-   their sequential forms, bit for bit over chained frames; the group is
-   destroyed, and ``entry.dryrun_multichip(1)`` runs its legs in one
-   spawned NCCL rank.  A run on one card has one rank (NCCL refuses two
-   ranks on one card); the exchange between ranks is tested on the CPU.
+   their sequential forms, bit for bit over chained frames; the
+   window-parallel correlators (``make_sharded_td_xcorr`` at ±512 lags,
+   ``make_sharded_fd_xcorr`` with ``perform_fft_first``) on [3, 64, 8192]
+   against the unsharded planar functions, bit for bit; the group is
+   destroyed, and ``entry.dryrun_multichip(1)`` runs its legs (1, 1b, 2
+   and 3e) in one spawned NCCL rank.  A run on one card has one rank
+   (NCCL refuses two ranks on one card); the exchange between ranks is
+   tested on the CPU.
+14. correlators and typed FIRs (no kernel of their own: plain torch, as
+   the JAX package runs XLA) — a ``Flowgraph`` of ``XCorrelate(4,
+   signal_length=8192, max_search_index=512, accumulate_frames=64)`` (64
+   windows a frame, ±512 lags) over 4 frames of seeded complex64 streams,
+   inputs 1-3 being input 0 at lags +37, −200 and +511 plus noise, with
+   complex64 and then planar feeds; then ``decim_frames=4`` at one window
+   a frame over 8 frames.  Every message is held to a float64 NumPy lag
+   scan on the host (itself checked by direct sums at six lags), corrvect
+   within 1e-4 × max|float64|, the lags equal to the planted ones, the
+   skipped frames' messages zeros with ``valid`` False; wall and device
+   busy time a frame in MSPS of windowed stream an input.  Then
+   ``FirFilterSCC`` at decimation 1 and 4 (25 complex taps, int16 inputs
+   in ±800), ``FirFilterFSF(2)`` (a frame scaled so that outputs cross
+   ±32767) and ``InterpFirFilter(4)`` (a 64-tap low-pass) planar and
+   complex64, each over 4 chained frames of 2^21, held to the float64
+   convolution of the joined stream within 1e-4 × max|float64| (fsf:
+   within one count of the truncated and clamped float64 result), with
+   the wall time a frame.
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -212,6 +234,16 @@ CO_BW, CO_N, CO_FRAMES, CO_CHECK_N, CO_OFFSET = 0.00628, 1 << 16, 8, 1 << 12, 0.
 # 2 (e+1, |a|-|b|; its 0.5 can go into the gains), frequency 2 (mul, add),
 # phase 2 (add, add)
 CO_CHAIN = {2: 19, 4: 21}
+# the correlators (BENCH_TPU's clXCorrelate configuration): 4 inputs,
+# 64 windows of 8192 samples a frame, ±512 lags; inputs 1-3 are input 0
+# at these lags plus noise; then 1-in-4 frame decimation over 8 windows
+XC_A, XC_SL, XC_SHIFT, XC_ACC, XC_FRAMES = 4, 8192, 512, 64, 4
+XC_LAGS, XC_NOISE, XC_DECIM, XC_DECIM_FRAMES = (37, -200, 511), 0.1, 4, 8
+# the typed and interpolating FIRs: test_short_dtypes' 25 complex taps and
+# int16 inputs in ±800, 4 chained frames of 2^21; fsf's frame 2 scaled so
+# that its outputs cross ±32767; a 64-tap low-pass interpolating by 4
+TF_N, TF_FRAMES, TF_NTAPS, TF_SPAN, TF_FSF_SCALE, TF_L = (1 << 21, 4, 25,
+                                                           800, 30.0, 4)
 CYCLES_PER_OP = 4
 DEVICE = ("cuda", 0)
 # the H100 SXM's published rates (NVIDIA's data sheet): memory bytes/s,
@@ -1562,6 +1594,291 @@ def costas_phase(torch, hk, dev) -> dict:
     return res
 
 
+
+def lag_scan_f64(np, mags, max_shift: int):
+    """The normalized lag scan in float64 NumPy, on the host: mags [nsig,
+    B, n] → [nsig-1, B, 2·max_shift], corr[l] = (overlap dot) /
+    sqrt(sum x² · sum y²) over each lag's overlap, -2 where that is 0.
+    The dot products of every lag come from one float64 FFT
+    cross-correlation; ``lag_scan_direct`` checks them by direct sums."""
+    n = mags.shape[-1]
+    p = 1 << (n + max_shift - 1).bit_length()
+    f = np.fft.rfft(mags, p, axis=-1)
+    cc = np.fft.irfft(f[0] * np.conj(f[1:]), p, axis=-1)
+    c = np.concatenate([np.zeros(mags.shape[:-1] + (1,)),
+                        np.cumsum(mags * mags, axis=-1)], axis=-1)
+    shift = np.arange(-max_shift, max_shift)
+    s = np.abs(shift)
+    pos = shift > 0
+    num = cc[..., np.where(pos, shift, (p - s) % p)]
+    sx = np.where(pos, c[0][..., n:n + 1] - c[0][..., s], c[0][..., n - s])
+    sy = np.where(pos, c[1:][..., n - s], c[1:][..., n:n + 1] - c[1:][..., s])
+    den = sx * sy
+    return np.where(den != 0, num / np.sqrt(np.where(den != 0, den, 1)), -2.0)
+
+
+def lag_scan_direct(np, ref, sig, shift: int) -> float:
+    """One lag of the scan by direct float64 sums (the reference kernel's
+    loop, lib/clXCorrelate_impl.cc:843-903)."""
+    n, s = len(ref), abs(shift)
+    if shift > 0:
+        a, b = ref[s:], sig[:n - s]
+    else:
+        a, b = ref[:n - s], sig[s:]
+    den = (a * a).sum() * (b * b).sum()
+    return float((a * b).sum() / np.sqrt(den)) if den else -2.0
+
+
+def xcorr_streams(np, rng, n: int):
+    """XC_A complex64 streams of n samples: input 0 a seeded complex
+    Gaussian, input k that stream at lag XC_LAGS[k-1] (its sample i is
+    input 0's i + lag) plus noise."""
+    pad = XC_SHIFT
+    base = (rng.standard_normal(n + 2 * pad)
+            + 1j * rng.standard_normal(n + 2 * pad))
+    out = [base[pad:pad + n]]
+    for lag in XC_LAGS:
+        noise = XC_NOISE * (rng.standard_normal(n)
+                            + 1j * rng.standard_normal(n))
+        out.append(base[pad + lag:pad + lag + n] + noise)
+    return np.stack(out).astype(np.complex64)
+
+
+def xcorr_phase(torch, hk, dev) -> dict:
+    """The TD correlator block on the card: a Flowgraph of
+    XCorrelate(XC_A, XC_SL, XC_SHIFT, accumulate_frames=XC_ACC) over
+    XC_FRAMES frames, complex64 and planar feeds, then 1-in-XC_DECIM
+    frame decimation at one window a frame; every message held to the
+    float64 lag scan on the host, the lags to the planted ones."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    rng = np.random.default_rng(140)
+    want_lags = np.array(XC_LAGS, np.int32)
+    res = {"forms": {}}
+
+    def graph(acc, decim):
+        xc = blocks.XCorrelate(XC_A, signal_length=XC_SL,
+                               max_search_index=XC_SHIFT,
+                               decim_frames=decim, accumulate_frames=acc)
+        g = Flowgraph()
+        for k in range(XC_A):
+            g.external_input(xc, k)
+        r = g.compile(frame_size=xc.quantum, device=dev)
+        msgs, keep = [], [True]
+        r.on_message("xcorr.corr",
+                     lambda m: msgs.append(m) if keep[0] else None)
+        return r, msgs, keep
+
+    def held(label, msg, x_host, valid_want):
+        """One frame's message against the float64 scan of its windows."""
+        nb = x_host.shape[1] // XC_SL
+        valid = np.atleast_1d(msg["valid"].numpy())
+        if list(valid) != valid_want:
+            fail(f"{label}: valid {list(valid)} != {valid_want}")
+        vec = msg["corrvect"].reshape(nb, XC_A - 1, 2 * XC_SHIFT)
+        lag = msg["corrective_lags"].reshape(nb, XC_A - 1).cpu().numpy()
+        if not valid.any():
+            if vec.any() or msg["corr"].any() or lag.any():
+                fail(f"{label}: a skipped frame's message is not zeros")
+            return 0.0
+        mags = np.abs(x_host.astype(np.complex128)).reshape(XC_A, nb, XC_SL)
+        want = lag_scan_f64(np, mags, XC_SHIFT).transpose(1, 0, 2)
+        err = float(np.abs(vec.double().cpu().numpy() - want).max())
+        tol = TOL * float(np.abs(want).max())
+        if not err <= tol:
+            fail(f"{label}: corrvect max abs err {err:.3e} > {tol:.3e}")
+        if not (lag == want_lags).all():
+            fail(f"{label}: lags {lag.tolist()} != planted {XC_LAGS}")
+        corr = msg["corr"].reshape(nb, XC_A - 1).double().cpu().numpy()
+        if not np.abs(corr - want.max(-1)).max() <= tol:
+            fail(f"{label}: corr is not the scan's maximum")
+        return err
+
+    # the float64 scan itself, checked by direct sums on a few lags
+    x = xcorr_streams(np, rng, XC_SL)
+    mags = np.abs(x.astype(np.complex128))
+    scan = lag_scan_f64(np, mags[:, None], XC_SHIFT)[:, 0]
+    for k in range(XC_A - 1):
+        for shift in (-XC_SHIFT, -1, 0, 1, XC_LAGS[k], XC_SHIFT - 1):
+            d = lag_scan_direct(np, mags[0], mags[k + 1], shift)
+            if abs(d - scan[k, shift + XC_SHIFT]) > 1e-9:
+                fail(f"float64 lag scan: lag {shift} {d} != "
+                     f"{scan[k, shift + XC_SHIFT]}")
+
+    n_frame = XC_ACC * XC_SL
+    x = xcorr_streams(np, rng, XC_FRAMES * n_frame)
+    for form in ("complex", "planar"):
+        r, msgs, keep = graph(XC_ACC, 1)
+        feeds = []
+        for f in range(XC_FRAMES):
+            sl = torch.from_numpy(x[:, f * n_frame:(f + 1) * n_frame]).to(dev)
+            feeds.append([planar.PC(v.real.contiguous(), v.imag.contiguous())
+                          if form == "planar" else v for v in sl])
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        for fd in feeds:
+            r.step(*fd)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in hk.launch_counts().items() if v}
+        worst = 0.0
+        for f, m in enumerate(msgs):
+            worst = max(worst, held(
+                f"xcorr {form} frame {f}", m,
+                x[:, f * n_frame:(f + 1) * n_frame], [True] * XC_ACC))
+        if len(msgs) != XC_FRAMES:
+            fail(f"xcorr {form}: {len(msgs)} messages for {XC_FRAMES} "
+                 f"frames")
+        phase("check", f"Flowgraph XCorrelate({XC_A}, {XC_SL}, ±{XC_SHIFT}, "
+                       f"accumulate {XC_ACC}) {form}, {XC_FRAMES} frames: "
+                       f"corrvect max abs err {worst:.3e} <= {TOL} x "
+                       f"max|float64|, lags {list(XC_LAGS)} in every window; "
+                       f"port kernel launches {counts} (none on this path)")
+        keep[0] = False
+        t = path_times(torch, f"xcorr {form} ({XC_A} inputs x {XC_ACC} "
+                              f"windows)", lambda: r.step(*feeds[0]),
+                       n_frame)
+        res["forms"][form] = {"err": worst, **t,
+                              "wall_msps": n_frame / t["wall_ms"] / 1e3,
+                              "busy_msps": None if t["busy_ms"] is None
+                              else n_frame / t["busy_ms"] / 1e3}
+        del feeds
+
+    # 1 in XC_DECIM frames at one window a frame
+    r, msgs, _ = graph(1, XC_DECIM)
+    x = xcorr_streams(np, rng, XC_DECIM_FRAMES * XC_SL)
+    for f in range(XC_DECIM_FRAMES):
+        r.step(*torch.from_numpy(x[:, f * XC_SL:(f + 1) * XC_SL]).to(dev))
+    torch.cuda.synchronize()
+    for f, m in enumerate(msgs):
+        held(f"xcorr decim frame {f}", m, x[:, f * XC_SL:(f + 1) * XC_SL],
+             [f % XC_DECIM == 0])
+    phase("check", f"XCorrelate decim_frames={XC_DECIM}, {XC_DECIM_FRAMES} "
+                   f"frames of one window: computed frames held to float64 "
+                   f"with the planted lags, skipped frames zeros with "
+                   f"valid False")
+    return res
+
+
+def conv_f64(np, x, taps):
+    """y[m] = sum_j taps[j] x[m - j] over a stream that starts from zeros,
+    float64 (real and imaginary parts as real convolutions)."""
+    def real(a, t):
+        return np.convolve(a, t)[:len(a)]
+    x, taps = np.asarray(x), np.asarray(taps)
+    if np.iscomplexobj(taps):
+        if np.iscomplexobj(x):
+            return (real(x.real, taps.real) - real(x.imag, taps.imag)
+                    + 1j * (real(x.real, taps.imag)
+                            + real(x.imag, taps.real)))
+        return real(x, taps.real) + 1j * real(x, taps.imag)
+    if np.iscomplexobj(x):
+        return real(x.real, taps) + 1j * real(x.imag, taps)
+    return real(x.astype(np.float64), taps)
+
+
+def typed_fir_phase(torch, dev) -> dict:
+    """FirFilterSCC (decimation 1 and 4), FirFilterFSF (decimation 2, a
+    frame saturating) and InterpFirFilter (planar and complex64) on the
+    card over TF_FRAMES chained frames of TF_N, held to the float64
+    convolution of the joined stream."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import firdes, planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    rng = np.random.default_rng(141)
+    taps = (rng.standard_normal(TF_NTAPS)
+            + 1j * rng.standard_normal(TF_NTAPS)).astype(np.complex64)
+    lp = np.zeros(64, np.float32)               # the 63-tap design, padded
+    design = firdes.low_pass(float(TF_L), float(TF_L), 0.4, 0.153)
+    lp[:len(design)] = design
+    total = TF_N * TF_FRAMES
+    s16 = rng.integers(-TF_SPAN, TF_SPAN, total, dtype=np.int16)
+    fsf_in = s16.astype(np.float32)
+    fsf_in[2 * TF_N:3 * TF_N] *= TF_FSF_SCALE    # outputs past ±32767
+    cx = (rng.standard_normal(total)
+          + 1j * rng.standard_normal(total)).astype(np.complex64)
+
+    scc_ref = conv_f64(np, s16.astype(np.float64), taps.astype(np.complex128))
+    fsf_ref = np.clip(np.trunc(conv_f64(np, fsf_in, taps.real.astype(
+        np.float64))), -32768, 32767)[::2]
+    up_ref = np.zeros(total * TF_L, np.complex128)
+    for p in range(TF_L):                        # the polyphase branches
+        up_ref[p::TF_L] = conv_f64(np, cx.astype(np.complex128),
+                                   lp[p::TF_L].astype(np.float64))
+    if not (np.abs(fsf_ref) == 32767).any() and not (fsf_ref == -32768).any():
+        fail("typed FIRs: no fsf output reaches the int16 limits")
+
+    cases = {
+        "FirFilterSCC(1)": (lambda: blocks.FirFilterSCC(1, taps), s16,
+                            scc_ref),
+        "FirFilterSCC(4)": (lambda: blocks.FirFilterSCC(4, taps), s16,
+                            scc_ref[::4]),
+        "FirFilterFSF(2)": (lambda: blocks.FirFilterFSF(2, taps.real),
+                            fsf_in, fsf_ref),
+        f"InterpFirFilter({TF_L}, planar)": (
+            lambda: blocks.InterpFirFilter(TF_L, lp, planar=True), cx,
+            up_ref),
+        f"InterpFirFilter({TF_L})": (
+            lambda: blocks.InterpFirFilter(TF_L, lp), cx, up_ref),
+    }
+    res = {}
+    for label, (make, x, want) in cases.items():
+        blk = make()
+        g = Flowgraph()
+        g.external_input(blk)
+        tap = g.tap(blk, name="y")
+        r = g.compile(frame_size=TF_N, device=dev)
+        xd = torch.from_numpy(x).to(dev)
+        feeds = [xd[f * TF_N:(f + 1) * TF_N] for f in range(TF_FRAMES)]
+        if "planar" in label:
+            feeds = [planar.PC(f.real.contiguous(), f.imag.contiguous())
+                     for f in feeds]
+        outs = [r.step(f)[tap] for f in feeds]
+        torch.cuda.synchronize()
+        if isinstance(outs[0], planar.PC):
+            outs = [torch.complex(o.re, o.im) for o in outs]
+        got = torch.cat(outs).cpu().numpy()
+        if got.shape != want.shape:
+            fail(f"{label}: shape {got.shape} != {want.shape}")
+        if "FSF" in label:
+            if got.dtype != np.int16:
+                fail(f"{label}: dtype {got.dtype}")
+            d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+            err, tol = float(d.max()), 1.0
+            at_limits = int((got == 32767).sum() + (got == -32768).sum())
+            shown = (f"max count difference {int(err)} <= 1 to trunc-and-"
+                     f"clamp of float64, {at_limits} samples at the limits")
+        else:
+            err = float(np.abs(got.astype(np.complex128) - want).max())
+            tol = TOL * float(np.abs(want).max())
+            shown = f"max abs err {err:.3e} <= {tol:.3e} ({TOL} x max|float64|)"
+        if not np.isfinite(got.astype(np.complex128)).all() or not err <= tol:
+            fail(f"{label}: error {err:.3e} > {tol:.3e}")
+        phase("check", f"{label}, {TF_FRAMES} chained frames of {TF_N}: "
+                       f"{shown}")
+        step_ms = time_ms(torch, lambda: r.step(feeds[0]), reps=8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in feeds + feeds:
+            r.step(f)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / (2 * len(feeds)) * 1e3
+        phase("time", f"{label} per frame of {TF_N}: wall {wall_ms:.4f} ms "
+                      f"({TF_N / wall_ms / 1e3:.1f} MSPS in), CUDA events "
+                      f"{step_ms:.4f} ms")
+        res[label] = {"err": err, "tol": tol, "wall_ms": wall_ms,
+                      "step_ms": step_ms,
+                      "wall_msps": TF_N / wall_ms / 1e3}
+        del feeds, outs, xd
+    return res
+
+
 def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms) -> dict:
     """The planar step's device busy time (``torch.profiler``) and wall
     time a step over its chained frames, with the packed PFB kernel's share
@@ -1637,7 +1954,7 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
 
     from clenabled_tpu_torch import entry, sharding as S
     from clenabled_tpu_torch.dsp import (channelizer, fft_filter, fir_filter,
-                                         firdes)
+                                         firdes, planar, xcorr)
     from clenabled_tpu_torch.runtime.device import host_ms
 
     def same(label, gots, wants):
@@ -1767,6 +2084,22 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
                     channelizer.make_channelizer(ch_taps, 16, 8,
                                                  list(range(16)), device=dev),
                     1 << 20)}
+            # the window-parallel correlators: at one rank the planar
+            # functions over the whole batch, bit for bit
+            mags = torch.rand((3, XC_ACC, XC_SL), generator=gen, device=dev)
+            same("sharded td_xcorr", S.make_sharded_td_xcorr(
+                mesh, XC_SHIFT)(mags), xcorr.td_xcorr_planar_batched(
+                    mags, XC_SHIFT))
+            vec = planar.PC(*torch.randn((2, 3, XC_ACC, XC_SL),
+                                         generator=gen, device=dev))
+            same("sharded fd_xcorr", [S.make_sharded_fd_xcorr(
+                mesh, perform_fft_first=True)(vec)],
+                [xcorr.fd_xcorr_planar(vec, perform_fft_first=True)])
+            phase("check", f"sharded td_xcorr (±{XC_SHIFT}) and fd_xcorr "
+                           f"(perform_fft_first) on [3, {XC_ACC}, {XC_SL}]: "
+                           f"equal to the unsharded planar functions bit "
+                           f"for bit")
+            del mags, vec
             for label, ((i_s, a_s), (i_q, a_q), n) in halos.items():
                 ss, sq = i_s(), i_q().to(dev)
                 for k in range(3):
@@ -1782,6 +2115,8 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = entry.dryrun_multichip(1, device="cuda")
+    if not {"1", "2", "3e td", "3e fd"} <= set(legs[0]):
+        fail(f"dryrun_multichip(1): legs {sorted(legs[0])}")
     for leg, vals in legs[0].items():
         if not all(np.isfinite(np.asarray(v, np.complex64)).all()
                    for v in vals):
@@ -2103,6 +2438,20 @@ def main() -> None:
     # 13. the sharded main path on a world-size-1 NCCL group, counted
     sharded = sharded_phase(torch, hk, P, gen, dev)
     phase("sharded", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 14. the correlators and the typed and interpolating FIRs, with TF32 on
+    # in the process: the port's own full-float32 sections must hold 1e-4
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    correlators = {"xcorr": xcorr_phase(torch, hk, dev),
+                   "typed_fir": typed_fir_phase(torch, dev)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    correlators["phase_s"] = time.perf_counter() - t0
+    phase("correlators", f"phase 14 in {correlators['phase_s']:.1f} s on "
+                         f"{card}")
     print(card, flush=True)
 
     # the least time the card could take for each kernel's work at the
@@ -2270,7 +2619,7 @@ def main() -> None:
         "fft_bare_ms": spr["bare_ms"],
         "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
                   "costas": cor["path"], "planar_step": planar,
-                  "sharded": sharded}}
+                  "sharded": sharded, "correlators": correlators}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

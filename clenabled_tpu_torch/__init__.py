@@ -2,13 +2,15 @@
 
 The same streaming SDR library, written for an NVIDIA Hopper GPU:
 
-- ``runtime``   — explicit device selection and the sm_90 probe.
+- ``runtime``   — explicit device selection, the sm_90 probe, the
+                  stream dtype codes and the frame-size policy.
 - ``dsp``       — windows and firdes designers (NumPy, copied from the JAX
                   package), planar complex arithmetic, the polyphase
                   channelizer (critically sampled, oversampled and fused),
-                  the FD correlator, the X-Engine (unpacking, time-major,
+                  the TD and FD correlators, the X-Engine (unpacking, time-major,
                   channel-major and stacked engines, pipeline
-                  integration), the FFT, the FIR and FFT filters, the
+                  integration), the FFT, the FIR (typed and interpolating
+                  too) and FFT filters, the
                   quadrature demodulator and the Costas loop, the signal
                   source and the elementwise math in torch, and
                   ``hopper_kernels``: the wrappers of the hand-written CUDA
@@ -22,11 +24,14 @@ The same streaming SDR library, written for an NVIDIA Hopper GPU:
                   (``SignalSource``, ``Fft``, ``MathOp`` and its forms,
                   the constants and conversions, ``Log``, ``SNRHelper``),
                   the ``Filter`` family, ``PolyphaseChannelizer``,
-                  ``QuadratureDemod``, ``CostasLoop``, ``XEngine`` and
-                  ``XCorrelateFFTVCF``.
-- ``tools``     — ``test_clxengine``, ``test_clfilter`` and
-                  ``test_clenabled_fft``, the X-Engine, filter and FFT
-                  benchmarks.
+                  ``QuadratureDemod``, ``CostasLoop``, ``XEngine``,
+                  ``XCorrelate``, ``XCorrelateFFTVCF``, ``FirFilterSCC``,
+                  ``FirFilterFSF`` and ``InterpFirFilter``.
+- ``sharding``  — the mesh over ``torch.distributed``, the halo filters
+                  and the window-parallel correlators.
+- ``tools``     — ``test_clxengine``, ``test_clfilter``,
+                  ``test_clenabled_fft`` and ``test_clxcorrelate``, the
+                  X-Engine, filter, FFT and correlator benchmarks.
 
 The kernels in ``csrc/`` are compiled by ``_build`` at their first launch,
 never at import: importing this package touches no GPU.

@@ -22,11 +22,13 @@ Reference block → class (ported so far):
                               MagPhaseToComplex
   clLog/clLog10             → Log
   clSNR                     → SNRHelper
+  clXCorrelate              → XCorrelate (message port "corr")
   clxcorrelate_fft_vcf      → XCorrelateFFTVCF
   clXEngine                 → XEngine (message port "xcorr")
+  fir_filter_scc/fsf (CPU)  → FirFilterSCC, FirFilterFSF (int16 streams)
+  (GR interp_fir_filter)    → InterpFirFilter
 
-Kernel1To1/Kernel2To1, XCorrelate, InterpFirFilter and the typed FIRs wait
-their turn (ROADMAP.md A.11).
+Kernel1To1/Kernel2To1 wait their turn (ROADMAP.md A.11).
 """
 
 from clenabled_tpu_torch.blocks.core import (  # noqa: F401
@@ -48,6 +50,7 @@ from clenabled_tpu_torch.blocks.core import (  # noqa: F401
     SNRHelper,
 )
 from clenabled_tpu_torch.blocks.correlators import (  # noqa: F401
+    XCorrelate,
     XCorrelateFFTVCF,
     XEngine,
 )
@@ -64,6 +67,9 @@ from clenabled_tpu_torch.blocks.filters import (  # noqa: F401
     BandRejectFilter,
     RootRaisedCosineFilter,
     FIRTapFilter,
+    FirFilterSCC,
+    FirFilterFSF,
+    InterpFirFilter,
     PolyphaseChannelizer,
 )
 
@@ -97,5 +103,6 @@ clMagPhaseToComplex = MagPhaseToComplex
 clLog = Log
 clLog10 = Log
 clSNR = SNRHelper
+clXCorrelate = XCorrelate
 clxcorrelate_fft_vcf = XCorrelateFFTVCF
 clXEngine = XEngine

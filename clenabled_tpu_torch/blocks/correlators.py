@@ -1,7 +1,6 @@
-"""Correlator blocks: XCorrelateFFTVCF (FD) and XEngine (FX).
+"""Correlator blocks: XCorrelate (TD), XCorrelateFFTVCF (FD), XEngine (FX).
 
-The port of ``clenabled_tpu.blocks.correlators``.  The time-domain
-``XCorrelate`` waits for the TD correlator (ROADMAP.md A.7).
+The port of ``clenabled_tpu.blocks.correlators``.
 """
 
 from __future__ import annotations
@@ -16,6 +15,93 @@ from clenabled_tpu_torch.streaming.block import Block
 
 # an integer type as wide as one (time, channel) cell of P raw samples
 _CELL_TYPES = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+class XCorrelate(Block):
+    """clXCorrelate (lib/clXCorrelate_impl.cc): N-input time-domain
+    reference correlator.  Sink block — results leave via the "corr"
+    message port as {corr, corrective_lags, corrvect, valid}, the
+    reference's PDU dict {corrvect, corrective_lags} (:1594-1601).
+
+    Every whole window of a frame is correlated (a multi-rate super-frame
+    may hold more than ``accumulate_frames`` of them).  ``decim_frames``
+    processes 1 in N analysis windows (:1540-1548) by a window counter
+    carried as state — a Python int on the host, so the choice to skip
+    never waits on the card.  With one window a frame, a skipped window
+    costs no correlation and emits zeros with ``valid`` False; with
+    several, every window is computed, the window axis leads and ``valid``
+    is [nb].  ``valid`` is a host tensor.  The reference's async
+    worker-thread mode is unnecessary: the card runs behind the host.
+    """
+
+    n_outputs = 0
+    msg_ports = ("corr",)
+
+    def __init__(self, num_inputs: int, signal_length: int = 8192,
+                 data_type: int = 1, data_size: int = 8,
+                 max_search_index: int = 512, decim_frames: int = 1,
+                 asynchronous: bool = False, accumulate_frames: int = 1,
+                 name: str = "xcorr", **legacy):
+        legacy.pop("async", None)
+        strip_legacy_kwargs(legacy, self)
+        del data_type, data_size, asynchronous  # dtype comes from the stream
+        if num_inputs < 2:
+            raise ValueError("XCorrelate needs >= 2 inputs")
+        self.name = name
+        self.n_inputs = num_inputs
+        self.signal_length = signal_length
+        self.max_shift = max_search_index
+        self.decim_frames = max(1, decim_frames)
+        # > 1 correlates N analysis windows a call; results gain a leading
+        # window axis in the "corr" message
+        self.accumulate_frames = max(1, accumulate_frames)
+        self.quantum = signal_length * self.accumulate_frames
+
+    def init_state(self):
+        return 0  # analysis-window counter
+
+    def apply(self, state, inputs):
+        sl = self.signal_length
+        is_planar = isinstance(inputs[0], planar.PC)
+        first = inputs[0].re if is_planar else torch.as_tensor(inputs[0])
+        nb = first.shape[-1] // sl
+        state = int(state)
+        valid = [(state + k) % self.decim_frames == 0 for k in range(nb)]
+
+        def windows(x):
+            """[..., nb·sl] → [nb, sl] windows of one input stream."""
+            return x[..., : nb * sl].reshape(nb, sl)
+
+        def correlate():
+            if is_planar:
+                mags = torch.stack([planar.pabs(planar.PC(windows(x.re),
+                                                          windows(x.im)))
+                                    for x in inputs])      # [A, nb, sl]
+                return dsp_xcorr.td_xcorr_planar_batched(mags, self.max_shift)
+            sigs = torch.stack([windows(torch.as_tensor(x)) for x in inputs])
+            return dsp_xcorr.td_xcorr_batched(sigs, self.max_shift)
+
+        if nb == 1:
+            if valid[0]:
+                res = correlate()
+                corr, lag, vectors = (res.corr[:, 0], res.lag[:, 0],
+                                      res.corr_vectors[:, 0])
+            else:   # a skipped window: no correlation, zeros
+                na, dev = self.n_inputs - 1, first.device
+                corr = torch.zeros(na, device=dev)
+                lag = torch.zeros(na, dtype=torch.int32, device=dev)
+                vectors = torch.zeros((na, 2 * self.max_shift), device=dev)
+            flags = torch.tensor(valid[0])
+        else:
+            res = correlate()
+            # leading window axis: [nb, A-1(, 2·max_shift)]
+            corr = res.corr.transpose(0, 1)
+            lag = res.lag.transpose(0, 1)
+            vectors = res.corr_vectors.transpose(0, 1)
+            flags = torch.tensor(valid)
+        msg = {"corr": {"corr": corr, "corrective_lags": lag,
+                        "corrvect": vectors, "valid": flags}}
+        return state + nb, (), msg
 
 
 class XCorrelateFFTVCF(Block):

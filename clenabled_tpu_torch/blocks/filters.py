@@ -6,8 +6,9 @@ taps on ``hopper_kernels.fir_direct``, the frequency-domain one on
 ``hopper_kernels.ofs_filter_planar`` (the overlap-save form, taken when a
 CUDA card is visible, as JAX takes it on a non-CPU backend).
 ``PolyphaseChannelizer(fused=True)`` with R < M runs
-``hopper_kernels.pfb_oversampled_fused``.  ``InterpFirFilter`` and
-``FirFilterSCC``/``FSF`` are not ported yet (ROADMAP.md A.8, A.11).
+``hopper_kernels.pfb_oversampled_fused``.  ``FirFilterSCC``/``FSF`` (the
+typed FIRs, an int16 history carried) and ``InterpFirFilter`` run the plain
+conv forms, as JAX runs its XLA ones.
 """
 
 from __future__ import annotations
@@ -212,6 +213,60 @@ def FIRTapFilter(decimation, taps, use_time=False, planar=False,
                   name=name, **legacy)
 
 
+class FirFilterSCC(Block):
+    """short→complex FIR block (the reference's fir_filter_scc CPU variant,
+    lib/fir_filter.h:160): int16 stream in, complex taps, complex64 out —
+    the DTYPE_SHORT stream path through the block layer."""
+
+    def __init__(self, decimation: int, taps, name: str = "scc", **legacy):
+        strip_legacy_kwargs(legacy, self)
+        self.name = name
+        self.decimation = decimation
+        self.rate = Fraction(1, decimation)
+        self.quantum = decimation
+        self._taps = np.asarray(taps, np.complex64)
+        self._init, self._apply = dsp_fir.make_fir_filter_typed(
+            self._taps, decimation, in_dtype=torch.int16, device="cpu")
+
+    def taps(self):
+        return self._taps
+
+    def init_state(self):
+        """Zero history on the CPU; the Runner moves it."""
+        return self._init()
+
+    def apply(self, state, inputs):
+        state, out = self._apply(state, inputs[0])
+        return state, (out,), {}
+
+
+class FirFilterFSF(Block):
+    """float→short FIR block (the reference's fir_filter_fsf CPU variant,
+    lib/fir_filter.h:192): float32 stream in, float taps, int16 out with
+    C truncation-toward-zero narrowing, saturating."""
+
+    def __init__(self, decimation: int, taps, name: str = "fsf", **legacy):
+        strip_legacy_kwargs(legacy, self)
+        self.name = name
+        self.decimation = decimation
+        self.rate = Fraction(1, decimation)
+        self.quantum = decimation
+        self._taps = np.asarray(taps, np.float32)
+        self._init, self._apply = dsp_fir.make_fir_filter_typed(
+            self._taps, decimation, in_dtype=torch.float32,
+            out_dtype=torch.int16, device="cpu")
+
+    def taps(self):
+        return self._taps
+
+    def init_state(self):
+        return self._init()
+
+    def apply(self, state, inputs):
+        state, out = self._apply(state, inputs[0])
+        return state, (out,), {}
+
+
 class PolyphaseChannelizer(Block):
     """clPolyphaseChannelizer (lib/clPolyphaseChannelizer_impl.cc): M-channel
     PFB with oversampling (ninputs_per_iter ≤ M) and output channel map.
@@ -265,3 +320,33 @@ class PolyphaseChannelizer(Block):
         else:
             flat = out.reshape(-1)
         return state, (flat,), {}
+
+
+class InterpFirFilter(Block):
+    """Polyphase interpolating FIR (GR interp_fir_filter_ccf contract —
+    the reference has no interpolator; added so flowgraphs cover GR's
+    multi-rate forecast surface).  Output rate = interp × input rate;
+    float taps; planar=True streams planar.PC frames."""
+
+    def __init__(self, interp: int, taps, planar: bool = False,
+                 name: str = "", **legacy):
+        strip_legacy_kwargs(legacy, self)
+        if interp < 1:
+            raise ValueError("interp must be >= 1")
+        self.name = name
+        self.interp = interp
+        self.rate = Fraction(interp)
+        self.planar = planar
+        if planar:
+            self._init, self._apply = dsp_fir.make_interp_fir_filter_planar(
+                taps, interp, device="cpu")
+        else:
+            self._init, self._apply = dsp_fir.make_interp_fir_filter(
+                taps, interp, device="cpu")
+
+    def init_state(self):
+        return self._init()
+
+    def apply(self, state, inputs):
+        state, out = self._apply(state, inputs[0])
+        return state, (out,), {}

@@ -1,7 +1,7 @@
 """DSP library: NumPy design-time code (window, firdes), planar complex
 arithmetic, the polyphase channelizer (critically sampled and
-oversampled), the FD correlator, the X-Engine, the FFT, the FIR and FFT
-filters, the demodulators (quadrature and Costas), the signal source, the
+oversampled), the TD and FD correlators, the X-Engine, the FFT, the FIR
+(typed and interpolating too) and FFT filters, the demodulators (quadrature and Costas), the signal source, the
 elementwise math, and the Hopper kernels (FX step, packed and oversampled
 PFB, Gram, FFT, FIR, overlap-save filter, demodulator, Costas loop) with
 their plain forms."""

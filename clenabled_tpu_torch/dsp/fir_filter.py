@@ -14,8 +14,12 @@ runs the hand-written kernel (``hopper_kernels.fir_direct``) on CUDA
 tensors: both planar components in one launch, only the kept outputs
 computed, the history read beside the frame without a concatenation.
 
-The typed variants (``make_fir_filter_typed``, ``fir_filter_scc``/``fsf``)
-and the interpolating FIR are not ported yet (ROADMAP.md A.8).
+The typed variants (``fir_filter_scc``/``fsf``, ``make_fir_filter_typed``)
+carry the history in the input dtype and widen each frame to float32;
+narrowing to int16 truncates toward zero and saturates, as JAX's cast does
+(``torch``'s own cast wraps).  The polyphase interpolating FIR
+(``interp_fir_filter``, ``make_interp_fir_filter{,_planar}``) is one
+``conv1d`` with L output channels of reversed branch taps.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from clenabled_tpu_torch.dsp import planar
-from clenabled_tpu_torch.runtime.device import per_device
+from clenabled_tpu_torch.runtime.device import get_device, per_device
 
 
 def _conv_valid_real(x, taps, stride: int = 1):
@@ -48,6 +52,16 @@ def _split_taps(taps, device):
     return t.float(), None
 
 
+def _split_taps_on(taps):
+    """``get(device)``: (real part, imaginary part or None) of the taps as
+    float32 tensors on ``device``, split and uploaded once a device."""
+    t = np.asarray(taps)
+    re = per_device(np.array(t.real, np.float32))
+    im = (per_device(np.array(t.imag, np.float32))
+          if np.iscomplexobj(t) else None)
+    return lambda device: (re(device), None if im is None else im(device))
+
+
 def fir_filter(x, taps, decimation: int = 1):
     """Filter one frame.
 
@@ -60,7 +74,11 @@ def fir_filter(x, taps, decimation: int = 1):
       is complex, else float32).  ``n`` must be a multiple of ``decimation``.
     """
     x = torch.as_tensor(x)
-    tr, ti = _split_taps(taps, x.device)
+    return _fir(x, *_split_taps(taps, x.device), decimation)
+
+
+def _fir(x: torch.Tensor, tr: torch.Tensor, ti, decimation: int):
+    """fir_filter on taps already split into float32 parts on x's device."""
     n = x.shape[-1] - (tr.shape[-1] - 1)
     if n <= 0:
         raise ValueError("input shorter than filter history")
@@ -164,23 +182,167 @@ def make_fir_filter_planar(taps, decimation: int = 1):
 
 def make_fir_filter(taps, decimation: int = 1, complex_input: bool = True):
     """Streaming form: (init_state, apply) where state is the carried
-    ``ntaps-1``-sample history (the role of GR's set_history).
+    ``ntaps-1``-sample history (the role of GR's set_history), starting on
+    the CPU.
 
     apply(history, frame) -> (new_history, out); frame length must be a
     multiple of ``decimation``.
     """
-    taps_np = np.asarray(taps)
-    ntaps = int(taps_np.shape[-1])
-    hist_dtype = torch.complex64 if complex_input else torch.float32
+    return make_fir_filter_typed(
+        taps, decimation,
+        torch.complex64 if complex_input else torch.float32, device="cpu")
+
+
+def to_int16(y: torch.Tensor) -> torch.Tensor:
+    """float → int16 as JAX casts it: truncation toward zero (C's
+    ``(int16_t)``), saturating at ±32767/−32768, NaN → 0.  ``torch``'s
+    own cast wraps out-of-range values."""
+    y = torch.nan_to_num(y.float(), nan=0.0)
+    return y.trunc().clamp(-32768.0, 32767.0).to(torch.int16)
+
+
+def fir_filter_scc(x, taps, decimation: int = 1):
+    """short→complex FIR (reference fir_filter_scc, lib/fir_filter.h:160):
+    int16 samples widened to float32, complex taps, complex64 output.
+
+    x: [ntaps-1 + n] int16 (history at the front); taps: [ntaps] complex64.
+    """
+    x = torch.as_tensor(x).to(torch.int16).float()
+    return fir_filter(x, np.asarray(taps, np.complex64), decimation)
+
+
+def fir_filter_fsf(x, taps, decimation: int = 1):
+    """float→short FIR (reference fir_filter_fsf, lib/fir_filter.h:192):
+    float32 dot product, the output cast to int16 with C's truncation
+    toward zero (volk_32f_x2_dot_prod_16i's ``(int16_t)dotProduct``),
+    saturating as JAX's cast does."""
+    x = torch.as_tensor(x).float()
+    return to_int16(fir_filter(x, np.asarray(taps, np.float32), decimation))
+
+
+def _state_device(device) -> torch.device:
+    """The device a factory's initial state lives on (None: ``cuda:0``,
+    raising when no card is visible)."""
+    return get_device("cuda") if device is None else torch.device(device)
+
+
+def make_fir_filter_typed(taps, decimation: int = 1,
+                          in_dtype=torch.complex64, out_dtype=None,
+                          device=None):
+    """Streaming FIR with explicit torch stream dtypes — the reference's
+    six CPU variants fff/ccf/fcc/ccc/scc/fsf (lib/fir_filter.h:32-192).
+
+    The carried history keeps the INPUT dtype (an int16 history costs half
+    a float32 one) and starts on ``device`` (None: ``cuda:0``, raising
+    when no card is visible); each frame is widened on its device.
+    ``out_dtype=torch.int16`` is fsf's narrowing (``to_int16``)."""
+    ntaps = int(np.shape(taps)[-1])
+    taps_on = _split_taps_on(taps)
+    dev = _state_device(device)
 
     def init_state(frame_size: int | None = None):
         del frame_size
-        return torch.zeros(ntaps - 1, dtype=hist_dtype)
+        return torch.zeros(ntaps - 1, dtype=in_dtype, device=dev)
 
     def apply(history, frame):
-        frame = torch.as_tensor(frame).to(hist_dtype)
+        frame = torch.as_tensor(frame).to(in_dtype)
         full = torch.cat([history, frame], dim=-1)
-        out = fir_filter(full, taps_np, decimation)
+        xf = full.float() if in_dtype == torch.int16 else full
+        out = _fir(xf, *taps_on(full.device), decimation)
+        if out_dtype == torch.int16:
+            out = to_int16(out)
+        elif out_dtype is not None:
+            out = out.to(out_dtype)
         return _history(full, ntaps - 1), out
+
+    return init_state, apply
+
+
+# ---------------------------------------------------------------------------
+# Interpolating FIR (polyphase) — GR's interp_fir_filter contract, which the
+# reference lacks (its blocks only decimate), so that flowgraphs cover GR's
+# interpolators as well as its decimators.
+# ---------------------------------------------------------------------------
+
+
+def _branch_taps(taps, interp: int) -> np.ndarray:
+    """taps [T] → branch matrix [L, Kb] with h_p[j] = taps[p + L·j]."""
+    taps = np.asarray(taps, np.float32)
+    kb = -(-len(taps) // interp)
+    padded = np.zeros(kb * interp, np.float32)
+    padded[: len(taps)] = taps
+    return padded.reshape(kb, interp).T.copy()   # [L, Kb]
+
+
+def _interp_weight(taps, interp: int) -> np.ndarray:
+    """conv1d's weight [O=L, I=1, Kb]: the branch taps reversed."""
+    return _branch_taps(taps, interp)[:, None, ::-1].copy()
+
+
+def _interp(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Real rows x [R, Kb−1 + n] → [R, n·L]: y[r, i·L + p] = out[r, p, i]."""
+    from clenabled_tpu_torch.dsp import hopper_kernels
+
+    with hopper_kernels._full_f32():
+        out = F.conv1d(x.float()[:, None, :], weight)        # [R, L, n]
+    return out.transpose(1, 2).reshape(x.shape[0], -1)
+
+
+def interp_fir_filter(x, taps, interp: int):
+    """Polyphase interpolating FIR over one real frame.
+
+    The input carries Kb−1 = ceil(T/L)−1 history samples at the front;
+    y[i·L + p] = Σ_j taps[p + L·j] · x[i + Kb−1 − j]  (the polyphase
+    decomposition of zero-stuff-by-L → FIR(taps)).
+    x: [Kb−1 + n] float32 → [n·L] float32.
+    """
+    x = torch.as_tensor(x).float()
+    w = torch.as_tensor(_interp_weight(taps, interp), device=x.device)
+    return _interp(x[None], w)[0]
+
+
+def make_interp_fir_filter_planar(taps, interp: int, device=None):
+    """Streaming planar interpolating FIR: (init_state, apply) with
+    apply((hr, hi), frame: planar.PC[n]) -> (state, planar.PC[n·L]);
+    the state is Kb−1 input samples a component, starting on ``device``
+    (None: ``cuda:0``, raising when no card is visible).  Both components
+    run in one conv1d call."""
+    taps_np = np.asarray(taps, np.float32)
+    kb = -(-len(taps_np) // interp)
+    weight = per_device(_interp_weight(taps_np, interp))
+    dev = _state_device(device)
+
+    def init_state(frame_size: int | None = None):
+        del frame_size
+        z = torch.zeros(kb - 1, device=dev)
+        return (z, z.clone())
+
+    def apply(state, frame):
+        full = torch.stack([torch.cat([state[0], frame.re]),
+                            torch.cat([state[1], frame.im])])
+        y = _interp(full, weight(full.device))
+        return ((_history(full[0], kb - 1), _history(full[1], kb - 1)),
+                planar.PC(y[0], y[1]))
+
+    return init_state, apply
+
+
+def make_interp_fir_filter(taps, interp: int, device=None):
+    """Complex-stream variant (float taps — GR interp_fir_filter_ccf):
+    (init_state, apply) with a complex64 state of Kb−1 input samples on
+    ``device`` (None: ``cuda:0``, raising when no card is visible)."""
+    taps_np = np.asarray(taps, np.float32)
+    kb = -(-len(taps_np) // interp)
+    weight = per_device(_interp_weight(taps_np, interp))
+    dev = _state_device(device)
+
+    def init_state(frame_size: int | None = None):
+        del frame_size
+        return torch.zeros(kb - 1, dtype=torch.complex64, device=dev)
+
+    def apply(state, frame):
+        full = torch.cat([state, torch.as_tensor(frame).to(torch.complex64)])
+        y = _interp(torch.stack([full.real, full.imag]), weight(full.device))
+        return _history(full, kb - 1), torch.complex(y[0], y[1])
 
     return init_state, apply

@@ -8,12 +8,14 @@
   leg 1b, the fused sharded step on the hand-written FX kernel for each
   ingest dtype (2 antennas, ``fx_tail_len(dtype)`` samples a rank: 1024,
   2048, 4096); leg 2, the time-sharded overlap-add filter (one chunk of
-  ones a rank).  The JAX dry run's legs 2b-3e (the planar OFS halo, the
-  station-sharded and stacked X-Engines, the sharded oversampled PFB, the
-  sharded Costas channels, the sharded correlators) wait for
-  ``planar_halo``, ``xengine_sharded`` and ``xcorr_sharded``, and leg 4
-  (two processes over ``jax.distributed``) for the multi-host tool
-  (ROADMAP.md A.12, A.14).
+  ones a rank); leg 3e, the window-parallel correlators (the TD lag scan,
+  max_shift 32, over magnitudes of ones [3, 2D, 512]; the FD correlator
+  over vectors of ones [3, 2D, 256] with ``perform_fft_first``).  The JAX
+  dry run's legs 2b-3d (the planar OFS halo, the station-sharded and
+  stacked X-Engines, the sharded oversampled PFB, the sharded Costas
+  channels) wait for ``planar_halo``, ``xengine_sharded`` and the chunked
+  Costas loop, and leg 4 (two processes over ``jax.distributed``) for the
+  multi-host tool (ROADMAP.md A.9, A.12, A.14).
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ from __future__ import annotations
 import torch
 
 from clenabled_tpu_torch import pipelines as P
-from clenabled_tpu_torch.dsp import firdes, hopper_kernels
+from clenabled_tpu_torch.dsp import firdes, hopper_kernels, planar
 from clenabled_tpu_torch.runtime.device import get_context
 from clenabled_tpu_torch.sharding import launch
+from clenabled_tpu_torch.sharding.collectives import axis_size
 from clenabled_tpu_torch.sharding.halo import make_sharded_fft_filter
+from clenabled_tpu_torch.sharding.xcorr_sharded import (
+    make_sharded_fd_xcorr, make_sharded_td_xcorr)
 
 
 def entry(device=None):
@@ -54,6 +59,12 @@ def _dryrun_rank() -> dict:
     init_f, apply_f, plan = make_sharded_fft_filter(taps, mesh)
     out["2"] = apply_f(init_f(), torch.ones(plan.nsamples,
                                             dtype=torch.complex64))
+    b = 2 * axis_size(mesh)
+    res = make_sharded_td_xcorr(mesh, max_shift=32)(torch.ones((3, b, 512)))
+    out["3e td"] = tuple(res)
+    fdx = make_sharded_fd_xcorr(mesh, perform_fft_first=True)
+    out["3e fd"] = (fdx(planar.PC(torch.ones((3, b, 256)),
+                                  torch.zeros((3, b, 256)))),)
     return out
 
 

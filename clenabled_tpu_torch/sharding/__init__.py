@@ -10,11 +10,13 @@ communication:
   ring), ``psum``, ``pmean``, ``broadcast``, ``axis_index``, ``axis_size``;
 - ``halo``: the time-sharded FIR, overlap-add filter and PFB channelizer,
   a ring halo each, bit-compatible with the sequential filters;
+- ``xcorr_sharded``: the TD and FD correlators, window-parallel with no
+  collective;
 - ``launch``: ``spawn``, which starts the ranks of a run.
 
 The sharded FX steps are ``pipelines.make_sharded_fx_pipeline[_fused]``.
-Not ported yet (ROADMAP.md A.12): ``planar_halo``, ``chain``,
-``xengine_sharded`` and ``xcorr_sharded``.
+Not ported yet (ROADMAP.md A.12): ``planar_halo``, ``chain`` and
+``xengine_sharded``.
 """
 
 from clenabled_tpu_torch.sharding.collectives import (  # noqa: F401
@@ -34,4 +36,8 @@ from clenabled_tpu_torch.sharding.launch import spawn  # noqa: F401
 from clenabled_tpu_torch.sharding.mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,
+)
+from clenabled_tpu_torch.sharding.xcorr_sharded import (  # noqa: F401
+    make_sharded_fd_xcorr,
+    make_sharded_td_xcorr,
 )

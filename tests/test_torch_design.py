@@ -266,7 +266,13 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.sharding.halo",
             "clenabled_tpu_torch.sharding.launch",
             "clenabled_tpu_torch.entry",
-            "clenabled_tpu_torch.tools.sharded_scaling"]
+            "clenabled_tpu_torch.tools.sharded_scaling",
+            "clenabled_tpu_torch.dsp.xcorr",
+            "clenabled_tpu_torch.blocks.correlators",
+            "clenabled_tpu_torch.runtime.dtypes",
+            "clenabled_tpu_torch.runtime.config",
+            "clenabled_tpu_torch.sharding.xcorr_sharded",
+            "clenabled_tpu_torch.tools.test_clxcorrelate"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from clenabled_tpu_torch.runtime import (DeviceContext, "

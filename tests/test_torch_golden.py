@@ -6,10 +6,11 @@ tolerances of ``tests/test_golden_kernels.py`` and
 From ``kernels_golden.json``: the streaming PFB (its R < M groups that the
 reference reads past its buffer for are left out, as the JAX test leaves
 them out), the clFFT assemblies, the FD correlator and the X-Engine's
-cxmac integration.  From ``streaming_golden.json``: the overlap-add
-filter's tail carry, the Costas trajectories (512 samples), the quadrature
-demodulator and the float FIR variants.  The time-domain correlator and
-the short-dtype FIRs wait for their ports (ROADMAP.md A.7, A.8).
+cxmac integration and the time-domain lag scan with its argmax (complex
+and planar).  From ``streaming_golden.json``: the overlap-add filter's
+tail carry, the Costas trajectories (512 samples), the quadrature
+demodulator, the float FIR variants and the short-dtype FIRs (scc
+widening, fsf's truncating cast, also at decimation 2).
 """
 
 from __future__ import annotations
@@ -93,6 +94,25 @@ def test_fd_xcorr_golden(fft_first):
     got = xcorr.fd_xcorr(v, perform_fft_first=fft_first).numpy()[0]
     want = np.asarray(g["output"], np.float32)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * want.max())
+
+
+@pytest.mark.parametrize("form", ["complex", "planar"])
+def test_td_xcorr_golden(form):
+    """The normalized lag scan and find_max: the window-energy endpoints
+    and the shift sign are the pinned semantics (rtol/atol 1e-4, as
+    ``tests/test_golden_kernels.py``)."""
+    g = KERNELS["td_xcorr"]
+    sigs = np.stack([as_complex(g["ref"]), as_complex(g["sig"])])
+    if form == "complex":
+        res = xcorr.td_xcorr(_t(sigs), g["max_shift"])
+    else:
+        res = xcorr.td_xcorr_planar(planar.pabs(planar.from_complex(sigs)),
+                                    g["max_shift"])
+    got = res.corr_vectors.numpy()[0]
+    want = np.asarray(g["corr"], np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert int(np.argmax(got)) == g["max_index"]
+    assert int(res.lag[0]) == g["max_index"] - g["max_shift"]
 
 
 @pytest.mark.parametrize("mode", ["ichar", "packed4"])
@@ -184,3 +204,35 @@ def test_fir_float_variants_golden(variant):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=3e-6 * np.abs(want).max())
+
+
+def test_fir_scc_golden():
+    """int16 widened, complex taps (atol 3e-5 × max, as the JAX test)."""
+    ctaps = firdes.complex_band_pass(1.0, 1e6, -100e3, 200e3, 50e3)
+    x = np.asarray(STREAMING["fir_scc_in"], np.int16)
+    want = _c("fir_scc_out")
+    got = fir_filter.fir_filter_scc(x, ctaps).numpy()
+    assert got.shape == want.shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=3e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("decim", [1, 2])
+def test_fir_fsf_truncation_golden(decim):
+    """fsf's (int16) truncation: a float dot in another summation order may
+    land on the other side of an integer, so at most one count on under 5%
+    of the samples (``fir_fsf_out`` and ``fir_fsf_outdec2``)."""
+    taps = firdes.low_pass(1.0, 1e6, 100e3, 50e3)
+    x = np.asarray(STREAMING["fir_fsf_in"], np.float32)
+    want = np.asarray(STREAMING["fir_fsf_out"], np.int16)
+    n = want.shape[0]
+    if decim == 1:
+        got = fir_filter.fir_filter_fsf(x[: n + len(taps) - 1], taps)
+    else:
+        want = np.asarray(STREAMING["fir_fsf_outdec2"], np.int16)
+        got = fir_filter.fir_filter_fsf(x, taps, decimation=2)[:n]
+    got = got.numpy()
+    assert got.dtype == np.int16 and got.shape == want.shape
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 0.05

@@ -16,6 +16,14 @@ JAX's unsharded fused step over the joined stream (``mxu_dtype=float32``,
 as ``tests/test_torch_pipelines.py`` does), and the carried tails to that
 step and to JAX's own sharded step bit for bit.
 
+The window-parallel correlators run in the same spawns: each rank's
+result equals the port's unsharded planar function on the same windows bit
+for bit, and the ranks' results joined equal JAX's
+``make_sharded_{td,fd}_xcorr`` within 1e-4 × max|ref|, lags exactly.  (The
+planar DFT matmuls round differently at another batch size, so the
+joined result and one call over the whole batch agree within tolerance,
+not bit for bit.)
+
 In-process cases run a gloo group of world size 1: there the sharded
 steps and filters equal the unsharded ones bit for bit.
 """
@@ -50,6 +58,8 @@ from clenabled_tpu_torch.dsp import channelizer as t_chan
 from clenabled_tpu_torch.dsp import fft_filter as t_ofa
 from clenabled_tpu_torch.dsp import fir_filter as t_fir
 from clenabled_tpu_torch.dsp import firdes
+from clenabled_tpu_torch.dsp import planar as t_planar
+from clenabled_tpu_torch.dsp import xcorr as t_xcorr
 from clenabled_tpu_torch.entry import dryrun_multichip, entry
 from clenabled_tpu_torch.runtime import device as t_device
 
@@ -117,6 +127,13 @@ def _cases(spec: str) -> dict:
             [(_real(rng, "float32", (2, 1024 * d)),
               _real(rng, "float32", (2, 1024 * d))) for _ in range(2)]),
     }
+    cases["td_xcorr"] = ("td_xcorr", {"max_shift": 16},
+                         [np.abs(_cplx(rng, 3, 2 * d, 256))])
+    cases["fd_xcorr"] = ("fd_xcorr", {"fft_first": True},
+                         [(_real(rng, "float32", (3, 2 * d, 128)),
+                           _real(rng, "float32", (3, 2 * d, 128)))])
+    cases["xcorr_refused"] = ("xcorr_refused", {},
+                              [_real(rng, "float32", (2, 2 * d + 1, 64))])
     if spec == "2x2":
         return cases
     cases["fir_4"] = ("fir", {"taps": _fir_taps(4), "decimation": 4},
@@ -298,6 +315,55 @@ def test_sharded_fused(runs, spec, dt):
                     equal(got[i], sharded[k][i])
 
 
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("kind", ["td_xcorr", "fd_xcorr"])
+def test_sharded_xcorr(runs, spec, kind):
+    cases, rows = runs(spec)
+    _, params, (x,) = cases[kind]
+    jmesh = _jmesh(spec)
+    if kind == "td_xcorr":
+        res = JS.make_sharded_td_xcorr(jmesh, params["max_shift"])(
+            jnp.asarray(x))
+        want = [np.asarray(v) for v in res]
+    else:
+        from clenabled_tpu.dsp import planar as j_planar
+        want = [np.asarray(JS.make_sharded_fd_xcorr(
+            jmesh, perform_fft_first=params["fft_first"])(
+                j_planar.PC(jnp.asarray(x[0]), jnp.asarray(x[1]))))]
+    def parts(r):
+        return [list(v) if kind == "td_xcorr" else [v] for v in r[kind][0]]
+
+    for row in rows:
+        for r in row:                    # (sharded, unsharded) on a block
+            sharded, unsharded = parts(r)
+            for g, u in zip(sharded, unsharded):
+                assert g.dtype == u.dtype
+                np.testing.assert_array_equal(g, u)
+        for j, w in enumerate(want):
+            got = np.concatenate([parts(r)[0][j] for r in row], axis=1)
+            assert got.dtype == w.dtype and got.shape == w.shape
+            if got.dtype == np.int32:
+                np.testing.assert_array_equal(got, w)
+            else:
+                close(got, w)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_xcorr_batch_must_divide(runs, spec):
+    """A window batch B that the axis size D does not divide raises on
+    every rank, for both correlators, as JAX's checked functions do."""
+    cases, rows = runs(spec)
+    d = SPECS[spec][2]
+    (x,) = cases["xcorr_refused"][2]
+    with pytest.raises(ValueError, match="multiple of the mesh axis size"):
+        JS.make_sharded_td_xcorr(_jmesh(spec), 8)(jnp.asarray(x))
+    want = (f"window batch {2 * d + 1} must be a multiple of the mesh axis "
+            f"size {d}")
+    for row in rows:
+        for r in row:
+            assert r["xcorr_refused"] == [want, want]
+
+
 # --------------------------------------------------------------------------
 # In-process: a gloo group of world size 1
 # --------------------------------------------------------------------------
@@ -349,6 +415,22 @@ def test_world1_fx_pipeline_equals_unsharded(world1):
         for g, w in zip(so, uo):
             assert torch.equal(g, w)
         sh, uh = so[2], uo[2]
+
+
+def test_world1_xcorr_equals_unsharded(world1):
+    """At one rank the sharded correlators are the planar functions over
+    the whole batch, bit for bit."""
+    rng = np.random.default_rng(72)
+    mags = torch.from_numpy(np.abs(_cplx(rng, 3, 4, 512)))
+    got = S.make_sharded_td_xcorr(world1, 32)(mags)
+    want = t_xcorr.td_xcorr_planar_batched(mags, 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    v = t_planar.PC(*(torch.from_numpy(_real(rng, "float32", (3, 4, 256)))
+                      for _ in range(2)))
+    assert torch.equal(S.make_sharded_fd_xcorr(world1,
+                                               perform_fft_first=True)(v),
+                       t_xcorr.fd_xcorr_planar(v, perform_fft_first=True))
 
 
 def test_no_group_is_one_rank(monkeypatch):
@@ -499,9 +581,14 @@ def test_entry_is_the_planar_step():
 def test_dryrun_multichip_on_cpu():
     res = dryrun_multichip(2, device="cpu")
     assert len(res) == 2
-    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2"}
+    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "3e td",
+            "3e fd"}
     for r in res:
         assert set(r) == legs
+        corr, lag, vectors = r["3e td"]      # magnitudes of ones: all 1
+        assert corr.shape == lag.shape == (2, 2) and (lag == -32).all()
+        np.testing.assert_allclose(vectors, np.ones((2, 2, 64)), atol=1e-5)
+        assert r["3e fd"][0].shape == (2, 2, 256)
         assert all(np.isfinite(np.asarray(v, np.complex64)).all()
                    for leg in r.values() for v in leg)
     for leg in ("1", "1b float32", "1b bfloat16", "1b int8"):

@@ -8,7 +8,10 @@ child process imports its module, so these live apart from the test module
 maps a name to (kind, params, frames), each frame the GLOBAL input of one
 step (numpy, time on the last axis); each rank takes its block along the
 ``"shard"`` axis and returns, per case, its outputs of every chained step
-and its carried state.
+and its carried state.  The window-parallel correlators (``td_xcorr``,
+``fd_xcorr``) take each frame's GLOBAL window batch [nsig, B, n], as JAX's
+caller passes it, and return this rank's windows' results beside the
+unsharded planar function's on the same windows.
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ import numpy as np
 import torch
 
 from clenabled_tpu_torch import pipelines as P
+from clenabled_tpu_torch.dsp import planar, xcorr
 from clenabled_tpu_torch.runtime.device import get_context
 from clenabled_tpu_torch.sharding import (axis_index, axis_size,
                                           make_sharded_channelizer,
+                                          make_sharded_fd_xcorr,
                                           make_sharded_fft_filter,
                                           make_sharded_fir_filter, make_mesh,
-                                          ring_forward)
+                                          make_sharded_td_xcorr, ring_forward)
 
 AXIS = "shard"
 
@@ -68,6 +73,44 @@ def _fused(params, frames, mesh):
     return outs
 
 
+def _xcorr(kind: str, params: dict, frames, mesh):
+    """Per frame: (this rank's result, the unsharded planar function's on
+    this rank's windows of the global batch)."""
+    d, i = axis_size(mesh, AXIS), axis_index(mesh, AXIS)
+    outs = []
+    for x in frames:
+        k = np.shape(x)[-2] // d
+        mine = [torch.from_numpy(np.ascontiguousarray(c[:, i * k:(i + 1) * k]))
+                for c in (x if kind == "fd_xcorr" else (x,))]
+        if kind == "td_xcorr":
+            fn = make_sharded_td_xcorr(mesh, params["max_shift"], AXIS)
+            outs.append((tuple(fn(x)), tuple(xcorr.td_xcorr_planar_batched(
+                mine[0], params["max_shift"]))))
+        else:
+            fn = make_sharded_fd_xcorr(mesh, AXIS, params["fft_first"])
+            v = planar.PC(*(torch.from_numpy(c) for c in x))
+            outs.append((fn(v), xcorr.fd_xcorr_planar(planar.PC(*mine),
+                                                      params["fft_first"])))
+    return outs
+
+
+def _refused(frames, mesh) -> list:
+    """The errors of both correlators given a window batch that the axis
+    size does not divide (each frame: mags [nsig, B, n])."""
+    msgs = []
+    for x in frames:
+        for fn, arg in ((make_sharded_td_xcorr(mesh, 8, AXIS), x),
+                        (make_sharded_fd_xcorr(mesh, AXIS),
+                         planar.PC(torch.from_numpy(x), torch.from_numpy(x)))):
+            try:
+                fn(arg)
+            except ValueError as e:
+                msgs.append(str(e))
+            else:
+                msgs.append(None)
+    return msgs
+
+
 def run_case(kind: str, params: dict, frames, mesh):
     if kind == "ring":
         return [ring_forward(torch.from_numpy(_block(x, mesh)), mesh, AXIS)
@@ -86,6 +129,10 @@ def run_case(kind: str, params: dict, frames, mesh):
         return _fx(params, frames, mesh)
     if kind == "fused":
         return _fused(params, frames, mesh)
+    if kind in ("td_xcorr", "fd_xcorr"):
+        return _xcorr(kind, params, frames, mesh)
+    if kind == "xcorr_refused":
+        return _refused(frames, mesh)
     raise ValueError(f"unknown case kind {kind!r}")
 
 
