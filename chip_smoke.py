@@ -135,7 +135,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``nvidia-smi`` reading at 90% utilization or more, taken while the
    kernel runs for 3 s), and the latency bound (``latency_bound_ms``: the
    samples × the loop-carried chain's dependent operations × 4 cycles at
-   that clock).
+   that clock).  Then the batched entry (``costas_batched``, the same
+   chain body one block a row) against its plain form on [8, 4096], order
+   2 on BPSK and order 4 on QPSK from per-row states (phases outside ±2π
+   among them), every row against ``costas_scalar`` on that row alone,
+   and windows of 1536 at a stride of 1024 read in place ([4, 1536] and
+   [2, 4, 1536]) against the same rows copied, all bit for bit; counts
+   reset, ``CostasLoop(0.00628, 2, planar=True, chunked=True, chunk=4096,
+   warmup=512)`` over 8 chained frames of 2^20 of seeded BPSK, three
+   ``costas_batched`` launches a frame and no other kernel, each frame's
+   residual, exact and branch hops printed beside its distance from one
+   ``costas_scalar`` call over the joined stream: an exact frame must be
+   bit-equal to it, a frame at residual <= 1e-3 within 2e-2 of it, and
+   the loop locked (frequency within 5e-4 of the offset); the same frames
+   with ``exact_fallback_residual`` (1e-3, or half the first frame's
+   residual if that is lower): the first frame and every frame above the
+   bound rerun on ``costas_scalar`` (two launches each, counted), each
+   bit-equal to the sequential form from its carried state (the first to
+   the joined call), and frames 2-7 within 2e-2 of the joined call;
+   frames 0 and 1 through the chunked loop once more, and again with
+   ``costas_batched_plain`` in the kernel's place, bit for bit (outputs,
+   carried state, certificate); the chunked path's wall and device busy a
+   frame in MSPS; counts reset,
+   ``CostasLoop(0.00628, 2, planar=True, num_streams=16)`` over 16 seeded
+   BPSK streams (offsets over ±0.005) × 8 frames of 2^16, one launch a
+   frame, each stream bit-equal to ``costas_scalar`` over its joined
+   stream; then the multi-stream runner at [8, 4096] and [1024, 4096],
+   held to the plain form bit for bit and timed beside it and its bound
+   (the larger of the bytes and operations at the peak rates and one
+   chain's latency at the measured clock; no latency term where the clock
+   was not read).
 
 13. sharded main path — a ``torch.distributed`` NCCL group of one rank
    from a ``file://`` store in a temporary directory, and
@@ -156,9 +185,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    their sequential forms, bit for bit over chained frames; the
    window-parallel correlators (``make_sharded_td_xcorr`` at ±512 lags,
    ``make_sharded_fd_xcorr`` with ``perform_fft_first``) on [3, 64, 8192]
-   against the unsharded planar functions, bit for bit; the group is
-   destroyed, and ``entry.dryrun_multichip(1)`` runs its legs (1, 1b, 2
-   and 3e) in one spawned NCCL rank.  A run on one card has one rank
+   against the unsharded planar functions, bit for bit; the planar
+   sharded filters, counted and timed in turns beside their sequential
+   forms, bit for bit over chained frames (outputs and state):
+   ``make_sharded_fft_filter_planar`` on its kernel route (49 taps, 4
+   frames of 2^21) against ``make_fft_filter_planar(fused=True)``,
+   ``make_sharded_channelizer_planar`` (16 channels, R = 16, 400 taps, 4
+   frames of 2^20) against ``make_channelizer(planar=True)``,
+   ``make_sharded_channelizer_fused_oversampled`` (16 channels, R = 8, the
+   160-tap prototype, 3 frames of 2^23) against
+   ``make_channelizer_fused_oversampled``, and
+   ``make_sharded_costas_channels(0.00628, 2)`` over 16 channels × 2
+   frames of 2^16 (three batched launches a frame) against the chunked
+   loop run channel by channel (outputs, diagnostics and state); the
+   group is destroyed, and ``entry.dryrun_multichip(1)`` runs its legs
+   (1, 1b, 2, 2b, 3c, 3d and 3e) in one spawned NCCL rank.  A run on one card has one rank
    (NCCL refuses two ranks on one card); the exchange between ranks is
    tested on the CPU.
 14. correlators and typed FIRs (no kernel of their own: plain torch, as
@@ -234,6 +275,16 @@ CO_BW, CO_N, CO_FRAMES, CO_CHECK_N, CO_OFFSET = 0.00628, 1 << 16, 8, 1 << 12, 0.
 # 2 (e+1, |a|-|b|; its 0.5 can go into the gains), frequency 2 (mul, add),
 # phase 2 (add, add)
 CO_CHAIN = {2: 19, 4: 21}
+# the batched Costas entry: [8, 4096] checks and times, and the multi-stream
+# runner at BENCH_TPU's 1024 loops of 4096; the chunked path at BENCH_TPU's
+# chunk and warm-up over 8 frames of 2^20; 16 streams over 8 frames of 2^16
+# with offsets spread over +-CO_OFFSET
+CB_B, CB_N, CB_MANY = 8, 1 << 12, 1024
+CH_CHUNK, CH_WARMUP, CH_N, CH_FRAMES = 4096, 512, 1 << 20, 8
+# the residual under which the JAX test holds a chunked frame to 2e-2 of
+# the sequential loop (tests/test_siggen_demod.py:147-159)
+CH_RESID = 1e-3
+MS_S, MS_N, MS_FRAMES = 16, 1 << 16, 8
 # the correlators (BENCH_TPU's clXCorrelate configuration): 4 inputs,
 # 64 windows of 8192 samples a frame, ±512 lags; inputs 1-3 are input 0
 # at these lags plus noise; then 1-in-4 frame decimation over 8 windows
@@ -1408,13 +1459,13 @@ def spectrum_phase(torch, hk, gen, dev) -> dict:
     return res
 
 
-def costas_stream(np, rng, n: int, order: int):
-    """Seeded BPSK (order 2) or QPSK (order 4) symbols at CO_OFFSET rad per
-    sample of carrier offset, with noise: float32 (re, im)."""
+def costas_stream(np, rng, n: int, order: int, offset: float = CO_OFFSET):
+    """Seeded BPSK (order 2) or QPSK (order 4) symbols at ``offset`` rad
+    per sample of carrier offset, with noise: float32 (re, im)."""
     t = np.arange(n)
     k = rng.integers(0, order, n)
     sym = np.exp(1j * (np.pi * k if order == 2 else np.pi / 4 * (2 * k + 1)))
-    x = sym * np.exp(1j * (CO_OFFSET * t + 0.7))
+    x = sym * np.exp(1j * (offset * t + 0.7))
     x = x + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
     return np.stack([x.real, x.imag]).astype(np.float32)
 
@@ -1593,6 +1644,331 @@ def costas_phase(torch, hk, dev) -> dict:
     res["launches"] = launches
     return res
 
+
+
+def costas_batched_bound(b: int, n: int, mhz) -> dict:
+    """The least time of ``b`` chains of ``n`` order-2 samples: the larger
+    of the bytes and operations at the card's peak rates (as
+    ``costas_phase`` counts them for one chain) and, where the SM clock
+    was read, one chain's latency (n x the chain's dependent operations x
+    4 cycles at ``mhz``).  Independent chains need no cross-lane work, so
+    32 of them can share a warp instruction: their issue rate is the
+    operations term, far below the latency."""
+    bnd, by = bound(4 * b * (4 * n + 6), 30 * b * n)
+    lat = n * CO_CHAIN[2] * CYCLES_PER_OP / (mhz * 1e6) * 1e3 if mhz else None
+    if lat is not None and lat > bnd:
+        bnd, by = lat, "operations"
+    return {"bound_ms": bnd, "bound_by": by, "latency_ms": lat,
+            "sm_clock_mhz": mhz}
+
+
+def host_calls(torch, fn) -> int:
+    """The top-level torch operator calls of one ``fn()`` on the host
+    (``torch.profiler``'s ``aten::`` events with no ``aten::`` parent)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and not (
+        e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::")))
+
+
+def costas_batched_phase(torch, hk, dev) -> dict:
+    """The batched Costas entry against its plain form, row by row against
+    ``costas_scalar`` and on strided windows, bit for bit; then, counted,
+    the chunked path (``CostasLoop(chunked=True)``) held to one sequential
+    call over the joined stream, with an exact fallback, and the
+    multi-stream path (``CostasLoop(num_streams=16)``) held to one
+    sequential call a stream; then the batched entry's times and bounds."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import demod, planar
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    res = {"err": 0.0}
+    alpha, beta = demod.costas_gains(CO_BW)
+    rng = np.random.default_rng(12)
+
+    def equal(got, want) -> bool:
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    # per-row states, phases outside [-2pi, 2pi] among them
+    st = (torch.tensor([0.0, 0.3, -1.0, 7.5, -9.0, 2.0, 100.0, -0.5],
+                       device=dev)[:CB_B],
+          torch.linspace(-0.004, 0.004, CB_B, device=dev),
+          torch.zeros(CB_B, device=dev))
+    for order in (2, 4):
+        x = torch.as_tensor(np.stack([costas_stream(np, rng, CB_N, order)
+                                      for _ in range(CB_B)], 1), device=dev)
+        args = (x[0], x[1], *st, order, alpha, beta)
+        got = hk.costas_batched(*args)
+        torch.cuda.synchronize()
+        label = f"costas_batched order {order} [{CB_B}, {CB_N}]"
+        res["err"] = max(res["err"], costas_check(
+            torch, f"{label} against its plain form", got,
+            hk.costas_batched_plain(*args)))
+        for b in range(CB_B):
+            one = hk.costas_scalar(x[0, b], x[1, b], st[0][b], st[1][b],
+                                   st[2][b], order, alpha, beta)
+            if not equal(one, [v[b] for v in got]):
+                fail(f"{label}: row {b} differs from costas_scalar on it")
+        phase("check", f"{label}: every row equals costas_scalar on that "
+                       f"row alone, bit for bit")
+        # windows of w + c at a stride of c, read in place, against copies
+        ext = torch.cat([torch.zeros(2, 2, CH_WARMUP, device=dev),
+                         x[:, :2]], -1)
+        c, w, nch = 1024, CH_WARMUP, CB_N // 1024
+        win = [e.as_strided((2, nch, w + c), (w + CB_N, c, 1)) for e in ext]
+        got = hk.costas_batched(*win, 0.0, 0.0, 0.0, order, alpha, beta)
+        flat = [v[0] for v in win]
+        got2 = hk.costas_batched(*flat, 0.0, 0.0, 0.0, order, alpha, beta)
+        want = hk.costas_batched(*(v.contiguous() for v in win), 0.0, 0.0,
+                                 0.0, order, alpha, beta)
+        torch.cuda.synchronize()
+        if not (equal(got, want) and equal(got2, [v[0] for v in want])):
+            fail(f"costas_batched order {order}: strided windows differ from "
+                 f"the same rows copied")
+        phase("check", f"costas_batched order {order}: [2, {nch}, {w + c}] "
+                       f"and [{nch}, {w + c}] windows at a stride of {c}, "
+                       f"read in place, equal the rows copied bit for bit")
+
+    # the chunked path: Flowgraph -> CostasLoop(planar, chunked), counted
+    stream = torch.as_tensor(costas_stream(np, rng, CH_N * CH_FRAMES, 2),
+                             device=dev)
+    cl = blocks.CostasLoop(CO_BW, 2, planar=True, chunked=True,
+                           chunk=CH_CHUNK, warmup=CH_WARMUP)
+    g = Flowgraph()
+    g.external_input(cl)
+    tap = g.tap(cl, name="baseband")
+    r = g.compile(CH_N, device=dev)
+    diags = []
+    r.on_message("CostasLoop.lock", diags.append)
+    feeds = [planar.PC(stream[0, k * CH_N:(k + 1) * CH_N],
+                       stream[1, k * CH_N:(k + 1) * CH_N])
+             for k in range(CH_FRAMES)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [r.step(f)[tap] for f in feeds]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    phase("costas", f"Flowgraph CostasLoop({CO_BW}, 2, planar, chunked, "
+                    f"chunk={CH_CHUNK}, warmup={CH_WARMUP}), {CH_FRAMES} "
+                    f"frames of {CH_N}: launches {counts} "
+                    f"({counts.get('costas_batched', 0) / CH_FRAMES:g} a "
+                    f"frame)")
+    if counts != {"costas_batched": 3 * CH_FRAMES}:
+        fail(f"the chunked path: expected 3 costas_batched launches a frame "
+             f"and no other, got {counts}")
+    res["chunked_launches"] = counts.get("costas_batched", 0)
+    joined = hk.costas_scalar(stream[0], stream[1], 0.0, 0.0, 0.0, 2, alpha,
+                              beta)
+
+    def against_joined(k, o):
+        sl = slice(k * CH_N, (k + 1) * CH_N)
+        want = (joined[0][sl], joined[1][sl])
+        err = max(float((o.re - want[0]).abs().max()),
+                  float((o.im - want[1]).abs().max()))
+        return err, equal((o.re, o.im), want)
+
+    res["chunked_frames"] = []
+    for k, (o, d) in enumerate(zip(outs, diags)):
+        err, same = against_joined(k, o)
+        row = {"residual": float(d["residual"]), "exact": bool(d["exact"]),
+               "branch_hops": int(d["branch_hops"]), "max_abs_err": err}
+        res["chunked_frames"].append(row)
+        phase("costas", f"chunked frame {k}: residual {row['residual']:.3e}, "
+                        f"exact {row['exact']}, branch hops "
+                        f"{row['branch_hops']}, max abs err against the "
+                        f"sequential call {err:.3e}")
+        if row["exact"] and not same:
+            fail(f"chunked frame {k}: certified exact but not bit-equal to "
+                 f"the sequential call")
+        if row["residual"] <= CH_RESID and err > 2e-2:
+            fail(f"chunked frame {k}: residual {row['residual']:.3e} but "
+                 f"{err:.3e} from the sequential call (tolerance 2e-2)")
+    freq = float(r.states[0][0].freq)
+    if abs(freq - CO_OFFSET) >= 5e-4:
+        fail(f"the chunked loop did not lock: freq {freq:.6f}")
+    phase("check", f"chunked: {sum(f['exact'] for f in res['chunked_frames'])}"
+                   f" of {CH_FRAMES} frames certified exact (each bit-equal "
+                   f"to the sequential call), "
+                   f"{sum(f['residual'] <= CH_RESID for f in res['chunked_frames'])}"
+                   f" at residual <= {CH_RESID:g} (each within 2e-2 of it), "
+                   f"the others flagged; locked at freq {freq:.6f} rad/sample")
+    # the same frames with exact_fallback_residual: a frame above the bound
+    # (frame 0 at least: the cold start) reruns on costas_scalar, bit for
+    # bit the sequential form from the state carried into it
+    r0 = res["chunked_frames"][0]["residual"]
+    thr = min(CH_RESID, r0 / 2)
+    if not thr > 0:
+        fail(f"the first chunked frame's residual is {r0}: no fallback test")
+    fb = demod.make_costas_loop_chunked(CO_BW, 2, chunk=CH_CHUNK,
+                                        warmup=CH_WARMUP,
+                                        exact_fallback_residual=thr)
+    state = fb.init_state(dev)
+    hk.reset_launch_counts()
+    runs = []
+    for f in feeds:
+        before = state
+        state, o, d = fb(state, f)
+        runs.append((before, o, d))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    fell = [k for k, (_, _, d) in enumerate(runs) if bool(d["fell_back"])]
+    want = {"costas_batched": 3 * CH_FRAMES, "costas_scalar": 2 * len(fell)}
+    if 0 not in fell or counts != want:
+        fail(f"exact_fallback_residual={thr:.3e}: frames {fell} fell back, "
+             f"launches {counts}")
+    for k, ((lag, tail), o, d) in enumerate(runs):
+        err, same = against_joined(k, o)
+        if k in fell:
+            ext = [torch.cat([t, x]) for t, x in zip(tail, feeds[k])]
+            seq = hk.costas_scalar(*ext, *lag, 2, alpha, beta)
+            if not (bool(d["exact"]) and equal((o.re, o.im),
+                                               (seq[0][CH_WARMUP:],
+                                                seq[1][CH_WARMUP:]))):
+                fail(f"fallback frame {k}: not bit-equal to the sequential "
+                     f"form from its carried state")
+            if k == 0 and not same:
+                fail("fallback frame 0: not bit-equal to the sequential call")
+        elif float(d["residual"]) > thr:
+            fail(f"fallback frame {k}: residual above {thr:.3e} not re-run")
+        if k >= 2 and err > 2e-2:
+            fail(f"fallback frame {k}: {err:.3e} from the sequential call "
+                 f"(tolerance 2e-2)")
+    res["fallback"] = {"threshold": thr, "frames": fell, "launches": counts}
+    phase("check", f"exact_fallback_residual={thr:.3e}: frames {fell} fell "
+                   f"back (launches {counts}), each bit-equal to the "
+                   f"sequential form from its carried state (frame 0 to the "
+                   f"sequential call); frames 2-{CH_FRAMES - 1} within 2e-2 "
+                   f"of the sequential call")
+    # the kernel on the path's own windows: frames 0 and 1 through the
+    # chunked loop, once as it runs and once with the batched plain form in
+    # the kernel's place, bit for bit (outputs, carried state, certificate)
+
+    def two_frames():
+        run = demod.make_costas_loop_chunked(CO_BW, 2, chunk=CH_CHUNK,
+                                             warmup=CH_WARMUP)
+        state, got = run.init_state(dev), []
+        for f in feeds[:2]:
+            state, o, d = run(state, f)
+            got += [o.re, o.im, *state[0], state[1].re, state[1].im,
+                    *(d[k] for k in sorted(d))]
+        return got
+
+    got = two_frames()
+    kernel = hk.costas_batched
+    hk.costas_batched = hk.costas_batched_plain
+    try:
+        want = two_frames()
+    finally:
+        hk.costas_batched = kernel
+    res["err"] = max(res["err"], costas_check(
+        torch, f"chunked frames 0-1 of {CH_N} ([1, {CH_N // CH_CHUNK}] "
+               f"windows a segment) against the same run on "
+               f"costas_batched_plain", got, want))
+    res["chunked_path"] = path_times(torch, "chunked carrier recovery",
+                                     lambda: r.step(feeds[0]), CH_N)
+    res["chunked_path"]["host_calls"] = host_calls(torch,
+                                                   lambda: r.step(feeds[0]))
+    phase("path", f"chunked carrier recovery: "
+                  f"{res['chunked_path']['host_calls']} top-level torch calls "
+                  f"a frame (torch.profiler)")
+    busy = res["chunked_path"]["busy_ms"]
+    res["chunked_msps"] = {"wall": CH_N / res["chunked_path"]["wall_ms"] / 1e3,
+                           "busy": busy and CH_N / busy / 1e3}
+    del stream, feeds, outs, joined
+
+    # the multi-stream path: Flowgraph -> CostasLoop(planar, num_streams)
+    offs = np.linspace(-CO_OFFSET, CO_OFFSET, MS_S)
+    streams = torch.as_tensor(np.stack([
+        costas_stream(np, rng, MS_N * MS_FRAMES, 2, offset=o) for o in offs],
+        1), device=dev)
+    cl = blocks.CostasLoop(CO_BW, 2, planar=True, num_streams=MS_S)
+    g = Flowgraph()
+    for p in range(MS_S):
+        g.external_input(cl, p)
+    names = [g.tap(cl, p, name=f"s{p}") for p in range(MS_S)]
+    r = g.compile(MS_N, device=dev)
+    frames_ = [[planar.PC(streams[0, p, k * MS_N:(k + 1) * MS_N],
+                          streams[1, p, k * MS_N:(k + 1) * MS_N])
+                for p in range(MS_S)] for k in range(MS_FRAMES)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [r.step(*f) for f in frames_]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    phase("costas", f"Flowgraph CostasLoop({CO_BW}, 2, planar, num_streams="
+                    f"{MS_S}), {MS_FRAMES} frames of {MS_N}: launches "
+                    f"{counts}")
+    if counts != {"costas_batched": MS_FRAMES}:
+        fail(f"the multi-stream path: expected one costas_batched launch a "
+             f"frame, got {counts}")
+    res["streams_launches"] = counts.get("costas_batched", 0)
+    for p in range(MS_S):
+        one = hk.costas_scalar(streams[0, p], streams[1, p], 0.0, 0.0, 0.0, 2,
+                               alpha, beta)
+        got = (torch.cat([o[names[p]].re for o in outs]),
+               torch.cat([o[names[p]].im for o in outs]),
+               *(v[p] for v in r.states[0]))
+        if not equal(got, one):
+            fail(f"multi-stream: stream {p} differs from costas_scalar over "
+                 f"its joined stream")
+    phase("check", f"multi-stream: each of {MS_S} streams equals one "
+                   f"costas_scalar call over its joined stream, bit for bit "
+                   f"(outputs and state)")
+    res["streams_path"] = path_times(torch, f"{MS_S}-stream carrier recovery",
+                                     lambda: r.step(*frames_[0]),
+                                     MS_S * MS_N)
+    del streams, frames_, outs
+
+    # the batched entry through the multi-stream runner at [8, 4096] and
+    # [1024, 4096], timed, and held to its plain form bit for bit (the
+    # plain call timed once); beside it its bound
+    run = demod._make_costas_loop_streams(CO_BW, 2, True)
+    res["shapes"] = {}
+    for b in (CB_B, CB_MANY):
+        x = torch.as_tensor(np.stack([costas_stream(np, rng, CB_N, 2)
+                                      for _ in range(b)], 1), device=dev)
+        z = torch.zeros(b, device=dev)
+        st0 = demod.CostasState(z, z, z)
+        fr = planar.PC(x[0], x[1])
+        call = lambda: run(st0, fr)
+        st1, out = call()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        want = hk.costas_batched_plain(x[0], x[1], z, z, z, 2, alpha, beta)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = costas_check(torch, f"costas_batched [{b}, {CB_N}] (the "
+                                  f"multi-stream runner) against its plain "
+                                  f"form", (out.re, out.im, *st1), want)
+        res["err"] = max(res["err"], err)
+        events_ms = time_ms(torch, call, reps=10)
+        busy = device_busy_ms(torch, call, 5)
+        ms = busy or events_ms
+        mhz, nbusy = sm_clock_mhz(torch, call)
+        bnd = costas_batched_bound(b, CB_N, mhz)
+        res["shapes"][f"[{b}, {CB_N}]"] = dict(
+            ms=ms, events_ms=events_ms, device_ms=busy, plain_ms=plain_ms,
+            err=err, clock_readings_busy=nbusy, **bnd)
+        shown = ("SM clock not read: no latency bound" if mhz is None else
+                 f"latency {bnd['latency_ms']:.4f} ms at {mhz:.0f} MHz from "
+                 f"{nbusy} busy readings")
+        phase("time", f"costas_batched [{b}, {CB_N}]: device "
+                      f"{'not measured' if busy is None else f'{busy:.4f} ms'},"
+                      f" events {events_ms:.4f} ms, {b * CB_N / ms / 1e3:.1f} "
+                      f"MSPS aggregate; plain {plain_ms:.1f} ms; bound "
+                      f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                      f"({shown})")
+        del x, out, want
+    return res
 
 
 def lag_scan_f64(np, mags, max_shift: int):
@@ -1940,6 +2316,139 @@ def step_events(torch, step) -> tuple[dict, float | None]:
     return by_name, (sum(coll) if coll else None)
 
 
+def planar_halo_checks(torch, hk, P, S, gen, dev, mesh) -> dict:
+    """The planar sharded filters and channel-parallel Costas loops at one
+    NCCL rank against their sequential forms over chained frames, bit for
+    bit (outputs and carried state; the ring hop is the identity), each
+    counted and timed beside the sequential form on CUDA events."""
+    import numpy as np
+
+    from clenabled_tpu_torch.dsp import (channelizer, demod, fft_filter,
+                                         firdes, planar)
+
+    def same(label, gots, wants):
+        for g, w in zip(gots, wants):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"{label}: not bit-equal to the sequential form")
+
+    def pc(n, *lead):
+        return planar.PC(*torch.randn((2, *lead, n), generator=gen,
+                                      device=dev))
+
+    res = {}
+    lp49 = fm_taps()[0]
+    proto400 = P._prototype(M, 100e6)[0].reshape(-1)
+    proto160 = os_proto(OS_M)
+    cases = {
+        "fft_filter_planar ofs 49 taps": (
+            S.make_sharded_fft_filter_planar(lp49, mesh, use_pallas=True),
+            fft_filter.make_fft_filter_planar(lp49, fused=True)[:2],
+            1 << 21, 4, "ofs_filter_planar"),
+        "channelizer_planar 16/16 400 taps": (
+            S.make_sharded_channelizer_planar(proto400, M, M, list(range(M)),
+                                              mesh),
+            channelizer.make_channelizer(proto400, M, M, list(range(M)),
+                                         planar=True, device=dev),
+            1 << 20, 4, None),
+        "channelizer_fused_oversampled 16/8 160 taps": (
+            S.make_sharded_channelizer_fused_oversampled(proto160, OS_M, OS_R,
+                                                         mesh),
+            channelizer.make_channelizer_fused_oversampled(
+                proto160, OS_M, OS_R, list(range(OS_M)), device=dev),
+            OS_N, 3, "pfb_oversampled_fused")}
+    for label, ((i_s, a_s), (i_q, a_q), n, steps, kernel) in cases.items():
+        ss, sq = i_s(), i_q()
+        sq = tuple(v.to(dev) for v in sq)
+        xs = [pc(n) for _ in range(steps)]
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        ys = []
+        for x in xs:
+            ss, y = a_s(ss, x)
+            ys.append(y)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in hk.launch_counts().items() if v}
+        want = {kernel: steps} if kernel else {}
+        if counts != want:
+            fail(f"sharded {label}: launches {counts}, expected {want}")
+        for k, x in enumerate(xs):
+            sq, yq = a_q(sq, x)
+            same(f"sharded {label} frame {k}", ys[k], yq)
+        same(f"sharded {label} state", (ss[0][0], ss[1][0]), sq)
+        x0, s0, q0 = xs[0], i_s(), tuple(v.to(dev) for v in i_q())
+        t = {"sharded": [], "sequential": []}
+        for who in ("sequential", "sharded", "sharded", "sequential"):
+            fn = (lambda: a_s(s0, x0)) if who == "sharded" else (
+                lambda: a_q(q0, x0))
+            t[who].append(time_ms(torch, fn, reps=10))
+        res[label] = {"launches": counts, "ms": t}
+        phase("check", f"sharded {label}, {steps} chained frames of {n}: "
+                       f"equal to the sequential form bit for bit "
+                       f"(launches {counts})")
+        phase("time", f"sharded {label} a frame (events, in turns): "
+                      f"{t['sharded']} ms against the sequential form's "
+                      f"{t['sequential']}")
+        del xs, ys
+    # channel-parallel chunked Costas loops against the chunked loop run
+    # channel by channel
+    chans, n = 16, 1 << 16
+    init_c, apply_c = S.make_sharded_costas_channels(CO_BW, 2, mesh)
+    one = demod.make_costas_loop_chunked(CO_BW, 2, chunk=1024, warmup=512)
+    rng = np.random.default_rng(13)
+    offs = np.linspace(-CO_OFFSET, CO_OFFSET, chans)
+    x_all = torch.as_tensor(np.stack([
+        costas_stream(np, rng, 2 * n, 2, offset=o) for o in offs], 1),
+        device=dev)
+    frames_ = [planar.PC(x_all[0, :, k * n:(k + 1) * n].contiguous(),
+                         x_all[1, :, k * n:(k + 1) * n].contiguous())
+               for k in range(2)]
+    sc = init_c(chans)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = []
+    for fr in frames_:
+        sc, o, d = apply_c(sc, fr)
+        outs.append((o, d))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    if counts != {"costas_batched": 3 * len(frames_)}:
+        fail(f"sharded costas channels: launches {counts}, expected 3 "
+             f"costas_batched a frame")
+    for ch in range(chans):
+        st = one.init_state(dev)
+        for k, fr in enumerate(frames_):
+            st, o, d = one(st, planar.PC(fr.re[ch], fr.im[ch]))
+            got_o, got_d = outs[k]
+            same(f"sharded costas channel {ch} frame {k}",
+                 (got_o.re[ch], got_o.im[ch],
+                  *(got_d[key][ch] for key in sorted(d))),
+                 (o.re, o.im, *(d[key] for key in sorted(d))))
+        same(f"sharded costas channel {ch} state",
+             [v[ch] for v in sc[0]] + [sc[1].re[ch], sc[1].im[ch]],
+             list(st[0]) + [st[1].re, st[1].im])
+    t = {"sharded": [], "sequential": []}
+    s0 = init_c(chans)
+    for who in ("sequential", "sharded", "sharded", "sequential"):
+        if who == "sharded":
+            t[who].append(time_ms(torch, lambda: apply_c(s0, frames_[0]),
+                                  reps=10))
+        else:
+            def per_channel():
+                for ch in range(chans):
+                    one(one.init_state(dev), planar.PC(frames_[0].re[ch],
+                                                       frames_[0].im[ch]))
+            t[who].append(time_ms(torch, per_channel, reps=3, warmup=1))
+    res["costas_channels"] = {"launches": counts, "ms": t}
+    phase("check", f"sharded costas channels {chans} x {n}, 2 chained frames:"
+                   f" equal to the chunked loop run channel by channel bit "
+                   f"for bit (outputs, diagnostics, state; launches "
+                   f"{counts})")
+    phase("time", f"sharded costas channels a frame (events, in turns): "
+                  f"{t['sharded']} ms against {chans} chunked loops one after "
+                  f"another, {t['sequential']}")
+    return res
+
+
 def sharded_phase(torch, hk, P, gen, dev) -> dict:
     """The sharded main path on a world-size-1 NCCL group: the fused step
     at full width in f32 and int8 for 3 chained steps, counted, bit-equal
@@ -2110,12 +2619,14 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
                     same(f"sharded {label} frame {k}", (ys, ss[0]), (yq, sq))
                 phase("check", f"sharded {label}, 3 frames of {n}: equal to "
                                f"the sequential filter bit for bit")
+            out["planar"] = planar_halo_checks(torch, hk, P, S, gen, dev, mesh)
         finally:
             dist.destroy_process_group()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = entry.dryrun_multichip(1, device="cuda")
-    if not {"1", "2", "3e td", "3e fd"} <= set(legs[0]):
+    if not {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3c",
+            "3d", "3e td", "3e fd"} <= set(legs[0]):
         fail(f"dryrun_multichip(1): legs {sorted(legs[0])}")
     for leg, vals in legs[0].items():
         if not all(np.isfinite(np.asarray(v, np.complex64)).all()
@@ -2430,8 +2941,9 @@ def main() -> None:
     spr = spectrum_phase(torch, hk, gen, dev)
     torch.cuda.empty_cache()
 
-    # 12. carrier recovery, kernel and path
+    # 12. carrier recovery, kernels and paths
     cor = costas_phase(torch, hk, dev)
+    cob = costas_batched_phase(torch, hk, dev)
     phase("new paths", f"on {card}")
     torch.cuda.empty_cache()
 
@@ -2604,6 +3116,21 @@ def main() -> None:
              cuda_kernels=[f"costas_kernel<{o}, {h}>" for o in (2, 4)
                            for h in ("true", "false")]
              + ["costas_sincos_probe_kernel"]),
+        *(dict(entry("costas_batched", "costas.cu", 2287,
+                     cob["chunked_launches"] + cob["streams_launches"],
+                     max(r["err"], cob["err"]), r["ms"], r["plain_ms"],
+                     (r["bound_ms"], r["bound_by"])),
+               shape=shape, device_ms=r["device_ms"],
+               events_ms=r["events_ms"], latency_bound_ms=r["latency_ms"],
+               sm_clock_mhz=r["sm_clock_mhz"],
+               clock_readings_busy=r["clock_readings_busy"],
+               launches_by_path={"chunked": cob["chunked_launches"],
+                                 "streams": cob["streams_launches"]},
+               jax_counterpart="clenabled_tpu/dsp/demod.py:274-285 and "
+                               "clenabled_tpu/blocks/demod.py:95 (jax.vmap "
+                               "of the lax.scan; no Pallas kernel)",
+               cuda_kernels=["costas_kernel<2, true>"])
+          for shape, r in cob["shapes"].items()),
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
         "int8_fx_ms": times["fx int8"][0], "int8_fx_plain_ms": times["fx int8"][1],
@@ -2618,7 +3145,12 @@ def main() -> None:
                                                "wall_ms")} for p in fm},
         "fft_bare_ms": spr["bare_ms"],
         "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
-                  "costas": cor["path"], "planar_step": planar,
+                  "costas": cor["path"],
+                  "costas_chunked": dict(
+                      cob["chunked_path"], msps=cob["chunked_msps"],
+                      frames=cob["chunked_frames"]),
+                  "costas_streams": cob["streams_path"],
+                  "planar_step": planar,
                   "sharded": sharded, "correlators": correlators}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

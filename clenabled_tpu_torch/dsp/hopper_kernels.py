@@ -40,7 +40,9 @@ ported so far:
 - ``fft_batched_fused`` (``csrc/fft_batched.cu``): the batched unscaled FFT
   of the ``Fft`` block, windowed, in natural order.
 - ``costas_scalar`` (``csrc/costas.cu``): the exact sequential Costas loop,
-  its (phase, freq, error) state in a 3-float device tensor.
+  its (phase, freq, error) state in a 3-float device tensor;
+  ``costas_batched``, the same chain body over B independent rows (one
+  block a row), for the chunked and multi-stream loops.
 
 Each wrapper keeps the JAX function's argument order, shapes and outputs.
 Given CPU tensors it runs its plain torch form (``*_plain``: the
@@ -1361,6 +1363,102 @@ def costas_scalar(xr, xi, phase, freq, error, order: int, alpha: float,
 
 costas_scalar.launches = 0
 
+
+def _check_costas_rows(xr, xi, order: int):
+    if order not in (2, 4):
+        raise ValueError("costas loop order must be 2 or 4")
+    if xr.dim() not in (2, 3) or xi.shape != xr.shape:
+        raise ValueError("xr/xi must be [B, L] or [G, R, L] rows, of one "
+                         "shape")
+
+
+def _rows(v, shape, device) -> torch.Tensor:
+    """A per-row state value (a float or a tensor broadcastable to
+    ``shape``) as a float32 tensor of ``shape``."""
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=device).expand(shape)
+
+
+def costas_batched_plain(xr, xi, phase, freq, error, order: int,
+                         alpha: float, beta: float, f_min: float = -1.0,
+                         f_max: float = 1.0):
+    """Plain torch form of ``costas_batched`` (any device):
+    ``demod._costas_step_planar`` one sample at a time on the rows' states
+    at once.  One Python step per sample: for tests and checks."""
+    _check_costas_rows(xr, xi, order)
+    dev, lead = xr.device, xr.shape[:-1]
+    step = demod._costas_step_planar(
+        order, *(_f32(v, dev) for v in (alpha, beta, f_min, f_max)))
+    carry = tuple(_rows(v, lead, dev) for v in (phase, freq, error))
+    outs_r, outs_i = [], []
+    for t in range(xr.shape[-1]):
+        carry, (o_r, o_i) = step(carry, (xr[..., t], xi[..., t]))
+        outs_r.append(o_r)
+        outs_i.append(o_i)
+    if not outs_r:
+        return (xr.new_zeros(xr.shape), xi.new_zeros(xi.shape)) + tuple(
+            c.clone() for c in carry)
+    return (torch.stack(outs_r, -1), torch.stack(outs_i, -1)) + carry
+
+
+def costas_batched(xr, xi, phase, freq, error, order: int, alpha: float,
+                   beta: float, f_min: float = -1.0, f_max: float = 1.0):
+    """B independent exact sequential Costas loops (``csrc/costas.cu``'s
+    batched entry on CUDA): row b runs ``costas_scalar`` on its samples
+    from its own (phase, freq, error), bit for bit what ``costas_scalar``
+    gives on that row alone.
+
+    xr/xi: [B, L] or [G, R, L] float32 views whose last dimension is
+    contiguous; the leading strides may be anything (windows of one stream
+    that overlap are read where they lie, e.g. from ``as_strided``).
+    phase/freq/error: the rows' states, tensors of the leading shape (or
+    broadcastable to it).  Returns (o_r, o_i) of xr's shape, contiguous,
+    and (phase', freq', error') of the leading shape.  On the card one
+    block (the single chain's 64 threads and 32 KB of rings) runs a row;
+    f_min and f_max must not be NaN there.  The JAX counterpart is
+    ``jax.vmap`` of the ``lax.scan`` over ``_costas_step_planar``."""
+    if xr.device.type == "cpu":
+        return costas_batched_plain(xr, xi, phase, freq, error, order, alpha,
+                                    beta, f_min, f_max)
+    _check_costas_rows(xr, xi, order)
+    if math.isnan(float(f_min)) or math.isnan(float(f_max)):
+        raise ValueError("costas loop frequency limits must not be NaN on "
+                         "the card")
+    dev, lead, n = xr.device, xr.shape[:-1], xr.shape[-1]
+    st = torch.stack([_rows(v, lead, dev) for v in (phase, freq, error)],
+                     -1).contiguous()
+    if xi.device != dev:
+        raise ValueError("all tensors must be on one device")
+    _require_cuda(st)
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise ValueError("the Costas kernel takes float32 samples")
+    if xr.stride() != xi.stride() or (n > 1 and xr.stride(-1) != 1):
+        raise ValueError("xr/xi must share their strides, the last being 1")
+    o_r = torch.empty(xr.shape, dtype=torch.float32, device=dev)
+    o_i = torch.empty_like(o_r)
+    st_out = torch.empty_like(st)
+    rows = math.prod(lead)
+    if rows == 0:
+        return o_r, o_i, st[..., 0], st[..., 1], st[..., 2]
+    if xr.dim() == 2:
+        group_rows, group_stride, row_stride = rows, 0, xr.stride(0)
+    else:
+        group_rows, group_stride, row_stride = (xr.shape[1], xr.stride(0),
+                                                xr.stride(1))
+    err = _load().clen_costas_batched(
+        xr.data_ptr(), xi.data_ptr(), rows, group_rows, group_stride,
+        row_stride, st.data_ptr(), st_out.data_ptr(), o_r.data_ptr(),
+        o_i.data_ptr(), n, order, float(alpha), float(beta), float(f_min),
+        float(f_max), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"costas_batched launch failed: CUDA error {err}")
+    costas_batched.launches += 1
+    return o_r, o_i, st_out[..., 0], st_out[..., 1], st_out[..., 2]
+
+
+costas_batched.launches = 0
+
+
 # float32 patterns of the Costas chain's sin/cos domain: |x| <= float32(2π)
 # (bits 0 .. 0x40C90FDB of each sign) or NaN (2^23 - 1 of each sign)
 COSTAS_LOOP_PATTERNS = 2 * (0x40C90FDB + 1) + 2 * ((1 << 23) - 1)
@@ -1395,7 +1493,7 @@ _COUNTED = (fx_correlate_streams_v2, fx_correlate_streams,
             pfb_channelize_packed, xengine_gram_stacked,
             xengine_gram_stacked_blocks, xengine_gram_stacked_tri, fir_direct,
             ofs_filter_planar, qdemod_fused, pfb_oversampled_fused,
-            fft_batched_fused, costas_scalar)
+            fft_batched_fused, costas_scalar, costas_batched)
 
 
 def launch_counts() -> dict[str, int]:

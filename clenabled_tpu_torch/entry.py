@@ -8,26 +8,34 @@
   leg 1b, the fused sharded step on the hand-written FX kernel for each
   ingest dtype (2 antennas, ``fx_tail_len(dtype)`` samples a rank: 1024,
   2048, 4096); leg 2, the time-sharded overlap-add filter (one chunk of
-  ones a rank); leg 3e, the window-parallel correlators (the TD lag scan,
+  ones a rank); leg 2b, the planar overlap-save filter on its kernel with
+  the input-tail halo (one frame quantum of ones a rank); leg 3c, the
+  fused oversampled channelizer (the 155-tap ``low_pass(1.0, 16.0, 0.5,
+  0.25)`` padded to 160, M = 16, R = 8, 1024 samples of ones a rank); leg
+  3d, the channel-parallel chunked Costas loops (bandwidth 0.02, order 2,
+  chunk 512, warm-up 256) over 2·D channels of a 0.003 rad/sample tone,
+  1024 samples; leg 3e, the window-parallel correlators (the TD lag scan,
   max_shift 32, over magnitudes of ones [3, 2D, 512]; the FD correlator
   over vectors of ones [3, 2D, 256] with ``perform_fft_first``).  The JAX
-  dry run's legs 2b-3d (the planar OFS halo, the station-sharded and
-  stacked X-Engines, the sharded oversampled PFB, the sharded Costas
-  channels) wait for ``planar_halo``, ``xengine_sharded`` and the chunked
-  Costas loop, and leg 4 (two processes over ``jax.distributed``) for the
-  multi-host tool (ROADMAP.md A.9, A.12, A.14).
+  dry run's legs 3 and 3b (the station-sharded and stacked X-Engines)
+  wait for ``xengine_sharded``, and leg 4 (two processes over
+  ``jax.distributed``) for the multi-host tool (ROADMAP.md A.12, A.14).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from clenabled_tpu_torch import pipelines as P
-from clenabled_tpu_torch.dsp import firdes, hopper_kernels, planar
+from clenabled_tpu_torch.dsp import fft_filter, firdes, hopper_kernels, planar
 from clenabled_tpu_torch.runtime.device import get_context
 from clenabled_tpu_torch.sharding import launch
 from clenabled_tpu_torch.sharding.collectives import axis_size
 from clenabled_tpu_torch.sharding.halo import make_sharded_fft_filter
+from clenabled_tpu_torch.sharding.planar_halo import (
+    make_sharded_channelizer_fused_oversampled, make_sharded_costas_channels,
+    make_sharded_fft_filter_planar)
 from clenabled_tpu_torch.sharding.xcorr_sharded import (
     make_sharded_fd_xcorr, make_sharded_td_xcorr)
 
@@ -59,7 +67,28 @@ def _dryrun_rank() -> dict:
     init_f, apply_f, plan = make_sharded_fft_filter(taps, mesh)
     out["2"] = apply_f(init_f(), torch.ones(plan.nsamples,
                                             dtype=torch.complex64))
-    b = 2 * axis_size(mesh)
+    oplan = hopper_kernels.OfsPlan(taps)
+    local_o = fft_filter.frame_quantum(oplan)
+    local_o *= max(1, 2048 // local_o)   # a couple of OFS chunks a rank
+    init_o, apply_o = make_sharded_fft_filter_planar(taps, mesh,
+                                                     use_pallas=True)
+    out["2b"] = tuple(apply_o(init_o(), planar.PC(torch.ones(local_o),
+                                                   torch.zeros(local_o)))[1])
+    proto = firdes.low_pass(1.0, 16.0, 0.5, 0.25)
+    proto = np.concatenate([proto, np.zeros((-len(proto)) % 16, np.float32)])
+    init_os, apply_os = make_sharded_channelizer_fused_oversampled(
+        proto, 16, 8, mesh)
+    out["3c"] = tuple(apply_os(init_os(), planar.PC(torch.ones(1024),
+                                                     torch.zeros(1024)))[1])
+    d = axis_size(mesh)
+    init_c, apply_c = make_sharded_costas_channels(0.02, 2, mesh, chunk=512,
+                                                   warmup=256)
+    ph = 0.003 * np.arange(1024, dtype=np.float32)
+    xc = planar.PC(torch.from_numpy(np.tile(np.cos(ph), (2 * d, 1))),
+                   torch.from_numpy(np.tile(np.sin(ph), (2 * d, 1))))
+    _, out_c, diag_c = apply_c(init_c(2 * d), xc)
+    out["3d"] = (*out_c, diag_c["residual"])
+    b = 2 * d
     res = make_sharded_td_xcorr(mesh, max_shift=32)(torch.ones((3, b, 512)))
     out["3e td"] = tuple(res)
     fdx = make_sharded_fd_xcorr(mesh, perform_fft_first=True)

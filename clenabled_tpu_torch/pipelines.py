@@ -433,7 +433,9 @@ def runner_state_from_reference(runner, states, state_kinds):
 
     Named tuples move into the port's own (a JAX ``CostasState`` becomes
     the port's ``CostasState``, a ``SigGenState`` its ``SigGenState``) and
-    0-d leaves stay 0-d.  A ``PolyphaseChannelizer`` carries (re, im) of
+    0-d leaves stay 0-d: a chunked ``CostasLoop`` carries (CostasState of
+    0-d leaves, planar.PC of its ``warmup``-sample tail), a
+    ``CostasLoop(num_streams=N)`` a CostasState of [N] leaves.  A ``PolyphaseChannelizer`` carries (re, im) of
     its ntaps−1 history, or with ``fused=True`` of its os_tail_len tail;
     the tail is always the longer (by at least 130 − R samples), so the
     shape check refuses a hand-over between the two forms.

@@ -10,13 +10,16 @@ communication:
   ring), ``psum``, ``pmean``, ``broadcast``, ``axis_index``, ``axis_size``;
 - ``halo``: the time-sharded FIR, overlap-add filter and PFB channelizer,
   a ring halo each, bit-compatible with the sequential filters;
+- ``planar_halo``: the planar overlap-add and overlap-save filters, the
+  planar and fused oversampled channelizers, each with its ring halo, and
+  the channel-parallel chunked Costas loops, with no collective;
 - ``xcorr_sharded``: the TD and FD correlators, window-parallel with no
   collective;
 - ``launch``: ``spawn``, which starts the ranks of a run.
 
 The sharded FX steps are ``pipelines.make_sharded_fx_pipeline[_fused]``.
-Not ported yet (ROADMAP.md A.12): ``planar_halo``, ``chain`` and
-``xengine_sharded``.
+Not ported yet (ROADMAP.md A.12): ``planar_halo.sharded_xengine_planar``,
+``chain`` and ``xengine_sharded``.
 """
 
 from clenabled_tpu_torch.sharding.collectives import (  # noqa: F401
@@ -33,6 +36,12 @@ from clenabled_tpu_torch.sharding.halo import (  # noqa: F401
     make_sharded_fir_filter,
 )
 from clenabled_tpu_torch.sharding.launch import spawn  # noqa: F401
+from clenabled_tpu_torch.sharding.planar_halo import (  # noqa: F401
+    make_sharded_channelizer_fused_oversampled,
+    make_sharded_channelizer_planar,
+    make_sharded_costas_channels,
+    make_sharded_fft_filter_planar,
+)
 from clenabled_tpu_torch.sharding.mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,

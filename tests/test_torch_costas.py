@@ -180,8 +180,9 @@ def test_wrapper_refuses_nan_frequency_limits(limits):
 
 
 def test_block_flags_match_jax():
-    """The JAX block's exclusivity errors; the shapes the port leaves
-    queued raise NotImplementedError naming ROADMAP A.9."""
+    """The JAX block's exclusivity errors, in its order; the chunked and
+    multi-stream shapes build (their quantum, ports and kept chunk and
+    warm-up)."""
     with pytest.raises(ValueError, match="exclusive"):
         blocks.CostasLoop(0.02, 2, planar=True, chunked=True, scalar=True)
     with pytest.raises(ValueError, match="exclusive"):
@@ -192,9 +193,17 @@ def test_block_flags_match_jax():
         blocks.CostasLoop(0.02, 2, scalar=True)
     with pytest.raises(ValueError, match="planar"):
         blocks.CostasLoop(0.02, 2, chunked=True)
-    for kw in (dict(planar=True, chunked=True), dict(num_streams=2)):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            blocks.CostasLoop(0.02, 2, **kw)
+    with pytest.raises(ValueError, match="exclusive"):
+        blocks.CostasLoop(0.02, 2, chunked=True, num_streams=4)
+    chunked = blocks.CostasLoop(0.02, 2, planar=True, chunked=True,
+                                chunk=2048, warmup=300)
+    assert (chunked.quantum, chunked.chunk, chunked.warmup) == (2048, 2048,
+                                                                300)
+    lag, tail = chunked.init_state()
+    assert lag.phase.dim() == 0 and tail.re.shape == (300,)
+    streams = blocks.CostasLoop(0.02, 2, num_streams=2)
+    assert streams.n_inputs == streams.n_outputs == 2
+    assert all(v.shape == (2,) for v in streams.init_state())
     assert blocks.clCostasLoop is blocks.CostasLoop
 
 
@@ -232,6 +241,96 @@ def test_flowgraph_matches_jax(ref, kw):
             close(g_, w_, FLOW_TOL * float(np.abs(np_of(w_)).max()))
 
 
+def streams_of(k, n, offsets, seed):
+    """k streams of ``stream``'s signal at the given offsets."""
+    rows = [stream(n, 2, seed=seed + i, omega=w) for i, w in
+            enumerate(offsets[:k])]
+    return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+
+
+@pytest.mark.parametrize("planar_io", [True, False], ids=["planar", "complex"])
+def test_streams_flowgraph_matches_jax(ref, planar_io):
+    """CostasLoop(num_streams=3) over 3 frames against the JAX block (its
+    vmap of the scan), each port within 1e-4 × max|ref|; one batched call
+    a frame (the plain form on the CPU)."""
+    n, k = 512, 3
+    xr, xi = streams_of(k, 3 * n, (0.01, -0.02, 0.005), seed=40)
+
+    def build(mod, fg, **compile_kw):
+        blk = mod.CostasLoop(0.02, 2, planar=planar_io, num_streams=k)
+        g = fg()
+        for p in range(k):
+            g.external_input(blk, p)
+        names = [g.tap(blk, p, name=f"s{p}") for p in range(k)]
+        return g.compile(frame_size=n, **compile_kw), names
+
+    jr, jn = build(j_blocks, JFlowgraph)
+    tr, tn = build(blocks, Flowgraph, device="cpu")
+    for f in range(3):
+        sl = slice(f * n, (f + 1) * n)
+        if planar_io:
+            want = jr.step(*(j_planar.PC(jnp.asarray(xr[p, sl]),
+                                         jnp.asarray(xi[p, sl]))
+                             for p in range(k)))
+            got = tr.step(*(planar.PC(torch.from_numpy(xr[p, sl]),
+                                      torch.from_numpy(xi[p, sl]))
+                            for p in range(k)))
+            pairs = [(g_, w_) for p in range(k) for g_, w_ in (
+                (got[tn[p]].re, want[jn[p]].re),
+                (got[tn[p]].im, want[jn[p]].im))]
+        else:
+            z = (xr[:, sl] + 1j * xi[:, sl]).astype(np.complex64)
+            want = jr.step(*(z[p] for p in range(k)))
+            got = tr.step(*(torch.from_numpy(z[p]) for p in range(k)))
+            pairs = [(g_, w_) for p in range(k) for g_, w_ in (
+                (got[tn[p]].real, np.asarray(want[jn[p]]).real),
+                (got[tn[p]].imag, np.asarray(want[jn[p]]).imag))]
+        for g_, w_ in pairs:
+            close(g_, w_, FLOW_TOL * float(np.abs(np_of(w_)).max()))
+    st = tr.states[0]
+    assert isinstance(st, demod.CostasState) and st.freq.shape == (k,)
+    close(st.freq, np.asarray(jr.states[0].freq), FREQ_TOL)
+
+
+def test_chunked_flowgraph_matches_jax(ref):
+    """CostasLoop(planar, chunked) over 3 frames against the JAX block, on
+    the loop that acquires within its warm-up (bw 0.0628, warm-up 256,
+    chunk 1024: BENCH_TPU.md's "faster loop" row), so every frame is
+    locked: outputs within 1e-4 × max|ref|, the "lock" messages' residuals
+    under the JAX test's 1e-3 on both sides and their branch hops equal."""
+    from test_torch_costas_chunked import bpsk
+
+    n = 4096
+    xr, xi = bpsk(3 * n, 0.005, seed=41)
+
+    def build(mod, fg, **compile_kw):
+        blk = mod.CostasLoop(0.0628, 2, planar=True, chunked=True,
+                             chunk=1024, warmup=256)
+        g = fg()
+        g.external_input(blk)
+        t = g.tap(blk)
+        r = g.compile(frame_size=n, **compile_kw)
+        msgs = []
+        r.on_message("CostasLoop.lock", msgs.append)
+        return r, t, msgs
+
+    jr, jt, jm = build(j_blocks, JFlowgraph)
+    tr, tt, tm = build(blocks, Flowgraph, device="cpu")
+    for f in range(3):
+        sl = slice(f * n, (f + 1) * n)
+        want = jr.step(j_planar.PC(jnp.asarray(xr[sl]), jnp.asarray(xi[sl])))[jt]
+        got = tr.step(planar.PC(torch.from_numpy(xr[sl]),
+                                torch.from_numpy(xi[sl])))[tt]
+        scale = float(np.abs(np.asarray(want.re) + 1j * np.asarray(
+            want.im)).max())
+        close(got.re, want.re, FLOW_TOL * scale)
+        close(got.im, want.im, FLOW_TOL * scale)
+    assert len(tm) == len(jm) == 3
+    for d, jd in zip(tm, jm):
+        assert float(d["residual"]) < 1e-3 and float(jd["residual"]) < 1e-3
+        assert int(d["branch_hops"]) == int(jd["branch_hops"])
+
+
 def test_runner_state_from_reference(ref):
     """A stream begun in the JAX package continues in the port: the
     CostasState moves over as the port's CostasState of 0-d tensors."""
@@ -258,6 +357,60 @@ def test_runner_state_from_reference(ref):
                             torch.from_numpy(xi[n:])))[tt]
     close(got.re, want.re, OUT_TOL)
     close(got.im, want.im, OUT_TOL)
+
+
+@pytest.mark.parametrize("shape", ["chunked", "streams"])
+def test_runner_state_from_reference_chunked_and_streams(ref, shape):
+    """A chunked loop's (CostasState, tail PC) and a multi-stream loop's
+    [N] CostasState move from a JAX Runner to the port's, and the stream
+    continues within 1e-4 × max|ref|."""
+    from test_torch_costas_chunked import bpsk
+
+    n, k = 1024, 2
+    if shape == "chunked":
+        kw = dict(planar=True, chunked=True, chunk=512, warmup=256)
+        xs = [bpsk(2 * n, 0.005, seed=42)]
+        bw = 0.0628
+    else:
+        kw = dict(planar=True, num_streams=k)
+        xs = [stream(2 * n, 2, seed=43 + i, omega=0.01) for i in range(k)]
+        bw = 0.02
+
+    def build(mod, fg, **compile_kw):
+        blk = mod.CostasLoop(bw, 2, **kw)
+        g = fg()
+        for p in range(len(xs)):
+            g.external_input(blk, p)
+        names = [g.tap(blk, p, name=f"s{p}") for p in range(len(xs))]
+        return g.compile(frame_size=n, **compile_kw), names
+
+    jr, jn = build(j_blocks, JFlowgraph)
+    tr, tn = build(blocks, Flowgraph, device="cpu")
+    jr.step(*(j_planar.PC(jnp.asarray(x[0][:n]), jnp.asarray(x[1][:n]))
+              for x in xs))
+    import jax
+
+    states = jax.tree.map(np.asarray, jr.states)
+    tr.states = P.runner_state_from_reference(tr, states, [None])
+    st = tr.states[0]
+    if shape == "chunked":
+        lag, tail = st
+        assert isinstance(lag, demod.CostasState) and lag.phase.dim() == 0
+        assert isinstance(tail, planar.PC) and tail.re.shape == (256,)
+        assert float(lag.freq) == float(jr.states[0][0].freq)
+    else:
+        assert isinstance(st, demod.CostasState) and st.phase.shape == (k,)
+        assert torch.equal(st.freq, torch.from_numpy(np.asarray(
+            jr.states[0].freq)))
+    want = jr.step(*(j_planar.PC(jnp.asarray(x[0][n:]), jnp.asarray(x[1][n:]))
+                     for x in xs))
+    got = tr.step(*(planar.PC(torch.from_numpy(x[0][n:]),
+                              torch.from_numpy(x[1][n:])) for x in xs))
+    for t_name, j_name in zip(tn, jn):
+        scale = float(np.abs(np.asarray(want[j_name].re)
+                             + 1j * np.asarray(want[j_name].im)).max())
+        close(got[t_name].re, want[j_name].re, FLOW_TOL * scale)
+        close(got[t_name].im, want[j_name].im, FLOW_TOL * scale)
 
 
 TWO_PI_F32 = float(np.float32(2 * np.pi))

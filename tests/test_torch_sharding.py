@@ -48,6 +48,7 @@ try:
 
     from clenabled_tpu import pipelines as J
     from clenabled_tpu import sharding as JS
+    from clenabled_tpu.dsp import planar as j_planar
 except ImportError:  # a card machine without JAX runs the card tests only
     jax = None
 
@@ -55,6 +56,7 @@ import torch_sharding_ranks as R
 from clenabled_tpu_torch import pipelines as P
 from clenabled_tpu_torch import sharding as S
 from clenabled_tpu_torch.dsp import channelizer as t_chan
+from clenabled_tpu_torch.dsp import demod as t_demod
 from clenabled_tpu_torch.dsp import fft_filter as t_ofa
 from clenabled_tpu_torch.dsp import fir_filter as t_fir
 from clenabled_tpu_torch.dsp import firdes
@@ -69,6 +71,9 @@ SPECS = {"2": (2, None, 2), "4": (4, None, 4),
          "2x2": (4, {"host": 2, "shard": 2}, 2)}
 FX_CFG = dict(num_antennas=4, num_channels=16, samples_per_step=512)
 FUSED_N = {"float32": 1024, "bfloat16": 2048, "int8": 4096}   # fx_tail_len
+# tests/test_sharding.py's channel-parallel Costas loops, 2 frames of n
+COSTAS = dict(bw=0.02, chunk=512, warmup=256, n=2048)
+LOCKED = 1e-3          # the JAX test's residual bound for a locked frame
 
 
 def close(got, want, rel=REL):
@@ -110,6 +115,64 @@ def _chan_taps(m: int):
     return firdes.low_pass(1.0, float(m), 0.5, 0.25)
 
 
+def _tone_channels(c: int, n: int, rng):
+    """tests/test_sharding.py's Costas channels: a 0.004 rad/sample tone
+    at a random phase a channel, planar float32 [c, n]."""
+    ph = 0.004 * np.arange(n)[None, :] + rng.uniform(0, 6, (c, 1))
+    return np.cos(ph).astype(np.float32), np.sin(ph).astype(np.float32)
+
+
+def _planar_cases(spec: str) -> dict:
+    """The planar_halo cases (their own seed, so the other cases keep
+    their inputs): the channel-parallel Costas loops on every mesh, the
+    time-sharded planar filters on the 1-D ones."""
+    d = SPECS[spec][2]
+    rng = np.random.default_rng(90 + d)
+    tones = _tone_channels(2 * d, 2 * COSTAS["n"], rng)
+    n = COSTAS["n"]
+    cases = {"costas_ch": ("costas_ch", COSTAS, [
+        tuple(np.ascontiguousarray(v[:, k * n:(k + 1) * n]) for v in tones)
+        for k in range(2)])}
+    if spec == "2x2":
+        return cases
+
+    def pc(length):
+        return (_real(rng, "float32", (length,)),
+                _real(rng, "float32", (length,)))
+
+    plan_n = t_ofa.plan_fft_filter(_ofa_taps()).nsamples
+    quantum = t_ofa.frame_quantum(_ofs_plan())
+    cases["ofa_planar"] = ("fft_planar", {"taps": _ofa_taps(),
+                                          "decimation": 1,
+                                          "use_pallas": False},
+                           [pc(4 * plan_n * d) for _ in range(2)])
+    cases["ofs_planar"] = ("fft_planar", {"taps": _fir_taps(1),
+                                          "decimation": 1,
+                                          "use_pallas": True},
+                           [pc(quantum * d) for _ in range(2)])
+    cases["chan_planar"] = ("chan_planar", {"taps": _chan_taps(8), "m": 8,
+                                            "r": 4},
+                            [pc(16 * 8 * d) for _ in range(2)])
+    cases["os_fused"] = ("os_fused", {"taps": _os_taps(), "m": 16, "r": 8},
+                         [pc(2048 * d) for _ in range(2)])
+    return cases
+
+
+def _ofs_plan():
+    from clenabled_tpu_torch.dsp import hopper_kernels
+
+    plan = hopper_kernels.OfsPlan(_fir_taps(1))
+    plan.decimation = 1
+    return plan
+
+
+def _os_taps():
+    """The fused oversampled channelizer's 155-tap prototype, padded to
+    160."""
+    proto = _chan_taps(16)
+    return np.concatenate([proto, np.zeros((-len(proto)) % 16, np.float32)])
+
+
 def _cases(spec: str) -> dict:
     """name → (kind, params, global frames) of one run."""
     d = SPECS[spec][2]
@@ -134,6 +197,7 @@ def _cases(spec: str) -> dict:
                            _real(rng, "float32", (3, 2 * d, 128)))])
     cases["xcorr_refused"] = ("xcorr_refused", {},
                               [_real(rng, "float32", (2, 2 * d + 1, 64))])
+    cases.update(_planar_cases(spec))
     if spec == "2x2":
         return cases
     cases["fir_4"] = ("fir", {"taps": _fir_taps(4), "decimation": 4},
@@ -249,6 +313,104 @@ def test_sharded_channelizer(runs, spec, r):
         _chan_taps(8), 8, r, list(range(8)), _jmesh(spec))
     _check_stream(rows[0], f"chan_8_{r}", cases[f"chan_8_{r}"][2], jinit,
                   japply)
+
+
+def _check_planar(row, name, frames, jinit, japply, exact_state=True):
+    """``_check_stream`` for planar frames and (re, im) states."""
+    got = _joined(row, name, lambda c, k: c[0][k][0] + 1j * c[0][k][1])
+    state = jinit()
+    for k, (xr, xi) in enumerate(frames):
+        state, want = japply(state, j_planar.PC(jnp.asarray(xr),
+                                                jnp.asarray(xi)))
+        close(got[k], np.asarray(want.re) + 1j * np.asarray(want.im))
+    for c in (0, 1):
+        mine = np.concatenate([r[name][1][c] for r in row])
+        if exact_state:
+            equal(mine, np.asarray(state[c]))
+        else:
+            close(mine, state[c])
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+@pytest.mark.parametrize("name", ["ofa_planar", "ofs_planar", "chan_planar",
+                                  "os_fused"])
+def test_sharded_planar_halo(runs, spec, name):
+    """The planar sharded filters against JAX's on as many CPU devices:
+    overlap-add (its output tail within 1e-4), overlap-save with JAX's
+    ``use_pallas=True`` in interpret mode, the oversampled planar
+    channelizer and the fused oversampled channelizer (input tails bit for
+    bit)."""
+    cases, rows = runs(spec)
+    _, params, frames = cases[name]
+    jmesh = _jmesh(spec)
+    if name in ("ofa_planar", "ofs_planar"):
+        jinit, japply = JS.make_sharded_fft_filter_planar(
+            params["taps"], jmesh, decimation=params["decimation"],
+            use_pallas=params["use_pallas"])
+    elif name == "chan_planar":
+        jinit, japply = JS.make_sharded_channelizer_planar(
+            params["taps"], params["m"], params["r"],
+            list(range(params["m"])), jmesh)
+    else:
+        jinit, japply = JS.make_sharded_channelizer_fused_oversampled(
+            params["taps"], params["m"], params["r"], jmesh)
+    _check_planar(rows[0], name, frames, jinit, japply,
+                  exact_state=name != "ofa_planar")
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_costas_channels(runs, spec):
+    """The channel-parallel chunked Costas loops against JAX's on as many
+    CPU devices (a channel locked on both sides within 1e-4 × max|ref|
+    with the same branch hops, else flagged on both; the carried tails bit
+    for bit); on every rank each
+    channel bit for bit the port's chunked loop run on it alone; a channel
+    count the axis does not divide raises."""
+    cases, rows = runs(spec)
+    _, params, frames = cases["costas_ch"]
+    d = SPECS[spec][2]
+    jinit, japply = JS.make_sharded_costas_channels(
+        params["bw"], 2, _jmesh(spec), chunk=params["chunk"],
+        warmup=params["warmup"])
+    c = frames[0][0].shape[0]
+    jst = jinit(c)
+    for k, (xr, xi) in enumerate(frames):
+        jst, jo, jd = japply(jst, j_planar.PC(jnp.asarray(xr),
+                                              jnp.asarray(xi)))
+        want = np.asarray(jo.re) + 1j * np.asarray(jo.im)
+        for row in rows:
+            got = np.concatenate([r["costas_ch"][0][k][0][0]
+                                  + 1j * r["costas_ch"][0][k][0][1]
+                                  for r in row])
+            diag = {key: np.concatenate([r["costas_ch"][0][k][1][key]
+                                         for r in row]) for key in jd}
+            j_res = np.asarray(jd["residual"])
+            for ch in range(c):        # locked on both sides, or flagged
+                if diag["residual"][ch] < LOCKED and j_res[ch] < LOCKED:
+                    close(got[ch], want[ch])
+                    assert diag["branch_hops"][ch] == np.asarray(
+                        jd["branch_hops"])[ch]
+                else:
+                    assert min(diag["residual"][ch], j_res[ch]) >= LOCKED
+            for r in row:
+                (o_r, o_i), mine, ref = r["costas_ch"][0][k]
+                for j, (rr, ri, dj) in enumerate(ref):
+                    equal(o_r[j], rr)
+                    equal(o_i[j], ri)
+                    for key, v in dj.items():
+                        assert mine[key][j] == v, (key, j)
+    for row in rows:
+        tails = [np.concatenate([r["costas_ch"][1][1][i] for r in row])
+                 for i in (0, 1)]
+        equal(tails[0], np.asarray(jst[1].re))
+        equal(tails[1], np.asarray(jst[1].im))
+        freq = np.concatenate([r["costas_ch"][1][0][1] for r in row])
+        np.testing.assert_allclose(freq, np.asarray(jst[0].freq), atol=1e-6)
+        for r in row:
+            assert r["costas_ch"][2] == (f"channels {c + 1} not a multiple "
+                                         f"of mesh size {d}")
+    with pytest.raises(ValueError, match="not a multiple"):
+        jinit(c + 1)
 
 
 @pytest.mark.parametrize("spec", list(SPECS))
@@ -487,6 +649,71 @@ def test_world1_halo_equals_sequential(world1, kind):
         assert torch.equal(ss[0], sq)
 
 
+@pytest.mark.parametrize("kind", ["ofa_planar", "ofs_planar", "chan_planar",
+                                  "os_fused"])
+def test_world1_planar_halo_equals_sequential(world1, kind):
+    """At one rank the planar sharded filters are the sequential planar
+    forms over chained frames, bit for bit (outputs and state)."""
+    rng = np.random.default_rng(65)
+    if kind in ("ofa_planar", "ofs_planar"):
+        taps = _ofa_taps() if kind == "ofa_planar" else _fir_taps(1)
+        fused = kind == "ofs_planar"
+        init_s, apply_s = S.make_sharded_fft_filter_planar(
+            taps, world1, use_pallas=fused)
+        init_q, apply_q, plan = t_ofa.make_fft_filter_planar(taps,
+                                                             fused=fused)
+        n = t_ofa.frame_quantum(plan) * (1 if fused else 4)
+    elif kind == "chan_planar":
+        init_s, apply_s = S.make_sharded_channelizer_planar(
+            _chan_taps(8), 8, 4, list(range(8)), world1)
+        init_q, apply_q = t_chan.make_channelizer(
+            _chan_taps(8), 8, 4, list(range(8)), planar=True, device="cpu")
+        n = 128
+    else:
+        init_s, apply_s = S.make_sharded_channelizer_fused_oversampled(
+            _os_taps(), 16, 8, world1)
+        init_q, apply_q = t_chan.make_channelizer_fused_oversampled(
+            _os_taps(), 16, 8, list(range(16)), device="cpu")
+        n = 2048
+    ss, sq = init_s(), init_q()
+    assert ss[0].shape == (1, sq[0].shape[-1])
+    for _ in range(3):
+        x = t_planar.PC(*torch.from_numpy(
+            rng.standard_normal((2, n)).astype(np.float32)))
+        ss, ys = apply_s(ss, x)
+        sq, yq = apply_q(sq, x)
+        assert torch.equal(ys.re, yq.re) and torch.equal(ys.im, yq.im)
+        assert torch.equal(ss[0][0], sq[0]) and torch.equal(ss[1][0], sq[1])
+
+
+def test_world1_costas_channels_equal_chunked_loops(world1):
+    """At one rank the channel-parallel Costas loops are the chunked loop
+    run on each channel alone, bit for bit (outputs, diagnostics and
+    state), in three batched calls a frame for all channels."""
+    rng = np.random.default_rng(66)
+    c, n = 3, COSTAS["n"]
+    kw = dict(chunk=COSTAS["chunk"], warmup=COSTAS["warmup"])
+    init, apply = S.make_sharded_costas_channels(COSTAS["bw"], 2, world1,
+                                                 **kw)
+    one = t_demod.make_costas_loop_chunked(COSTAS["bw"], 2, **kw)
+    st, singles = init(c), [one.init_state(device="cpu") for _ in range(c)]
+    tones = _tone_channels(c, 2 * n, rng)
+    for k in range(2):
+        x = t_planar.PC(*(torch.from_numpy(np.ascontiguousarray(
+            v[:, k * n:(k + 1) * n])) for v in tones))
+        st, o, d = apply(st, x)
+        for j in range(c):
+            singles[j], oj, dj = one(singles[j], t_planar.PC(x.re[j],
+                                                             x.im[j]))
+            assert torch.equal(o.re[j], oj.re) and torch.equal(o.im[j], oj.im)
+            assert all(torch.equal(d[key][j], dj[key]) for key in dj)
+    for j in range(c):
+        assert all(torch.equal(a[j], b) for a, b in zip(st[0], singles[j][0]))
+        assert torch.equal(st[1].re[j], singles[j][1].re)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        apply(st, t_planar.PC(torch.zeros(c, 1000), torch.zeros(c, 1000)))
+
+
 def test_short_blocks_raise(world1):
     """The block-size checks JAX makes, and the halo every block feeds."""
     for dt, tail in (("float32", 1024), ("int8", 4096)):
@@ -511,6 +738,19 @@ def test_short_blocks_raise(world1):
     init, apply, plan = S.make_sharded_fft_filter(_ofa_taps(), world1)
     with pytest.raises(ValueError, match="nsamples"):
         apply(init(), torch.zeros(plan.nsamples + 1))
+    z = t_planar.PC(torch.zeros(40), torch.zeros(40))
+    init, apply = S.make_sharded_channelizer_planar(_chan_taps(8), 8, 8,
+                                                    list(range(8)), world1)
+    with pytest.raises(ValueError, match="halo"):
+        apply(init(), z)
+    init, apply = S.make_sharded_fft_filter_planar(_fir_taps(1), world1,
+                                                   use_pallas=True)
+    with pytest.raises(ValueError, match="fused kernel quantum"):
+        apply(init(), z)
+    init, apply = S.make_sharded_channelizer_fused_oversampled(
+        _os_taps(), 16, 8, world1)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        apply(init(), t_planar.PC(torch.zeros(1040), torch.zeros(1040)))
 
 
 def test_short_blocks_raise_in_jax():
@@ -581,14 +821,20 @@ def test_entry_is_the_planar_step():
 def test_dryrun_multichip_on_cpu():
     res = dryrun_multichip(2, device="cpu")
     assert len(res) == 2
-    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "3e td",
-            "3e fd"}
+    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3c",
+            "3d", "3e td", "3e fd"}
     for r in res:
         assert set(r) == legs
         corr, lag, vectors = r["3e td"]      # magnitudes of ones: all 1
         assert corr.shape == lag.shape == (2, 2) and (lag == -32).all()
         np.testing.assert_allclose(vectors, np.ones((2, 2, 64)), atol=1e-5)
         assert r["3e fd"][0].shape == (2, 2, 256)
+        # leg 2b: one frame quantum a rank; 3c: 1024 samples / R = 8 groups
+        # of 16 channels; 3d: this rank's 2 of the 2·D tone channels, locked
+        assert [v.shape for v in r["2b"]] == [(32768,)] * 2
+        assert [v.shape for v in r["3c"]] == [(128, 16)] * 2
+        assert [v.shape for v in r["3d"]] == [(2, 1024)] * 2 + [(2,)]
+        assert (r["3d"][2] < 1e-3).all()
         assert all(np.isfinite(np.asarray(v, np.complex64)).all()
                    for leg in r.values() for v in leg)
     for leg in ("1", "1b float32", "1b bfloat16", "1b int8"):

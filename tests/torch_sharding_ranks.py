@@ -8,7 +8,10 @@ child process imports its module, so these live apart from the test module
 maps a name to (kind, params, frames), each frame the GLOBAL input of one
 step (numpy, time on the last axis); each rank takes its block along the
 ``"shard"`` axis and returns, per case, its outputs of every chained step
-and its carried state.  The window-parallel correlators (``td_xcorr``,
+and its carried state (planar cases: (re, im) pairs).  The
+channel-parallel Costas loops (``costas_ch``) take each frame's GLOBAL
+[C, n] channels and return this rank's channels beside the chunked loop
+run on each of them alone.  The window-parallel correlators (``td_xcorr``,
 ``fd_xcorr``) take each frame's GLOBAL window batch [nsig, B, n], as JAX's
 caller passes it, and return this rank's windows' results beside the
 unsharded planar function's on the same windows.
@@ -20,14 +23,15 @@ import numpy as np
 import torch
 
 from clenabled_tpu_torch import pipelines as P
-from clenabled_tpu_torch.dsp import planar, xcorr
+from clenabled_tpu_torch.dsp import demod, planar, xcorr
 from clenabled_tpu_torch.runtime.device import get_context
-from clenabled_tpu_torch.sharding import (axis_index, axis_size,
-                                          make_sharded_channelizer,
-                                          make_sharded_fd_xcorr,
-                                          make_sharded_fft_filter,
-                                          make_sharded_fir_filter, make_mesh,
-                                          make_sharded_td_xcorr, ring_forward)
+from clenabled_tpu_torch.sharding import (
+    axis_index, axis_size, make_sharded_channelizer,
+    make_sharded_channelizer_fused_oversampled,
+    make_sharded_channelizer_planar, make_sharded_costas_channels,
+    make_sharded_fd_xcorr, make_sharded_fft_filter,
+    make_sharded_fft_filter_planar, make_sharded_fir_filter, make_mesh,
+    make_sharded_td_xcorr, ring_forward)
 
 AXIS = "shard"
 
@@ -46,6 +50,65 @@ def _stream(init, apply, frames, mesh):
         state, y = apply(state, torch.from_numpy(_block(x, mesh)))
         ys.append(y)
     return ys, state
+
+
+def _stream_planar(init, apply, frames, mesh):
+    """Like ``_stream`` for planar frames (re, im): per step (y.re, y.im),
+    and the carried (re, im) state."""
+    state = init()
+    ys = []
+    for xr, xi in frames:
+        state, y = apply(state, planar.PC(
+            *(torch.from_numpy(_block(v, mesh)) for v in (xr, xi))))
+        ys.append((y.re, y.im))
+    return ys, tuple(state)
+
+
+def _planar_filter(kind: str, params: dict, frames, mesh):
+    if kind == "fft_planar":
+        fns = make_sharded_fft_filter_planar(
+            params["taps"], mesh, AXIS, params["decimation"],
+            use_pallas=params["use_pallas"])
+    elif kind == "chan_planar":
+        fns = make_sharded_channelizer_planar(
+            params["taps"], params["m"], params["r"], list(range(params["m"])),
+            mesh, AXIS)
+    else:
+        fns = make_sharded_channelizer_fused_oversampled(
+            params["taps"], params["m"], params["r"], mesh, AXIS)
+    return _stream_planar(*fns, frames, mesh)
+
+
+def _costas_channels(params: dict, frames, mesh):
+    """Per frame: ((out.re, out.im), diag, [the chunked loop on each of
+    this rank's channels alone]); the carried state; and the error of a
+    channel count that the axis size does not divide."""
+    kw = dict(chunk=params["chunk"], warmup=params["warmup"])
+    init, apply = make_sharded_costas_channels(params["bw"], 2, mesh, AXIS,
+                                               **kw)
+    one = demod.make_costas_loop_chunked(params["bw"], 2, **kw)
+    c = frames[0][0].shape[0]
+    k = c // axis_size(mesh, AXIS)
+    first = axis_index(mesh, AXIS) * k
+    state = init(c)
+    singles = [one.init_state(device="cpu") for _ in range(k)]
+    outs = []
+    for xr, xi in frames:
+        state, o, diag = apply(state, planar.PC(torch.from_numpy(xr),
+                                                torch.from_numpy(xi)))
+        ref = []
+        for j in range(k):
+            singles[j], oj, dj = one(singles[j], planar.PC(
+                torch.from_numpy(xr[first + j]),
+                torch.from_numpy(xi[first + j])))
+            ref.append((oj.re, oj.im, dj))
+        outs.append(((o.re, o.im), diag, ref))
+    try:
+        init(c + 1)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return outs, (tuple(state[0]), tuple(state[1])), refused
 
 
 def _fx(params, frames, mesh):
@@ -125,6 +188,10 @@ def run_case(kind: str, params: dict, frames, mesh):
         return _stream(*make_sharded_channelizer(
             params["taps"], params["m"], params["r"], list(range(params["m"])),
             mesh, AXIS), frames, mesh)
+    if kind in ("fft_planar", "chan_planar", "os_fused"):
+        return _planar_filter(kind, params, frames, mesh)
+    if kind == "costas_ch":
+        return _costas_channels(params, frames, mesh)
     if kind == "fx":
         return _fx(params, frames, mesh)
     if kind == "fused":
