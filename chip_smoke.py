@@ -1,6 +1,8 @@
-"""Drive the PyTorch / CUDA port's FX receive step, X-Engine path, FM
-receive path, oversampled channelizer, spectrum chain, carrier recovery,
-sharded main path, correlators and typed FIRs once on one NVIDIA H100.
+"""Drive the PyTorch / CUDA port's FX receive step, X-Engine path (with
+its synchronised ingest), FM receive path, oversampled channelizer,
+spectrum chain, custom-kernel blocks, carrier recovery, sharded main path
+(with the sharded X-Engines and chains), correlators and typed FIRs once on
+one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -62,7 +64,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    per integration.  Then counts reset, the same block on its bf16 path
    (complex float planar feeds, ``compute_dtype=bfloat16``, 1024 frames)
    for 2 integrations; counts read; the emission held to the plain engine
-   on the same bf16 operands within 1e-4 × max|plain|.
+   on the same bf16 operands within 1e-4 × max|plain|.  Then the
+   synchronised run: the same IChar block fed through
+   ``SynchronizedIngest`` from 64 per-station tagged streams, one
+   integration window of host bytes a frame (each station reusing two
+   8 MiB host buffers, the window's bytes made on the card from a seed of
+   station and window), starts staggered by 0-2 windows (station s at
+   window s % 3) and station 5 dropping window 4: the sync on window 2, the
+   resync (4, 5) and every station's discards as planned, one Gram launch
+   an aligned integration, and each of the 3 emissions bit-equal to the
+   plain engine on its two aligned windows; wall ms an integration.
 8. FM kernels — the direct FIR (B.7: 49, 241 and 1601 taps at
    decimation 1, 241 and 1601 also at 4, both planar components in one
    launch), the overlap-save filter (B.6: 49, 241 and 1601 taps, and a
@@ -119,7 +130,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``MultiplyConst(2.0)`` → ``ComplexToMag`` over 8 frames, one FFT launch
    per frame, held to the plain chain within 1e-4 × max|plain|, the tone
    in bin 1536 of every vector and the source within 5e-4 of float64
-   cos/sin.
+   cos/sin.  Then ``Kernel1To1``/``Kernel2To1`` with the port's torch
+   example kernels (loaded from ``clenabled_tpu_torch/examples/``) in
+   flowgraphs against ``MultiplyConst(3.0)`` and ``Multiply`` on 2 frames
+   of 2^21, bit for bit, and ``exact_f32`` (TF32 off inside, the flags
+   restored after an exception).
 12. carrier recovery — the Costas kernel (B.9) against its plain form on
    2^12 samples, order 2 on BPSK and order 4 on QPSK, bit for bit; the
    probe of its chain's sin/cos over all 2^32 float32 patterns (0
@@ -198,8 +213,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``make_sharded_costas_channels(0.00628, 2)`` over 16 channels × 2
    frames of 2^16 (three batched launches a frame) against the chunked
    loop run channel by channel (outputs, diagnostics and state); the
-   group is destroyed, and ``entry.dryrun_multichip(1)`` runs its legs
-   (1, 1b, 2, 2b, 3c, 3d and 3e) in one spawned NCCL rank.  A run on one card has one rank
+   station-sharded X-Engines: ``make_sharded_xengine_stacked`` at the
+   X-Engine reference configuration (F = 256, T = 8192, S·P = 128 int8,
+   scale 1/127², triangular, pipeline_integration=2) over 3 integrations,
+   counted (one ``xengine_gram_stacked_tri`` launch a call,
+   ``gram_int8_diag_kernel`` among its kernels), every matrix, ready flag
+   and the carried state bit-equal to ``make_xengine_channel_major``; bf16
+   at T = 1024 within 1e-4 × max|plain| and bit-equal to the unsharded
+   engine; the sharded call, the unsharded engine, the exchange
+   (``all_to_all``, the identity at one rank) and NCCL's
+   ``all_to_all_single`` on one component timed in turns;
+   ``sharded_xengine``, ``sharded_xengine_planar`` and
+   ``make_sharded_xengine`` (2 calls) at T = 64, S = 64, F = 256, P = 2 bit
+   for bit against the unsharded engines; ``ShardedChain``s over 4 chained
+   frames (``fft_filter(low_pass(1, 1e6, 100e3, 20e3))`` → ×2 →
+   ``quadrature_demod(0.7)`` at 2^21 rounded down to the plan's 136-sample
+   chunks, FIR at decimation 4 → demod and the 16-channel R = 8
+   channelizer at 2^21), bit-equal, outputs and states, to the sequential
+   filters and ``dsp.demod.quadrature_demod`` from a zero sample, each
+   timed in turns beside it; the group is destroyed, and
+   ``entry.dryrun_multichip(1)`` runs its legs (1, 1b, 2, 2b, 3, 3b, 3c,
+   3d and 3e) in one spawned NCCL rank.  A run on one card has one rank
    (NCCL refuses two ranks on one card); the exchange between ranks is
    tested on the CPU.
 14. correlators and typed FIRs (no kernel of their own: plain torch, as
@@ -257,6 +291,13 @@ INGEST_FRAMES = 8
 # the X-Engine's reference configuration: stations, pols, channels, frames
 XE_S, XE_P, XE_F, XE_T = 64, 2, 256, 8192
 XE_STEPS = 3
+# the time-major sharded X-Engines' frames; ShardedChain's frames
+XE_SH_T = 64
+CHAIN_N, CHAIN_FRAMES = 1 << 21, 4
+# the synchronised X-Engine run: station s starts at window s % 3, every
+# station stops before window SYNC_END, and station SYNC_DROP[0] loses
+# window SYNC_DROP[1]
+SYNC_END, SYNC_DROP = 9, (5, 4)
 # the X-Engine's bf16 path: complex float feeds at 1024 frames
 XE_BF_T = 1024
 # the FM receive path: BENCH_TPU's block-layer frame, 8 chained frames
@@ -688,6 +729,104 @@ def xengine_phase(torch, hk, gen, dev) -> dict:
                      f"({in_mb:.0f} MiB of bytes in)")
     return {"launches": launches, "step_ms": step_ms,
             "marshal_ms": marshal_ms, "h2p_ms": h2p_ms}
+
+
+def xengine_sync_phase(torch, hk, dev) -> dict:
+    """The X-Engine flowgraph at the reference configuration fed through
+    ``SynchronizedIngest`` from XE_S per-station tagged streams of host
+    IChar windows (one integration window a frame), starts staggered by
+    0-2 windows and one window dropped: discards and callbacks as planned,
+    every emission bit-equal to the plain engine on the aligned windows.
+    Each station reuses two host buffers; a window's bytes are made on the
+    card from a seed of (station, window) and copied into one."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import xengine as X
+    from clenabled_tpu_torch.streaming import (Flowgraph, SynchronizedIngest,
+                                               TaggedFrame)
+
+    xe = blocks.XEngine(data_type=5, polarization=XE_P, num_inputs=XE_S,
+                        num_channels=XE_F, integration=XE_T,
+                        pipeline_integration=2, planar=True)
+    q = xe.quantum
+    gen = torch.Generator(device=dev)
+
+    def window(s, w):
+        gen.manual_seed(1_000_003 * (w + 1) + s)
+        return torch.randint(-128, 128, (q,), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def station(s):
+        bufs = [np.empty(q, np.int8) for _ in range(2)]
+        for k, w in enumerate(w for w in range(s % 3, SYNC_END)
+                              if (s, w) != SYNC_DROP):
+            buf = bufs[k % 2]
+            torch.from_numpy(buf).copy_(window(s, w))
+            yield TaggedFrame(w, buf)
+
+    g = Flowgraph()
+    for s in range(XE_S):
+        g.external_input(xe, s)
+    # one frame a dispatch: a station's buffer is refilled once its frame
+    # has been stepped
+    r = g.compile(q, steps_per_dispatch=1, device=dev)
+    msgs = []
+    r.on_message("xengine.xcorr", lambda m: msgs.append(
+        (m["matrix"].re.clone(), m["matrix"].im.clone(), bool(m["valid"]))))
+    synced, resyncs = [], []
+    ing = SynchronizedIngest([station(s) for s in range(XE_S)],
+                             block_multiple=1, on_sync=synced.append,
+                             on_resync=lambda o, n: resyncs.append((o, n)))
+    hk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.run(ing)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hk.gram_launches()
+    # the plan: sync on window 2 (the latest start); the drop re-aligns on
+    # the window after it, the other stations discarding the dropped one
+    aligned = [w for w in range(2, SYNC_END) if w != SYNC_DROP[1]]
+    want_disc = [2 - s % 3 + (s != SYNC_DROP[0]) for s in range(XE_S)]
+    if (synced, resyncs, ing.discarded) != (
+            [2], [(SYNC_DROP[1], SYNC_DROP[1] + 1)], want_disc):
+        fail(f"SynchronizedIngest: sync {synced}, resync {resyncs}, "
+             f"discards {ing.discarded}")
+    if [v for *_, v in msgs] != [k % 2 == 1 for k in range(len(aligned))]:
+        fail(f"synchronised X-Engine: ready {[v for *_, v in msgs]}")
+    if launches != len(aligned):
+        fail(f"synchronised X-Engine: {launches} Gram launches for "
+             f"{len(aligned)} integrations")
+
+    def marshal(w):
+        raw = torch.stack([window(s, w) for s in range(XE_S)]).view(
+            XE_S, XE_T, XE_F, XE_P, 2)
+        return tuple(raw[..., c].permute(2, 1, 0, 3).reshape(XE_F, XE_T, -1)
+                     for c in (0, 1))
+
+    for k in range(1, len(aligned), 2):
+        p0, p1 = (X.xengine_correlate_stacked(*marshal(w), npol=XE_P,
+                                              scale=1.0 / 127.0 ** 2,
+                                              use_kernel=False)
+                  for w in aligned[k - 1:k + 1])
+        gr, gi, _ = msgs[k]
+        if not (torch.equal(gr, p0.re + p1.re)
+                and torch.equal(gi, p0.im + p1.im)):
+            fail(f"synchronised X-Engine emission {k // 2}: not bit-equal "
+                 f"to the plain engine on windows {aligned[k - 1:k + 1]}")
+    ms = wall / len(aligned) * 1e3
+    phase("xengine", f"SynchronizedIngest over {XE_S} tagged station streams "
+                     f"(starts 0-2 windows apart, station {SYNC_DROP[0]} "
+                     f"drops window {SYNC_DROP[1]}): sync {synced}, resync "
+                     f"{resyncs}, discards {sorted(set(ing.discarded))}; "
+                     f"{len(aligned)} aligned integrations, {launches} Gram "
+                     f"launches, {len(aligned) // 2} emissions bit-equal to "
+                     f"the plain engine; {ms:.2f} ms an integration from host "
+                     f"windows (each made on the card and copied to the host "
+                     f"first), two {q / 2 ** 20:.0f} MiB host buffers a station")
+    return {"launches": launches, "integrations": len(aligned),
+            "discarded": ing.discarded, "ms_per_integration": ms}
 
 
 def pfb_inputs(torch, gen, dev, a: int, m: int, nout: int, ntaps=None):
@@ -1457,6 +1596,65 @@ def spectrum_phase(torch, hk, gen, dev) -> dict:
     res["path"] = path_times(torch, "spectrum chain", lambda: r.step(), SP_N)
     res["launches"] = launches
     return res
+
+
+def custom_blocks_phase(torch, dev) -> None:
+    """Kernel1To1/Kernel2To1 with the port's torch example kernels, loaded
+    from their files, in flowgraphs against MultiplyConst(3.0) and
+    Multiply on the same frames, bit for bit; ``exact_f32`` turns TF32 off
+    inside and restores the previous flags after, an exception included."""
+    import clenabled_tpu_torch
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.examples import (
+        kernel1to1_multiply_const_complex as ex1,
+        kernel2to1_multiply_complex as ex2)
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    def run(block, feeds):
+        g = Flowgraph()
+        for p in range(block.n_inputs):
+            g.external_input(block, p)
+        g.tap(block, name="out")
+        r = g.compile(SP_N, device=dev)
+        return [r.step(*fr)["out"] for fr in feeds]
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    feeds = [[torch.randn(SP_N, generator=gen, device=dev,
+                          dtype=torch.complex64) for _ in range(2)]
+             for _ in range(2)]
+    for label, user, ref, n_in in (
+            ("Kernel1To1(multiply_const_complex) vs MultiplyConst(3.0)",
+             blocks.Kernel1To1(filename=ex1.__file__,
+                               kernelFnName="multiply_const_complex"),
+             blocks.MultiplyConst(3.0), 1),
+            ("Kernel2To1(multiply_complex) vs Multiply",
+             blocks.Kernel2To1(filename=ex2.__file__,
+                               kernelFnName="multiply_complex"),
+             blocks.Multiply(), 2)):
+        fr = [f[:n_in] for f in feeds]
+        for k, (g, w) in enumerate(zip(run(user, fr), run(ref, fr))):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"{label}: frame {k} not bit-equal")
+        phase("check", f"{label}: 2 frames of {SP_N} on the card, bit for "
+                       f"bit")
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    old = tuple(f.allow_tf32 for f in flags)
+    for f in flags:
+        f.allow_tf32 = True
+    try:
+        with clenabled_tpu_torch.exact_f32():
+            inside = tuple(f.allow_tf32 for f in flags)
+            raise KeyError("exact_f32 check")
+    except KeyError:
+        pass
+    after = tuple(f.allow_tf32 for f in flags)
+    for f, v in zip(flags, old):
+        f.allow_tf32 = v
+    if inside != (False, False) or after != (True, True):
+        fail(f"exact_f32: TF32 flags {inside} inside, {after} after")
+    phase("check", "exact_f32: TF32 off for cuBLAS and cuDNN inside, the "
+                   "flags restored after an exception")
 
 
 def costas_stream(np, rng, n: int, order: int, offset: float = CO_OFFSET):
@@ -2449,6 +2647,221 @@ def planar_halo_checks(torch, hk, P, S, gen, dev, mesh) -> dict:
     return res
 
 
+def sharded_xengine_checks(torch, hk, S, gen, dev, mesh) -> dict:
+    """The station-sharded X-Engines at one NCCL rank: the stacked engine
+    at the X-Engine reference configuration (int8, 3 integrations), counted
+    (one int8 Gram launch a call), bit-equal to
+    ``make_xengine_channel_major`` with the same ready flags and carried
+    state, ``gram_int8_diag_kernel`` among its kernels; bf16 at T = 1024
+    within TOL of the plain engine and bit-equal to the unsharded one;
+    the sharded call, the unsharded engine and the exchange timed in
+    turns; the time-major and planar forms bit-equal to theirs."""
+    import torch.distributed as dist
+
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.dsp import xengine as X
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+
+    def same(label, got, want):
+        if got[1] != want[1]:
+            fail(f"{label}: ready {got[1]} != {want[1]}")
+        for g, w in zip(got[0], want[0]):
+            if not torch.equal(g, w):
+                fail(f"{label}: not bit-equal to the unsharded engine")
+
+    sp = XE_S * XE_P
+    out = {"launches": {}, "times": {}}
+    kw = dict(pipeline_integration=2, scale=1.0 / 127.0 ** 2)
+    si, sa = S.make_sharded_xengine_stacked(XE_S, XE_F, XE_P, XE_T, mesh,
+                                            **kw)
+    ui, ua = X.make_xengine_channel_major(XE_S, XE_F, XE_P, XE_T,
+                                          device=dev, **kw)
+    feeds = [tuple(torch.randint(-128, 128, (XE_F, XE_T, sp), generator=gen,
+                                 device=dev, dtype=torch.int8)
+                   for _ in range(2)) for _ in range(XE_STEPS)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    ss, souts = si(), []
+    for fr in feeds:
+        ss, o = sa(ss, fr)
+        souts.append(o)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    out["launches"]["int8"] = counts.get("xengine_gram_stacked_tri", 0)
+    phase("sharded", f"make_sharded_xengine_stacked S={XE_S} P={XE_P} "
+                     f"F={XE_F} T={XE_T} int8, {XE_STEPS} integrations, "
+                     f"pipeline_integration=2: launches {counts}")
+    if counts != {"xengine_gram_stacked_tri": XE_STEPS}:
+        fail(f"sharded stacked X-Engine: expected one Gram launch a call, "
+             f"{counts}")
+    us = ui()
+    for k, fr in enumerate(feeds):
+        us, uo = ua(us, fr)
+        same(f"sharded stacked X-Engine call {k}", souts[k], uo)
+    if [o[1] for o in souts] != [False, True, False]:
+        fail(f"sharded stacked X-Engine: ready {[o[1] for o in souts]}")
+    if not (ss.count == us.count == 1
+            and torch.equal(ss.accum.re, us.accum.re)
+            and torch.equal(ss.accum.im, us.accum.im)):
+        fail("sharded stacked X-Engine: carried state differs")
+    _, names = launched_kernels(lambda: sa(si(), feeds[0]))
+    if not any("gram_int8_diag_kernel" in n for n in names):
+        fail(f"sharded stacked X-Engine: gram_int8_diag_kernel not among "
+             f"{sorted(set(names))}")
+    phase("check", f"sharded stacked X-Engine int8: {XE_STEPS} integrations "
+                   f"equal make_xengine_channel_major bit for bit (matrices, "
+                   f"ready flags, carried state); kernels "
+                   f"{sorted(set(short_name(n) for n in names))}")
+    zr, zi = feeds[0]
+    st0, ust0 = si(), ui()
+    send = zr.reshape(1, *zr.shape)
+    recv = torch.empty_like(send)
+    group = mesh.get_group("shard")
+    calls = {
+        "sharded": lambda: sa(st0, feeds[0]),
+        "unsharded": lambda: ua(ust0, feeds[0]),
+        # the port's exchange: the identity at one rank
+        "all_to_all": lambda: (S.all_to_all(zr, mesh, 0, 2),
+                               S.all_to_all(zi, mesh, 0, 2)),
+        # NCCL's own all_to_all_single on one component's bytes at one
+        # rank (a copy within the card)
+        "nccl_all_to_all_single": lambda: dist.all_to_all_single(
+            recv, send, group=group)}
+    t = {k: [] for k in calls}
+    for who in ("unsharded", "sharded", "all_to_all",
+                "nccl_all_to_all_single", "nccl_all_to_all_single",
+                "all_to_all", "sharded", "unsharded"):
+        t[who].append(time_ms(torch, calls[who], reps=10))
+    out["times"]["int8"] = t
+    phase("time", f"sharded stacked X-Engine int8, a call (events, 10 "
+                  f"calls, in turns): sharded {t['sharded']} ms, unsharded "
+                  f"{t['unsharded']}, the exchange (S.all_to_all, zr and zi) "
+                  f"{t['all_to_all']}, NCCL all_to_all_single of "
+                  f"{zr.numel() / 2 ** 20:.0f} MiB {t['nccl_all_to_all_single']}")
+    del feeds, souts, ss, us, send, recv, zr, zi, st0, ust0
+    # bf16 at T = XE_BF_T: the plain engine within TOL, the unsharded one
+    # bit for bit
+    si, sa = S.make_sharded_xengine_stacked(XE_S, XE_F, XE_P, XE_BF_T, mesh,
+                                            pipeline_integration=2)
+    ui, ua = X.make_xengine_channel_major(XE_S, XE_F, XE_P, XE_BF_T,
+                                          device=dev, pipeline_integration=2)
+    feeds = [tuple(torch.randn((XE_F, XE_BF_T, sp), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(2)) for _ in range(2)]
+    hk.reset_launch_counts()
+    ss, us = si(), ui()
+    for fr in feeds:
+        ss, so = sa(ss, fr)
+    torch.cuda.synchronize()
+    out["launches"]["bf16"] = hk.gram_launches()
+    if out["launches"]["bf16"] != 2:
+        fail(f"sharded stacked X-Engine bf16: {out['launches']['bf16']} "
+             f"Gram launches over 2 calls")
+    for fr in feeds:
+        us, uo = ua(us, fr)
+    same("sharded stacked X-Engine bf16", so, uo)
+    plain = [X.xengine_correlate_stacked(*fr, npol=XE_P, use_kernel=False)
+             for fr in feeds]
+    out["bf16_err"] = check(torch, f"sharded stacked X-Engine bf16 T={XE_BF_T}"
+                                   f" vs plain", so[0],
+                            (plain[0].re + plain[1].re,
+                             plain[0].im + plain[1].im))
+    del feeds, plain, ss, us, so, uo
+    # the time-major and planar forms at T=64
+    z = torch.randn((XE_SH_T, XE_S, XE_F, XE_P), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    if not torch.equal(S.sharded_xengine(z, mesh), X.xengine_correlate(z)):
+        fail("sharded_xengine: not bit-equal to xengine_correlate")
+    pz = planar.PC(z.real.contiguous(), z.imag.contiguous())
+    g, w = S.sharded_xengine_planar(pz, mesh), X.xengine_correlate_planar(pz)
+    if not (torch.equal(g.re, w.re) and torch.equal(g.im, w.im)):
+        fail("sharded_xengine_planar: not bit-equal to "
+             "xengine_correlate_planar")
+    si, sa = S.make_sharded_xengine(XE_S, XE_F, XE_P, XE_SH_T, mesh,
+                                    pipeline_integration=2)
+    ui, ua = X.make_xengine(XE_S, XE_F, XE_P, XE_SH_T,
+                            pipeline_integration=2, device=dev)
+    ss, us = si(), ui()
+    for k in range(2):
+        zk = torch.randn(z.shape, generator=gen, device=dev,
+                         dtype=torch.complex64)
+        ss, (so, sr) = sa(ss, zk)
+        us, (uo, ur) = ua(us, zk)
+        same(f"make_sharded_xengine call {k}", ((so,), sr), ((uo,), ur))
+    phase("check", f"sharded_xengine, sharded_xengine_planar and "
+                   f"make_sharded_xengine (2 calls) at T={XE_SH_T} S={XE_S} "
+                   f"F={XE_F} P={XE_P}: bit-equal to the unsharded engines")
+    return out
+
+
+def sharded_chain_checks(torch, S, gen, dev, mesh) -> dict:
+    """Three ShardedChains at one NCCL rank over CHAIN_FRAMES chained
+    frames, bit-equal (outputs and every stage's state) to the sequential
+    filters followed by ``demod.quadrature_demod`` from a zero sample; the
+    chain and its sequential route timed in turns on frame 0."""
+    from clenabled_tpu_torch.dsp import (channelizer, demod, fft_filter,
+                                         fir_filter, firdes)
+
+    lp20 = firdes.low_pass(1.0, 1e6, 100e3, 20e3)
+    plan = fft_filter.plan_fft_filter(lp20)
+    n_ofa = CHAIN_N // plan.nsamples * plan.nsamples   # a multiple of it
+    lp = firdes.low_pass(1.0, 1e6, 100e3, 50e3)
+    ch = firdes.low_pass(1.0, 16.0, 0.5, 0.25)
+    chains = {
+        "fft_filter -> x2 -> demod": (
+            S.ShardedChain(mesh).add_fft_filter(lp20)
+            .add_map(lambda x: x * 2.0).add_quadrature_demod(0.7),
+            fft_filter.make_fft_filter(lp20)[:2], 2.0, n_ofa),
+        "fir d=4 -> demod": (
+            S.ShardedChain(mesh).add_fir_filter(lp, 4)
+            .add_quadrature_demod(0.7),
+            fir_filter.make_fir_filter(lp, decimation=4), None, CHAIN_N),
+        "channelizer 16/8": (
+            S.ShardedChain(mesh).add_channelizer(ch, 16, 8, list(range(16))),
+            channelizer.make_channelizer(ch, 16, 8, list(range(16)),
+                                         device=dev), None, CHAIN_N)}
+    out = {}
+    for label, (chain, (qi, qa), gain2, n) in chains.items():
+        init, step = chain.compile()
+        demods = label.endswith("demod")
+
+        def seq(state, x):
+            sq, last = state
+            sq, y = qa(sq, x)
+            if gain2 is not None:
+                y = y * gain2
+            if demods:
+                y, last = demod.quadrature_demod(y, 0.7, last_sample=last)
+            return (sq, last), y
+
+        ss = init()
+        sq = (qi().to(dev), torch.zeros(1, dtype=torch.complex64, device=dev))
+        xs = [torch.randn(n, generator=gen, device=dev, dtype=torch.complex64)
+              for _ in range(CHAIN_FRAMES)]
+        for k, x in enumerate(xs):
+            ss, y = step(ss, x)
+            sq, yq = seq(sq, x)
+            ok = torch.equal(y, yq) and torch.equal(ss[0][0], sq[0])
+            if demods:
+                ok = ok and torch.equal(ss[-1][0], sq[1])
+            if not ok:
+                fail(f"ShardedChain {label} frame {k}: not bit-equal to the "
+                     f"sequential route")
+        s0, q0 = init(), (qi().to(dev), torch.zeros(1, dtype=torch.complex64,
+                                                    device=dev))
+        calls = {"chain": lambda: step(s0, xs[0]), "sequential":
+                 lambda: seq(q0, xs[0])}
+        t = {k: [] for k in calls}
+        for who in ("sequential", "chain", "chain", "sequential"):
+            t[who].append(time_ms(torch, calls[who], reps=5))
+        out[label] = {"n": n, "ms": t}
+        phase("check", f"ShardedChain {label}, {CHAIN_FRAMES} frames of {n}: "
+                       f"equal to the sequential route bit for bit (outputs "
+                       f"and states); a frame (events, in turns) chain "
+                       f"{t['chain']} ms, sequential {t['sequential']}")
+    return out
+
+
 def sharded_phase(torch, hk, P, gen, dev) -> dict:
     """The sharded main path on a world-size-1 NCCL group: the fused step
     at full width in f32 and int8 for 3 chained steps, counted, bit-equal
@@ -2620,13 +3033,16 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
                 phase("check", f"sharded {label}, 3 frames of {n}: equal to "
                                f"the sequential filter bit for bit")
             out["planar"] = planar_halo_checks(torch, hk, P, S, gen, dev, mesh)
+            out["xengine"] = sharded_xengine_checks(torch, hk, S, gen, dev,
+                                                    mesh)
+            out["chain"] = sharded_chain_checks(torch, S, gen, dev, mesh)
         finally:
             dist.destroy_process_group()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = entry.dryrun_multichip(1, device="cuda")
-    if not {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3c",
-            "3d", "3e td", "3e fd"} <= set(legs[0]):
+    if not {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3",
+            "3b", "3c", "3d", "3e td", "3e fd"} <= set(legs[0]):
         fail(f"dryrun_multichip(1): legs {sorted(legs[0])}")
     for leg, vals in legs[0].items():
         if not all(np.isfinite(np.asarray(v, np.complex64)).all()
@@ -2919,6 +3335,8 @@ def main() -> None:
     # 7. the X-Engine path, counted
     xe = xengine_phase(torch, hk, gen, dev)
     torch.cuda.empty_cache()
+    xe_sync = xengine_sync_phase(torch, hk, dev)
+    torch.cuda.empty_cache()
     xe_bf16 = xengine_bf16_phase(torch, hk, gen, dev)
     phase("xengine", f"on {card}")
     torch.cuda.empty_cache()
@@ -2939,6 +3357,7 @@ def main() -> None:
 
     # 11. the spectrum chain, kernels and path
     spr = spectrum_phase(torch, hk, gen, dev)
+    custom_blocks_phase(torch, dev)
     torch.cuda.empty_cache()
 
     # 12. carrier recovery, kernels and paths
@@ -3053,6 +3472,8 @@ def main() -> None:
                    *times["fx1"], bounds["fx1"]), body=hk.fx_body(M)),
         dict(entry("xengine_gram_stacked", "xengine_gram_int8.cu", 2142,
                    xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
+             sharded_launches=sharded["xengine"]["launches"]["int8"],
+             sync_launches=xe_sync["launches"],
              device_ms=gram_res["int8 device"],
              k4_ms_plain_ms=gram_res["int8 k=4"],
              k4_bound_ms=bounds["gram k=4"][0],
@@ -3060,9 +3481,11 @@ def main() -> None:
              cuda_kernels=sorted(gram_ptxas), ptxas=gram_ptxas),
         dict(entry("xengine_gram_stacked_bf16", "xengine_gram_bf16.cu", 2142,
                    xe_bf16["launches"],
-                   max(gram_res["bf16_err"], xe_bf16["err"]),
+                   max(gram_res["bf16_err"], xe_bf16["err"],
+                       sharded["xengine"]["bf16_err"]),
                    *gram_res["bf16"], bounds["gram bf16"],
                    gram_res["bf16 library"]),
+             sharded_launches=sharded["xengine"]["launches"]["bf16"],
              device_ms=gram_res["bf16 device"],
              library_call=gram_res["library label"],
              k4_ms_plain_ms=gram_res["bf16 k=4"],
@@ -3137,6 +3560,7 @@ def main() -> None:
         "xengine_step_ms": xe["step_ms"],
         "xengine_marshal_ms": xe["marshal_ms"],
         "xengine_host_to_product_ms": xe["h2p_ms"],
+        "xengine_sync": xe_sync,
         "fir_ms_plain_ms": {k: fmk[f"fir {k}"] for k in ("49", "241",
                                                          "1601")},
         "ofs_ms_plain_ms": {k[4:]: v for k, v in fmk.items()

@@ -22,13 +22,12 @@ Reference block → class (ported so far):
                               MagPhaseToComplex
   clLog/clLog10             → Log
   clSNR                     → SNRHelper
+  clKernel1To1/clKernel2To1 → Kernel1To1, Kernel2To1 (a user torch callable)
   clXCorrelate              → XCorrelate (message port "corr")
   clxcorrelate_fft_vcf      → XCorrelateFFTVCF
   clXEngine                 → XEngine (message port "xcorr")
   fir_filter_scc/fsf (CPU)  → FirFilterSCC, FirFilterFSF (int16 streams)
   (GR interp_fir_filter)    → InterpFirFilter
-
-Kernel1To1/Kernel2To1 wait their turn (ROADMAP.md A.11).
 """
 
 from clenabled_tpu_torch.blocks.core import (  # noqa: F401
@@ -48,6 +47,8 @@ from clenabled_tpu_torch.blocks.core import (  # noqa: F401
     MagPhaseToComplex,
     Log,
     SNRHelper,
+    Kernel1To1,
+    Kernel2To1,
 )
 from clenabled_tpu_torch.blocks.correlators import (  # noqa: F401
     XCorrelate,
@@ -103,6 +104,8 @@ clMagPhaseToComplex = MagPhaseToComplex
 clLog = Log
 clLog10 = Log
 clSNR = SNRHelper
+clKernel1To1 = Kernel1To1
+clKernel2To1 = Kernel2To1
 clXCorrelate = XCorrelate
 clxcorrelate_fft_vcf = XCorrelateFFTVCF
 clXEngine = XEngine

@@ -1,13 +1,16 @@
-"""Core blocks: source, FFT, elementwise math and conversions.
+"""Core blocks: source, FFT, elementwise math, conversions, custom kernels.
 
 The port of ``clenabled_tpu.blocks.core``.  On a CUDA Runner a planar
 ``Fft`` of a covered size runs the hand-written FFT kernel
 (``hopper_kernels.fft_batched_fused``), as the JAX block takes its fused
-kernel on a TPU.  ``Kernel1To1`` and ``Kernel2To1`` take user JAX
-callables in the JAX package and are not ported yet (ROADMAP.md A.11).
+kernel on a TPU.  ``Kernel1To1`` and ``Kernel2To1`` take a user torch
+callable where the JAX blocks take a JAX one.
 """
 
 from __future__ import annotations
+
+import importlib.util
+from typing import Callable
 
 import numpy as np
 import torch
@@ -276,3 +279,48 @@ class SNRHelper(Block):
 
     def apply(self, state, inputs):
         return state, (ew.snr_helper(*inputs, n=self.n, k=self.k),), {}
+
+
+def _load_fn_from_file(filename: str, fn_name: str) -> Callable:
+    spec = importlib.util.spec_from_file_location("user_kernel_module", filename)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    try:
+        return getattr(mod, fn_name)
+    except AttributeError:
+        raise ValueError(f"{filename} does not define {fn_name!r}") from None
+
+
+class Kernel1To1(Block):
+    """clKernel1To1 (lib/clKernel1To1_impl.cc): user-supplied elementwise
+    kernel.  The reference loads OpenCL C from a file; here it is a user
+    torch callable on the block's tensors (on the Runner's device) — pass
+    the callable, or a Python file path + function name like the
+    reference's (filename, kernelFnName) pair.  The torch twins of the
+    reference's two example kernels are in ``clenabled_tpu_torch.examples``."""
+
+    stateless = True   # user kernels are per-sample maps, like the
+    # reference's (no state surface exists in either API)
+
+    def __init__(self, fn: Callable | None = None, *,
+                 filename: str | None = None, kernelFnName: str | None = None,
+                 name: str = "", **legacy):
+        strip_legacy_kwargs(legacy, self)
+        self.name = name
+        if fn is None:
+            if filename is None or kernelFnName is None:
+                raise ValueError("pass fn, or filename + kernelFnName")
+            fn = _load_fn_from_file(filename, kernelFnName)
+        self.fn = fn
+
+    def apply(self, state, inputs):
+        return state, (self.fn(inputs[0]),), {}
+
+
+class Kernel2To1(Kernel1To1):
+    """clKernel2To1: user-supplied 2-in 1-out kernel."""
+
+    n_inputs = 2
+
+    def apply(self, state, inputs):
+        return state, (self.fn(inputs[0], inputs[1]),), {}

@@ -64,13 +64,13 @@ accumulate in float32, the Gram kernel in int32 (int8) or float32
 
 from __future__ import annotations
 
-import contextlib
 import math
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from clenabled_tpu_torch import exact_f32
 from clenabled_tpu_torch.dsp import (channelizer, demod, fft as dsp_fft,
                                      fir_filter, planar, xengine)
 from clenabled_tpu_torch.runtime.device import per_device
@@ -527,19 +527,9 @@ def _check_gram(zr, zi):
     return f, t, sp, kb, tuple((i, j) for i in range(kb) for j in range(i + 1))
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """float32 matmuls and convolutions without TF32 on the card, restored
-    afterwards."""
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
+# float32 matmuls and convolutions without TF32 on the card, restored
+# afterwards: the package's public context
+_full_f32 = exact_f32
 
 
 def gram_products(zr, zi):

@@ -3,13 +3,17 @@
 - ``entry()``: the planar flagship step (4 antennas × 2^17 samples, 16
   channels) on the card, as ``(fn, example_args)``.
 - ``dryrun_multichip(n)``: starts n ranks (``sharding.spawn``) and runs one
-  step of each sharded leg ported so far, at the JAX dry run's shapes:
+  step of each sharded leg, at the JAX dry run's shapes:
   leg 1, the complex64 sharded step (4 antennas, 512 samples a rank);
   leg 1b, the fused sharded step on the hand-written FX kernel for each
   ingest dtype (2 antennas, ``fx_tail_len(dtype)`` samples a rank: 1024,
   2048, 4096); leg 2, the time-sharded overlap-add filter (one chunk of
   ones a rank); leg 2b, the planar overlap-save filter on its kernel with
-  the input-tail halo (one frame quantum of ones a rank); leg 3c, the
+  the input-tail halo (one frame quantum of ones a rank); leg 3, the
+  station-sharded X-Engine (2·D stations, 4·D channels, 2 pols, 4 frames
+  of complex ones, 2 stations a rank); leg 3b, the stacked X-Engine on
+  int8 lanes (8 frames of ones, 4 lanes a rank, scale 1/127²; the Gram
+  kernel where the lanes reach 128, else its plain form); leg 3c, the
   fused oversampled channelizer (the 155-tap ``low_pass(1.0, 16.0, 0.5,
   0.25)`` padded to 160, M = 16, R = 8, 1024 samples of ones a rank); leg
   3d, the channel-parallel chunked Costas loops (bandwidth 0.02, order 2,
@@ -17,9 +21,8 @@
   1024 samples; leg 3e, the window-parallel correlators (the TD lag scan,
   max_shift 32, over magnitudes of ones [3, 2D, 512]; the FD correlator
   over vectors of ones [3, 2D, 256] with ``perform_fft_first``).  The JAX
-  dry run's legs 3 and 3b (the station-sharded and stacked X-Engines)
-  wait for ``xengine_sharded``, and leg 4 (two processes over
-  ``jax.distributed``) for the multi-host tool (ROADMAP.md A.12, A.14).
+  dry run's leg 4 (two processes over ``jax.distributed``) waits for the
+  multi-host tool (ROADMAP.md A.14).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from clenabled_tpu_torch.sharding.planar_halo import (
     make_sharded_fft_filter_planar)
 from clenabled_tpu_torch.sharding.xcorr_sharded import (
     make_sharded_fd_xcorr, make_sharded_td_xcorr)
+from clenabled_tpu_torch.sharding.xengine_sharded import (
+    make_sharded_xengine, make_sharded_xengine_stacked)
 
 
 def entry(device=None):
@@ -74,13 +79,25 @@ def _dryrun_rank() -> dict:
                                                      use_pallas=True)
     out["2b"] = tuple(apply_o(init_o(), planar.PC(torch.ones(local_o),
                                                    torch.zeros(local_o)))[1])
+    d = axis_size(mesh)
+    s, f = 2 * d, 4 * d        # multiples of the mesh: any D works
+    init_x, apply_x = make_sharded_xengine(
+        num_inputs=s, num_channels=f, npol=2, integration_time=4, mesh=mesh)
+    _, (out_x, ready_x) = apply_x(init_x(), torch.ones(
+        (4, s // d, f, 2), dtype=torch.complex64))
+    out["3"] = (out_x, ready_x)
+    init_k, apply_k = make_sharded_xengine_stacked(
+        num_inputs=s, num_channels=f, npol=2, integration_time=8, mesh=mesh,
+        scale=1.0 / 127.0 ** 2)
+    lanes = torch.ones((f, 8, 2 * s // d), dtype=torch.int8)
+    _, (out_k, ready_k) = apply_k(init_k(), (lanes, lanes))
+    out["3b"] = (out_k.re, out_k.im, ready_k)
     proto = firdes.low_pass(1.0, 16.0, 0.5, 0.25)
     proto = np.concatenate([proto, np.zeros((-len(proto)) % 16, np.float32)])
     init_os, apply_os = make_sharded_channelizer_fused_oversampled(
         proto, 16, 8, mesh)
     out["3c"] = tuple(apply_os(init_os(), planar.PC(torch.ones(1024),
                                                      torch.zeros(1024)))[1])
-    d = axis_size(mesh)
     init_c, apply_c = make_sharded_costas_channels(0.02, 2, mesh, chunk=512,
                                                    warmup=256)
     ph = 0.003 * np.arange(1024, dtype=np.float32)

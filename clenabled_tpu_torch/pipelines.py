@@ -24,7 +24,11 @@ rides ``ring_forward`` and the sums ``psum``.
 The ``*_from_reference`` functions hand state over from the JAX package:
 the FX step's tails, an X-Engine integration, and a whole ``Runner``'s
 carried states (``runner_state_from_reference``: filter tails, Costas
-loop and signal-source states, channelizer histories and fused tails).
+loop and signal-source states, channelizer histories and fused tails);
+and, for the sharded forms, a stacked X-Engine's global integration as
+this rank's channel slice (``sharded_xengine_state_from_reference``) and
+a ``ShardedChain``'s per-stage [D, K] states as this rank's rows
+(``sharded_chain_state_from_reference``).
 """
 
 from __future__ import annotations
@@ -399,6 +403,47 @@ def xengine_state_from_reference(accum_re, accum_im, count, device=None):
                       _tensor_from_reference(accum_im, torch.float32, device))
     return dsp_xengine.XEngineState(accum=accum,
                                     count=int(np.asarray(count)))
+
+
+def sharded_xengine_state_from_reference(accum_re, accum_im, count, mesh,
+                                         axis: str = "shard"):
+    """A JAX sharded stacked X-Engine's state (its GLOBAL planar
+    accumulator [F, ...] as re and im numpy arrays, and its int32 count)
+    as this rank's state of ``sharding.make_sharded_xengine_stacked``: the
+    rows of this rank's F/D channels on the mesh's device, the count a
+    host int."""
+    d, idx = axis_size(mesh, axis), axis_index(mesh, axis)
+    dev = mesh_device(mesh)
+    f = np.shape(accum_re)[0]
+    if f % d:
+        raise ValueError(f"channels ({f}) must divide mesh size {d}")
+    rows = slice(idx * (f // d), (idx + 1) * (f // d))
+    accum = planar.PC(*(_tensor_from_reference(np.asarray(a)[rows],
+                                               torch.float32, dev)
+                        for a in (accum_re, accum_im)))
+    return dsp_xengine.XEngineState(accum=accum,
+                                    count=int(np.asarray(count)))
+
+
+def sharded_chain_state_from_reference(states, mesh, axis: str = "shard"):
+    """A JAX ``ShardedChain``'s states (per stage its GLOBAL [D, K]
+    complex64 array as numpy, or () for a map) as this rank's state of the
+    port's chain built with the same stages: row ``axis_index`` of each,
+    [1, K] on the mesh's device."""
+    d, idx = axis_size(mesh, axis), axis_index(mesh, axis)
+    dev = mesh_device(mesh)
+    out = []
+    for i, st in enumerate(states):
+        if isinstance(st, tuple) and not st:
+            out.append(())
+            continue
+        arr = np.asarray(st)
+        if arr.ndim != 2 or arr.shape[0] != d:
+            raise ValueError(f"stage {i}: state of shape {arr.shape}, "
+                             f"expected [{d}, K]")
+        out.append(_tensor_from_reference(arr[idx:idx + 1], torch.complex64,
+                                          dev))
+    return tuple(out)
 
 
 def _state_from_reference(ref, like, where: str):

@@ -13,7 +13,9 @@ The port of ``clenabled_tpu.sharding.planar_halo``: the ring halos of
   PFB kernel (``hopper_kernels.pfb_oversampled_fused``) with an
   os_tail_len input halo;
 - ``make_sharded_costas_channels``: C independent streams, C/D a rank,
-  each running the chunked Costas loop, with no collective.
+  each running the chunked Costas loop, with no collective;
+- ``sharded_xengine_planar``: the station-sharded X-Engine on (re, im),
+  one ``all_to_all`` a component.
 
 Time-sharded functions take this rank's block of L samples (a planar.PC)
 and keep this rank's row of JAX's [D, K] state, ``((1, K), (1, K))``;
@@ -21,9 +23,9 @@ rank 0 consumes the carried state and keeps what the ring delivered, as in
 ``halo.py``.  The channel-parallel loops take the GLOBAL [C, n] frames, as
 JAX's caller passes them, and move only this rank's channels to its
 device (the convention of ``xcorr_sharded``); their state is this rank's
-C/D rows.  With D = 1 each is the sequential form, bit for bit.
-JAX's ``sharded_xengine_planar`` needs an ``all_to_all``, which
-``collectives`` lacks: it comes with ``xengine_sharded`` (ROADMAP.md A.12).
+C/D rows.  The X-Engine takes this rank's stations and returns its
+channels, as ``xengine_sharded`` does.  With D = 1 each is the sequential
+form, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,9 +36,12 @@ from clenabled_tpu_torch.dsp import channelizer as dsp_chan
 from clenabled_tpu_torch.dsp import demod
 from clenabled_tpu_torch.dsp import fft_filter as dsp_ofa
 from clenabled_tpu_torch.dsp import hopper_kernels, planar
+from clenabled_tpu_torch.dsp import xengine as dsp_xengine
 from clenabled_tpu_torch.runtime.device import mesh_device
 from clenabled_tpu_torch.sharding.collectives import (axis_index, axis_size,
                                                       ring_forward)
+from clenabled_tpu_torch.sharding.xengine_sharded import (_channel_shard,
+                                                          _check_time_major)
 
 
 def _block(x, dev: torch.device) -> planar.PC:
@@ -279,3 +284,12 @@ def make_sharded_costas_channels(loop_bw: float, order: int, mesh,
         return run(state, x)
 
     return init_state, apply
+
+
+def sharded_xengine_planar(z, mesh, axis: str = "shard", npol: int = 2):
+    """Planar station-sharded X-Engine: this rank's stations z PC[T, S/D,
+    F, P] → this rank's channels, triangular PC[F/D, nb, npol²]."""
+    z = _block(z, mesh_device(mesh))
+    _check_time_major(z.re.shape, axis_size(mesh, axis))
+    return dsp_xengine.xengine_correlate_planar(
+        planar.PC(*(_channel_shard(v, mesh, axis) for v in z)), npol=npol)

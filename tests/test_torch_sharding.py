@@ -24,6 +24,15 @@ planar DFT matmuls round differently at another batch size, so the
 joined result and one call over the whole batch agree within tolerance,
 not bit for bit.)
 
+The X-Engines, ``all_to_all`` and ``ShardedChain`` ride the same three
+spawns (inputs from their own seed).  ``all_to_all`` equals
+``jax.lax.all_to_all(tiled=True)`` bit for bit in every dtype; the int8
+stacked X-Engine equals JAX's bit for bit, the other X-Engine forms hold
+1e-4 × max|ref|; the chains hold the JAX test's 1e-3 on the demodulated
+output, their input-tail states bit for bit.  JAX states handed over
+after one call (``pipelines.sharded_{xengine,chain}_state_from_reference``)
+continue in the port to JAX's next outputs.
+
 In-process cases run a gloo group of world size 1: there the sharded
 steps and filters equal the unsharded ones bit for bit.
 """
@@ -173,6 +182,129 @@ def _os_taps():
     return np.concatenate([proto, np.zeros((-len(proto)) % 16, np.float32)])
 
 
+# (split, concat) of the all_to_all cases, and their dtypes
+A2A_DIMS = [(0, 2), (2, 1), (2, 0)]
+A2A_DTYPES = ["float32", "int8", "bfloat16", "complex64"]
+# the time-major X-Engine: frames, stations (a multiple of D), pols
+XE_T, XE_P = 8, 2
+# the stacked engine's route case: JAX's test_sharded_xengine_stacked_pallas_route
+KERNEL_CASE = dict(s=64, p=2, f=4, t=128)
+
+
+def _a2a_frame(rng, dt: str, d: int):
+    shape = (2 * d * d, 3, 2 * d)           # a [2D, 3, 2D] block a rank
+    if dt == "complex64":
+        return _cplx(rng, *shape)
+    return _real(rng, dt, shape)
+
+
+def _stacked_frames(rng, dt: str, f: int, t: int, sp: int, n: int,
+                    span: int = 127):
+    def one():
+        if dt == "int8":
+            return rng.integers(-span, span + 1, (f, t, sp)).astype(np.int8)
+        return _real(rng, dt, (f, t, sp))
+    return [(one(), one()) for _ in range(n)]
+
+
+def _chain_params(kind: str) -> dict:
+    if kind == "ofa":
+        return {"kind": kind, "taps": firdes.low_pass(1.0, 1e6, 100e3, 20e3)}
+    if kind == "chan":
+        return {"kind": kind, "taps": _chan_taps(8), "m": 8}
+    return {"kind": kind, "taps": _fir_taps(4)}
+
+
+# a rank's block of each chain: 2 OFA chunks, 128 (channelizer), 256 (FIR)
+CHAIN_LOCAL = {"ofa": 272, "chan": 128, "fir4": 256}
+
+
+def _xengine_cases(spec: str) -> dict:
+    """The X-Engine, all_to_all and chain cases (their own seed)."""
+    d = SPECS[spec][2]
+    rng = np.random.default_rng(120 + d + len(spec))
+    cases = {}
+    for dt in A2A_DTYPES:
+        for split, concat in A2A_DIMS:
+            cases[f"a2a_{dt}_{split}{concat}"] = (
+                "a2a", {"dtype": dt, "split": split, "concat": concat},
+                [_a2a_frame(rng, dt, d)])
+    s, f = 2 * d, 2 * d
+    cases["xengine"] = ("xengine", dict(s=s, f=f, p=XE_P, t=XE_T),
+                        [_cplx(rng, XE_T, s, f, XE_P) for _ in range(2)])
+    for dt, n in (("int8", 4), ("float32", 4), ("bfloat16", 2)):
+        scale = 1.0 / 127.0 ** 2 if dt == "int8" else 1.0
+        cases[f"stacked_{dt}"] = ("stacked", dict(
+            s=s, f=f, p=2, t=32, dtype=dt, pipe=2, scale=scale,
+            use_kernel=None), _stacked_frames(rng, dt, f, 32, 2 * s, n))
+    cases["xengine_refused"] = ("xengine_refused", {}, [])
+    if spec == "2x2":
+        return cases
+    k = KERNEL_CASE
+    cases["stacked_kernel"] = ("stacked", dict(
+        k, dtype="int8", pipe=0, scale=1.0, use_kernel=True),
+        _stacked_frames(rng, "int8", k["f"], k["t"], k["s"] * k["p"], 1,
+                        span=31))
+    for kind, local in CHAIN_LOCAL.items():
+        cases[f"chain_{kind}"] = ("chain", _chain_params(kind),
+                                  [_cplx(rng, local * d) for _ in range(3)])
+    return cases
+
+
+def _handover_cases(spec: str) -> dict:
+    """Cases that continue a JAX state after one call: the stacked int8
+    X-Engine (pipeline_integration=2) and the OFA chain; each holds, in
+    its params, JAX's global state and JAX's outputs of the next calls."""
+    d = SPECS[spec][2]
+    jmesh = _jmesh(spec)
+    rng = np.random.default_rng(150 + d + len(spec))
+    s = f = 2 * d
+    params = dict(s=s, f=f, p=2, t=32, dtype="int8", pipe=2,
+                  scale=1.0 / 127.0 ** 2, use_kernel=None)
+    frames = _stacked_frames(rng, "int8", f, 32, 2 * s, 2)
+    jinit, japply = JS.make_sharded_xengine_stacked(
+        s, f, 2, 32, jmesh, pipeline_integration=2, scale=params["scale"])
+    st, _ = japply(jinit(), tuple(jnp.asarray(z) for z in frames[0]))
+    (acc, count) = st
+    _, (out, ready) = japply(st, tuple(jnp.asarray(z) for z in frames[1]))
+    assert bool(ready)
+    params["state"] = (np.asarray(acc.re), np.asarray(acc.im),
+                       np.asarray(count))
+    params["want"] = (np.asarray(out.re), np.asarray(out.im))
+    cases = {"stacked_handover": ("stacked_handover", params, frames[1:])}
+    if spec == "2x2":
+        return cases
+    cp = _chain_params("ofa")
+    xs = [_cplx(rng, CHAIN_LOCAL["ofa"] * d) for _ in range(3)]
+    jinit, jstep = _jchain(cp, jmesh).compile()
+    jst, _ = jstep(jinit(), jnp.asarray(xs[0]))
+    cp["states"] = _np_states(jst)
+    cp["first"] = xs[0]
+    wants = []
+    for x in xs[1:]:
+        jst, y = jstep(jst, jnp.asarray(x))
+        wants.append(np.asarray(y))
+    cp["want"] = (wants, _np_states(jst))
+    cases["chain_handover"] = ("chain_handover", cp, xs[1:])
+    return cases
+
+
+def _np_states(states):
+    return tuple(v if isinstance(v, tuple) else np.asarray(v)
+                 for v in states)
+
+
+def _jchain(params: dict, jmesh):
+    chain = JS.ShardedChain(jmesh)
+    if params["kind"] == "ofa":
+        chain.add_fft_filter(params["taps"]).add_map(lambda x: x * 2.0)
+        return chain.add_quadrature_demod(0.7)
+    if params["kind"] == "chan":
+        return chain.add_channelizer(params["taps"], params["m"],
+                                     params["m"], list(range(params["m"])))
+    return chain.add_fir_filter(params["taps"], 4).add_quadrature_demod(0.7)
+
+
 def _cases(spec: str) -> dict:
     """name → (kind, params, global frames) of one run."""
     d = SPECS[spec][2]
@@ -198,6 +330,7 @@ def _cases(spec: str) -> dict:
     cases["xcorr_refused"] = ("xcorr_refused", {},
                               [_real(rng, "float32", (2, 2 * d + 1, 64))])
     cases.update(_planar_cases(spec))
+    cases.update(_xengine_cases(spec))
     if spec == "2x2":
         return cases
     cases["fir_4"] = ("fir", {"taps": _fir_taps(4), "decimation": 4},
@@ -229,6 +362,7 @@ def runs():
         if spec not in done:
             world, shape, d = SPECS[spec]
             cases = _cases(spec)
+            cases.update(_handover_cases(spec))
             res = S.spawn(R.run_cases, world, "cpu", shape, cases)
             rows = [res[h * d:(h + 1) * d] for h in range(world // d)]
             for row in rows:
@@ -526,6 +660,260 @@ def test_sharded_xcorr_batch_must_divide(runs, spec):
             assert r["xcorr_refused"] == [want, want]
 
 
+def _jax_a2a(jmesh, x, split: int, concat: int, dt: str):
+    spec_p = PartitionSpec("shard")
+    fn = jax.jit(jax.shard_map(
+        lambda v: jax.lax.all_to_all(v, "shard", split, concat, tiled=True),
+        mesh=jmesh, in_specs=spec_p, out_specs=spec_p))
+    return np.asarray(fn(jnp.asarray(x, jnp.dtype(dt))).astype(
+        jnp.float32 if dt == "bfloat16" else jnp.dtype(dt)))
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("dt", A2A_DTYPES)
+@pytest.mark.parametrize("dims", A2A_DIMS, ids=lambda v: f"{v[0]}{v[1]}")
+def test_all_to_all(runs, spec, dt, dims):
+    """This rank's dim-0 block through ``all_to_all``, the ranks' results
+    joined on dim 0, equal ``jax.lax.all_to_all(tiled=True)`` under
+    shard_map bit for bit (on the 2 × 2 mesh the exchange runs over
+    "shard", in that axis's order)."""
+    cases, rows = runs(spec)
+    name = f"a2a_{dt}_{dims[0]}{dims[1]}"
+    (x,) = cases[name][2]
+    want = _jax_a2a(_jmesh(spec), x, *dims, dt)
+    for row in rows:
+        got = np.concatenate([r[name][0] for r in row], axis=0)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def _joined_rows(row, pick):
+    """A channel-sharded output, the ranks' slices joined on dim 0."""
+    return np.concatenate([pick(r) for r in row], axis=0)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_xengine(runs, spec):
+    """The one-shot, planar and streaming (2 calls, ready flags)
+    station-sharded X-Engines against JAX's within 1e-4 × max|ref|."""
+    cases, rows = runs(spec)
+    params, frames = cases["xengine"][1:]
+    jmesh = _jmesh(spec)
+    z0 = jnp.asarray(frames[0])
+    one = np.asarray(JS.sharded_xengine(z0, jmesh, npol=XE_P))
+    pl = JS.sharded_xengine_planar(j_planar.PC(z0.real, z0.imag), jmesh,
+                                   npol=XE_P)
+    jinit, japply = JS.make_sharded_xengine(
+        params["s"], params["f"], XE_P, XE_T, jmesh, pipeline_integration=2)
+    jst, steps = jinit(), []
+    for z in frames:
+        jst, (out, ready) = japply(jst, jnp.asarray(z))
+        steps.append((np.asarray(out), bool(ready)))
+    assert [r for _, r in steps] == [False, True]
+    for row in rows:
+        close(_joined_rows(row, lambda r: r["xengine"][0]), one)
+        close(_joined_rows(row, lambda r: r["xengine"][1][0]
+                           + 1j * r["xengine"][1][1]),
+              np.asarray(pl.re) + 1j * np.asarray(pl.im))
+        for k, (want, ready) in enumerate(steps):
+            for r in row:
+                assert r["xengine"][2][k][1] is ready
+            got = _joined_rows(row, lambda r: r["xengine"][2][k][0])
+            if ready:
+                close(got, want)
+            else:
+                assert not got.any() and not want.any()
+        assert all(r["xengine"][3] == int(jst[1]) == 0 for r in row)
+
+
+def _jax_stacked(params: dict, frames, jmesh):
+    dt = params["dtype"]
+    jinit, japply = JS.make_sharded_xengine_stacked(
+        params["s"], params["f"], params["p"], params["t"], jmesh,
+        pipeline_integration=params["pipe"], scale=params["scale"],
+        use_pallas=params["use_kernel"])
+    st, outs = jinit(), []
+    for zr, zi in frames:
+        st, (out, ready) = japply(st, (jnp.asarray(zr, jnp.dtype(dt)),
+                                       jnp.asarray(zi, jnp.dtype(dt))))
+        outs.append((np.asarray(out.re), np.asarray(out.im), bool(ready)))
+    return outs, st
+
+
+def _check_stacked(row, name, outs, st, exact: bool):
+    same = ((lambda g, w: np.testing.assert_array_equal(g, w)) if exact
+            else close)
+    for k, (wr, wi, ready) in enumerate(outs):
+        for r in row:
+            assert r[name][0][k][2] is ready
+        same(_joined_rows(row, lambda r: r[name][0][k][0]), wr)
+        same(_joined_rows(row, lambda r: r[name][0][k][1]), wi)
+    (acc, count) = st
+    if np.asarray(acc.re).any():
+        same(_joined_rows(row, lambda r: r[name][1][0]), np.asarray(acc.re))
+    else:
+        assert not any(r[name][1][0].any() for r in row)
+    assert all(r[name][1][2] == int(count) for r in row)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+@pytest.mark.parametrize("dt", ["int8", "float32", "bfloat16"])
+def test_sharded_xengine_stacked(runs, spec, dt):
+    """The stacked X-Engine on each rank's lane block, pipeline_integration
+    2: int8 bit for bit against JAX's sharded engine (emissions, flags,
+    the carried accumulator and count), float32 and bfloat16 within
+    1e-4 × max|ref|."""
+    cases, rows = runs(spec)
+    name = f"stacked_{dt}"
+    params, frames = cases[name][1:]
+    outs, st = _jax_stacked(params, frames, _jmesh(spec))
+    assert [r for *_, r in outs] == [k % 2 == 1 for k in range(len(frames))]
+    for row in rows:
+        _check_stacked(row, name, outs, st, exact=dt == "int8")
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+def test_sharded_xengine_stacked_kernel_route(runs, spec):
+    """S·P = 128 with ``use_kernel=True`` (the Gram kernel's wrapper, its
+    plain form on the CPU) against JAX's ``use_pallas=True`` (the Pallas
+    Gram in interpret mode), int8, bit for bit
+    (``tests/test_sharding.py:497``'s shapes)."""
+    cases, rows = runs(spec)
+    params, frames = cases["stacked_kernel"][1:]
+    outs, st = _jax_stacked(params, frames, _jmesh(spec))
+    assert [r for *_, r in outs] == [True]
+    for row in rows:
+        _check_stacked(row, "stacked_kernel", outs, st, exact=True)
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_xengine_state_handover(runs, spec):
+    """A JAX sharded stacked X-Engine stopped after one call of
+    pipeline_integration=2, its global state handed to each rank
+    (``sharded_xengine_state_from_reference``): the port's next call
+    emits JAX's matrix bit for bit."""
+    cases, rows = runs(spec)
+    params = cases["stacked_handover"][1]
+    for row in rows:
+        for r in row:
+            assert r["stacked_handover"][0][0][2] is True
+        for c in (0, 1):
+            np.testing.assert_array_equal(
+                _joined_rows(row, lambda r: r["stacked_handover"][0][0][c]),
+                params["want"][c])
+
+
+# the demodulator's input samples whose angle the audio check reads: a
+# sample whose own or predecessor's magnitude is below this fraction of
+# the stream's largest is mostly rounding noise, and its angle differs
+# between any two FFTs; such samples may lie only in the filter's ramp
+# from its zero state (the first tap of firdes.low_pass(1.0, 1e6, 100e3,
+# 20e3) is -6e-19), the stream's first DEMOD_RAMP samples
+DEMOD_FLOOR = 1e-3
+DEMOD_RAMP = 16
+
+
+def _demod_masks(params: dict, frames, jmesh) -> list:
+    """Per frame, where the audio is held: the samples whose demodulator
+    input (JAX's chain without its demod stage, over the same frames from
+    its zero state) and its predecessor lie above DEMOD_FLOOR × max."""
+    if params["kind"] == "chan":
+        return [None] * len(frames)
+    chain = JS.ShardedChain(jmesh)
+    if params["kind"] == "ofa":
+        chain.add_fft_filter(params["taps"]).add_map(lambda x: x * 2.0)
+    else:
+        chain.add_fir_filter(params["taps"], 4)
+    init, step = chain.compile()
+    st, vs = init(), []
+    for x in frames:
+        st, v = step(st, jnp.asarray(x))
+        vs.append(np.abs(np.asarray(v)))
+    v = np.concatenate(vs)
+    floor = DEMOD_FLOOR * v.max()
+    held = np.minimum(v, np.concatenate([[0.0], v[:-1]])) >= floor
+    assert (np.flatnonzero(~held) < DEMOD_RAMP).all()
+    return np.split(held, np.cumsum([len(u) for u in vs])[:-1])
+
+
+def _check_chain(row, name, ys_want, states_want, kind, masks):
+    for k, want in enumerate(ys_want):
+        got = np.concatenate([r[name][0][k] for r in row], axis=0)
+        if masks[k] is None:
+            close(got, want)
+        else:
+            assert got.shape == want.shape
+            close(got[masks[k]], want[masks[k]], rel=1e-3)
+    for i, want in enumerate(states_want):
+        if isinstance(want, tuple):
+            assert all(r[name][1][i] == () for r in row)
+            continue
+        got = np.concatenate([r[name][1][i] for r in row])
+        if i == 0 and kind != "ofa":       # an input tail: bit for bit
+            equal(got.view(np.float32), np.asarray(want).view(np.float32))
+        else:                              # a filter's output sample
+            close(got, want)
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+@pytest.mark.parametrize("kind", list(CHAIN_LOCAL))
+def test_sharded_chain(runs, spec, kind):
+    """``ShardedChain`` against JAX's over 3 frames: OFA → ×2 → demod and
+    FIR (decimation 4) → demod at the JAX test's 1e-3 on the audio (where
+    the demodulator's input is above its rounding noise,
+    ``_demod_masks``), the channelizer at 1e-4; the FIR and channelizer
+    input tails bit for bit, the states that hold filter outputs within
+    1e-4."""
+    cases, rows = runs(spec)
+    params, frames = cases[f"chain_{kind}"][1:]
+    jmesh = _jmesh(spec)
+    jinit, jstep = _jchain(params, jmesh).compile()
+    jst, wants = jinit(), []
+    for x in frames:
+        jst, y = jstep(jst, jnp.asarray(x))
+        wants.append(np.asarray(y))
+    _check_chain(rows[0], f"chain_{kind}", wants, _np_states(jst), kind,
+                 _demod_masks(params, frames, jmesh))
+
+
+@pytest.mark.parametrize("spec", ["2", "4"])
+def test_sharded_chain_state_handover(runs, spec):
+    """JAX's OFA chain stopped after one frame, its per-stage [D, K]
+    states handed to each rank (``sharded_chain_state_from_reference``):
+    the port's next two frames and final states are JAX's."""
+    cases, rows = runs(spec)
+    params, frames = cases["chain_handover"][1:]
+    ys_want, states_want = params["want"]
+    masks = _demod_masks(params, [params["first"]] + frames, _jmesh(spec))
+    _check_chain(rows[0], "chain_handover", ys_want, states_want, "ofa",
+                 masks[1:])
+
+
+@pytest.mark.parametrize("spec", list(SPECS))
+def test_sharded_xengine_divisibility(runs, spec):
+    """The X-Engine factories' and the one-shot function's divisibility
+    errors are JAX's ``ValueError``s, with its messages."""
+    cases, rows = runs(spec)
+    d = SPECS[spec][2]
+    jmesh = _jmesh(spec)
+    want = []
+    for call in (
+            lambda: JS.make_sharded_xengine(2 * d + 1, 4 * d, 2, 4, jmesh),
+            lambda: JS.make_sharded_xengine(2 * d, 4 * d + 1, 2, 4, jmesh),
+            lambda: JS.make_sharded_xengine_stacked(2 * d, 4 * d + 1, 2, 4,
+                                                    jmesh),
+            lambda: JS.make_sharded_xengine_stacked(d + 1, 4 * d, 1, 4,
+                                                    jmesh),
+            lambda: JS.sharded_xengine(jnp.zeros((4, 2 * d, 4 * d + 1, 2),
+                                                 jnp.complex64), jmesh)):
+        with pytest.raises(ValueError) as e:
+            call()
+        want.append(str(e.value))
+    for row in rows:
+        for r in row:
+            assert r["xengine_refused"] == want
+
+
 # --------------------------------------------------------------------------
 # In-process: a gloo group of world size 1
 # --------------------------------------------------------------------------
@@ -593,6 +981,118 @@ def test_world1_xcorr_equals_unsharded(world1):
     assert torch.equal(S.make_sharded_fd_xcorr(world1,
                                                perform_fft_first=True)(v),
                        t_xcorr.fd_xcorr_planar(v, perform_fft_first=True))
+
+
+def test_world1_all_to_all_is_identity(world1):
+    """At axis size 1 (and with no mesh) ``all_to_all`` returns its input,
+    as ``ring_forward`` does."""
+    t = torch.arange(24.0).reshape(2, 3, 4)
+    assert S.all_to_all(t, world1, 0, 2) is t
+    assert S.all_to_all(t, None, 2, 1) is t
+
+
+def _xengine_world1_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    z = [torch.from_numpy(_cplx(rng, 8, 4, 8, 2)) for _ in range(2)]
+    lanes = [tuple(torch.from_numpy(v) for v in fr)
+             for fr in _stacked_frames(rng, "int8", 8, 32, 8, 3)]
+    return z, lanes
+
+
+def test_world1_xengine_equals_unsharded(world1):
+    """At one rank the three sharded X-Engines are the unsharded engines
+    bit for bit: outputs, ready flags and carried state."""
+    from clenabled_tpu_torch.dsp import xengine as t_xe
+
+    z, lanes = _xengine_world1_inputs(80)
+    assert torch.equal(S.sharded_xengine(z[0], world1),
+                       t_xe.xengine_correlate(z[0]))
+    pz = t_planar.PC(z[0].real.contiguous(), z[0].imag.contiguous())
+    got, want = (S.sharded_xengine_planar(pz, world1),
+                 t_xe.xengine_correlate_planar(pz))
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    si, sa = S.make_sharded_xengine(4, 8, 2, 8, world1,
+                                    pipeline_integration=2)
+    ui, ua = t_xe.make_xengine(4, 8, 2, 8, pipeline_integration=2,
+                               device="cpu")
+    ss, us = si(), ui()
+    for x in z:
+        ss, (so, sr) = sa(ss, x)
+        us, (uo, ur) = ua(us, x)
+        assert sr == ur and torch.equal(so, uo)
+    assert ss.count == us.count and torch.equal(ss.accum, us.accum)
+    scale = 1.0 / 127.0 ** 2
+    si, sa = S.make_sharded_xengine_stacked(4, 8, 2, 32, world1,
+                                            pipeline_integration=2,
+                                            scale=scale)
+    ui, ua = t_xe.make_xengine_channel_major(4, 8, 2, 32,
+                                             pipeline_integration=2,
+                                             scale=scale, device="cpu")
+    ss, us = si(), ui()
+    for fr in lanes:
+        ss, (so, sr) = sa(ss, fr)
+        us, (uo, ur) = ua(us, fr)
+        assert sr == ur and torch.equal(so.re, uo.re)
+        assert torch.equal(so.im, uo.im)
+    assert ss.count == us.count == 1
+    assert torch.equal(ss.accum.re, us.accum.re)
+
+
+def test_world1_stacked_frames_checked(world1):
+    """The stacked engine checks this rank's lane block's shape."""
+    init, apply = S.make_sharded_xengine_stacked(4, 8, 2, 32, world1)
+    bad = torch.zeros((8, 32, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="frames shape"):
+        apply(init(), (bad, bad))
+    init, apply = S.make_sharded_xengine(4, 8, 2, 8, world1)
+    with pytest.raises(ValueError, match="frames shape"):
+        apply(init(), torch.zeros((8, 4, 8, 1), dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("kind", list(CHAIN_LOCAL))
+def test_world1_chain_equals_sequential(world1, kind):
+    """At one rank each ShardedChain is its sequential filters followed by
+    ``demod.quadrature_demod`` from a zero sample, bit for bit (outputs
+    and every stage's state)."""
+    params = _chain_params(kind)
+    init, step = R._chain(params, world1).compile()
+    taps = params["taps"]
+    if kind == "ofa":
+        qi, qa, _ = t_ofa.make_fft_filter(taps)
+    elif kind == "chan":
+        qi, qa = t_chan.make_channelizer(taps, 8, 8, list(range(8)),
+                                         device="cpu")
+    else:
+        qi, qa = t_fir.make_fir_filter(taps, decimation=4)
+    rng = np.random.default_rng(81)
+    ss, sq, last = init(), qi(), torch.zeros(1, dtype=torch.complex64)
+    for _ in range(3):
+        x = torch.from_numpy(_cplx(rng, 2 * CHAIN_LOCAL[kind]))
+        ss, y = step(ss, x)
+        sq, yq = qa(sq, x)
+        if kind == "ofa":
+            yq = yq * 2.0
+        if kind != "chan":
+            yq, last = t_demod.quadrature_demod(yq, 0.7, last_sample=last)
+            assert torch.equal(ss[-1][0], last)
+        assert torch.equal(y, yq)
+        assert torch.equal(ss[0][0], sq)
+    assert len(ss) == {"ofa": 3, "chan": 1, "fir4": 2}[kind]
+
+
+def test_world1_state_handover_takes_this_ranks_part(world1):
+    """At one rank the hand-overs keep the whole state on the mesh's
+    device, the count a host int; a [D, K] state of another D raises."""
+    re = np.arange(24, dtype=np.float32).reshape(4, 3, 2)
+    st = P.sharded_xengine_state_from_reference(re, -re, np.int32(1), world1)
+    assert st.count == 1 and isinstance(st.count, int)
+    assert torch.equal(st.accum.re, torch.from_numpy(re))
+    assert torch.equal(st.accum.im, torch.from_numpy(-re))
+    tail = np.arange(5, dtype=np.complex64)[None]
+    got = P.sharded_chain_state_from_reference((tail, ()), world1)
+    assert torch.equal(got[0], torch.from_numpy(tail)) and got[1] == ()
+    with pytest.raises(ValueError, match="expected"):
+        P.sharded_chain_state_from_reference((np.zeros((2, 5)),), world1)
 
 
 def test_no_group_is_one_rank(monkeypatch):
@@ -821,8 +1321,8 @@ def test_entry_is_the_planar_step():
 def test_dryrun_multichip_on_cpu():
     res = dryrun_multichip(2, device="cpu")
     assert len(res) == 2
-    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3c",
-            "3d", "3e td", "3e fd"}
+    legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3",
+            "3b", "3c", "3d", "3e td", "3e fd"}
     for r in res:
         assert set(r) == legs
         corr, lag, vectors = r["3e td"]      # magnitudes of ones: all 1
@@ -842,6 +1342,26 @@ def test_dryrun_multichip_on_cpu():
             np.testing.assert_array_equal(g, w)
     plan = t_ofa.plan_fft_filter(firdes.low_pass(1.0, 1e6, 100e3, 20e3))
     assert res[0]["2"][1].shape == (plan.nsamples,)
+    # legs 3 and 3b against JAX's sharded X-Engines on two CPU devices at
+    # __graft_entry__.py's shapes: each rank's channel slice, joined
+    if jax is None:
+        return
+    jmesh = JS.make_mesh(devices=jax.devices()[:2])
+    s, f = 4, 8
+    ji, ja = JS.make_sharded_xengine(num_inputs=s, num_channels=f, npol=2,
+                                     integration_time=4, mesh=jmesh)
+    _, (out, ready) = ja(ji(), jnp.ones((4, s, f, 2), jnp.complex64))
+    assert all(r["3"][1] is bool(ready) is True for r in res)
+    close(np.concatenate([r["3"][0] for r in res]), np.asarray(out))
+    ji, ja = JS.make_sharded_xengine_stacked(
+        num_inputs=s, num_channels=f, npol=2, integration_time=8, mesh=jmesh,
+        scale=1.0 / 127.0 ** 2)
+    lanes = jnp.ones((f, 8, 2 * s), jnp.int8)
+    _, (outk, readyk) = ja(ji(), (lanes, lanes))
+    assert all(r["3b"][2] is bool(readyk) is True for r in res)
+    for c, want in enumerate((outk.re, outk.im)):
+        np.testing.assert_array_equal(
+            np.concatenate([r["3b"][c] for r in res]), np.asarray(want))
 
 
 def test_spawn_checks():
@@ -886,13 +1406,98 @@ def test_world1_nccl_fused_equals_unsharded_on_card():
             dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+def test_world1_nccl_xengine_and_chain_on_card():
+    """World size 1 on NCCL: the stacked sharded X-Engine on the Gram
+    kernels (int8 and bf16, S·P = 128) and the time-major and planar
+    forms equal the unsharded engines bit for bit, the int8 Gram kernel
+    launched once a call; the three ShardedChains equal their sequential
+    filters and ``quadrature_demod`` bit for bit, outputs and states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from clenabled_tpu_torch.dsp import hopper_kernels as hk
+    from clenabled_tpu_torch.dsp import xengine as t_xe
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    with tempfile.TemporaryDirectory() as workdir:
+        S.initialize_distributed("cuda", f"file://{workdir}/store", 1, 0)
+        try:
+            mesh = S.make_mesh(device="cuda")
+            for dt, t in ((torch.int8, 256), (torch.bfloat16, 64)):
+                kw = dict(pipeline_integration=2, scale=1.0 / 127.0 ** 2)
+                si, sa = S.make_sharded_xengine_stacked(64, 16, 2, t, mesh,
+                                                        **kw)
+                ui, ua = t_xe.make_xengine_channel_major(64, 16, 2, t,
+                                                         device=dev, **kw)
+                ss, us = si(), ui()
+                hk.reset_launch_counts()
+                for _ in range(3):
+                    if dt == torch.int8:
+                        fr = tuple(torch.randint(-128, 128, (16, t, 128),
+                                                 generator=gen, device=dev,
+                                                 dtype=dt) for _ in range(2))
+                    else:
+                        fr = tuple(torch.randn((16, t, 128), generator=gen,
+                                               device=dev).to(dt)
+                                   for _ in range(2))
+                    ss, (so, sr) = sa(ss, fr)
+                    us, (uo, ur) = ua(us, fr)
+                    assert sr == ur
+                    assert torch.equal(so.re, uo.re)
+                    assert torch.equal(so.im, uo.im)
+                assert hk.gram_launches() == 6     # 3 sharded, 3 unsharded
+            z = torch.randn((8, 8, 16, 2), generator=gen, device=dev,
+                            dtype=torch.complex64)
+            assert torch.equal(S.sharded_xengine(z, mesh),
+                               t_xe.xengine_correlate(z))
+            pz = t_planar.PC(z.real.contiguous(), z.imag.contiguous())
+            got, want = (S.sharded_xengine_planar(pz, mesh),
+                         t_xe.xengine_correlate_planar(pz))
+            assert torch.equal(got.re, want.re)
+            assert torch.equal(got.im, want.im)
+            for kind, local in CHAIN_LOCAL.items():
+                params = _chain_params(kind)
+                init, step = R._chain(params, mesh).compile()
+                if kind == "ofa":
+                    qi, qa, _ = t_ofa.make_fft_filter(params["taps"])
+                elif kind == "chan":
+                    qi, qa = t_chan.make_channelizer(
+                        params["taps"], 8, 8, list(range(8)), device=dev)
+                else:
+                    qi, qa = t_fir.make_fir_filter(params["taps"],
+                                                   decimation=4)
+                ss, sq = init(), qi().to(dev)
+                last = torch.zeros(1, dtype=torch.complex64, device=dev)
+                for _ in range(3):
+                    x = torch.randn(64 * local, generator=gen, device=dev,
+                                    dtype=torch.complex64)
+                    ss, y = step(ss, x)
+                    sq, yq = qa(sq, x)
+                    if kind == "ofa":
+                        yq = yq * 2.0
+                    if kind != "chan":
+                        yq, last = t_demod.quadrature_demod(yq, 0.7, last)
+                        assert torch.equal(ss[-1][0], last)
+                    assert torch.equal(y, yq) and torch.equal(ss[0][0], sq)
+        finally:
+            dist.destroy_process_group()
+
+
 def test_rank_module_imports_no_jax():
-    """The rank functions' module, which every child imports, leaves JAX
-    and the JAX package unimported."""
+    """The rank functions' module, which every child imports, and the
+    sync, chain, sharded X-Engine and example-kernel modules leave JAX and
+    the JAX package unimported."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys\n"
             f"sys.path[:0] = [{here!r}, {os.path.dirname(here)!r}]\n"
             "import torch_sharding_ranks\n"
+            "import clenabled_tpu_torch.streaming.sync\n"
+            "import clenabled_tpu_torch.sharding.chain\n"
+            "import clenabled_tpu_torch.sharding.xengine_sharded\n"
+            "import clenabled_tpu_torch.examples.kernel1to1_multiply_const_complex\n"
+            "import clenabled_tpu_torch.examples.kernel2to1_multiply_complex\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' "
             "or k.startswith(('jax.', 'jaxlib', 'clenabled_tpu.')))\n"
             "print(bad)\n"
@@ -955,3 +1560,21 @@ def test_sharded_scaling_on_cpu(capsys):
             assert sorted(res["host_ms"]) == ["block", "sharded"]
     for res in rec["results"][0].values():
         assert res["worst_over_tol"] <= 1.0
+
+
+def test_sharded_scaling_xengine_on_cpu(capsys):
+    """The tool's X-Engine leg on two gloo ranks: each rank's 64-lane block
+    through the stacked engine, its channel slice bit-equal to the
+    unsharded engine (the tool raises otherwise), every call timed."""
+    from clenabled_tpu_torch.tools import sharded_scaling as T
+
+    T.main(["--xengine", "--ranks", "2", "--device", "cpu", "--xe-channels",
+            "8", "--xe-frames", "32", "--steps", "2", "--reps", "1"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rec["leg"], rec["ranks"], rec["f"], rec["t"]) == ("xengine", 2,
+                                                             8, 32)
+    for r in rec["results"]:
+        assert sorted(r["ms"]) == ["all_to_all", "sharded", "unsharded"]
+        assert r["exchanged_bytes"] == 2 * 8 * 32 * 64
+        assert r["transpose_bytes"] == 2 * 4 * 32 * 128
+        assert r["complex_worst_over_tol"] <= 1.0

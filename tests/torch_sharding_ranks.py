@@ -15,6 +15,13 @@ run on each of them alone.  The window-parallel correlators (``td_xcorr``,
 ``fd_xcorr``) take each frame's GLOBAL window batch [nsig, B, n], as JAX's
 caller passes it, and return this rank's windows' results beside the
 unsharded planar function's on the same windows.
+
+The X-Engine cases take each frame's GLOBAL stations (time-major
+[T, S, F, P]) or lanes (channel-major [F, T, S·P]) and return this rank's
+channel slice; the ``all_to_all`` cases take a global array sharded on
+dim 0 and return this rank's result; the chain cases take time blocks, as
+the halo cases do.  The hand-over cases start from a JAX state the parent
+computed, and take this rank's part of it.
 """
 
 from __future__ import annotations
@@ -26,12 +33,14 @@ from clenabled_tpu_torch import pipelines as P
 from clenabled_tpu_torch.dsp import demod, planar, xcorr
 from clenabled_tpu_torch.runtime.device import get_context
 from clenabled_tpu_torch.sharding import (
-    axis_index, axis_size, make_sharded_channelizer,
+    ShardedChain, all_to_all, axis_index, axis_size, make_sharded_channelizer,
     make_sharded_channelizer_fused_oversampled,
     make_sharded_channelizer_planar, make_sharded_costas_channels,
     make_sharded_fd_xcorr, make_sharded_fft_filter,
     make_sharded_fft_filter_planar, make_sharded_fir_filter, make_mesh,
-    make_sharded_td_xcorr, ring_forward)
+    make_sharded_td_xcorr, make_sharded_xengine,
+    make_sharded_xengine_stacked, ring_forward, sharded_xengine,
+    sharded_xengine_planar)
 
 AXIS = "shard"
 
@@ -174,6 +183,110 @@ def _refused(frames, mesh) -> list:
     return msgs
 
 
+def _rows(x: np.ndarray, mesh, dim: int) -> np.ndarray:
+    """This rank's block of a global array along ``dim``."""
+    d, i = axis_size(mesh, AXIS), axis_index(mesh, AXIS)
+    n = x.shape[dim] // d
+    return np.ascontiguousarray(np.take(x, range(i * n, (i + 1) * n), dim))
+
+
+def _a2a(params: dict, frames, mesh):
+    """all_to_all of this rank's dim-0 block of each frame (bfloat16 frames
+    come as the float32 that holds them)."""
+    dt = getattr(torch, params["dtype"])
+    return [all_to_all(torch.from_numpy(_rows(x, mesh, 0)).to(dt), mesh,
+                       params["split"], params["concat"], AXIS)
+            for x in frames]
+
+
+def _xengine(params: dict, frames, mesh):
+    """The time-major X-Engines on this rank's stations: the one-shot and
+    planar forms on frame 0, and the streaming form over every frame (its
+    outputs, ready flags and carried count)."""
+    s, f, p, t = (params[k] for k in "sfpt")
+    mine = [torch.from_numpy(_rows(z, mesh, 1)) for z in frames]
+    one = sharded_xengine(mine[0], mesh, AXIS, npol=p)
+    pl = sharded_xengine_planar(planar.PC(mine[0].real.contiguous(),
+                                          mine[0].imag.contiguous()), mesh,
+                                AXIS, npol=p)
+    init, apply = make_sharded_xengine(s, f, p, t, mesh, AXIS,
+                                       pipeline_integration=2)
+    state, steps = init(), []
+    for z in mine:
+        state, (out, ready) = apply(state, z)
+        steps.append((out, ready))
+    return one, (pl.re, pl.im), steps, state.count
+
+
+def _stacked(params: dict, frames, mesh, state=None):
+    """The stacked X-Engine on this rank's lanes over every frame: per call
+    (out.re, out.im, ready), then the carried (accum.re, accum.im,
+    count).  ``state`` (a JAX state's hand-over) replaces init_state()."""
+    dt = getattr(torch, params["dtype"])
+    init, apply = make_sharded_xengine_stacked(
+        params["s"], params["f"], params["p"], params["t"], mesh, AXIS,
+        pipeline_integration=params["pipe"], scale=params["scale"],
+        use_kernel=params["use_kernel"])
+    if state is None:
+        state = init()
+    outs = []
+    for zr, zi in frames:
+        state, (out, ready) = apply(state, tuple(
+            torch.from_numpy(_rows(z, mesh, 2)).to(dt) for z in (zr, zi)))
+        outs.append((out.re, out.im, ready))
+    return outs, (state.accum.re, state.accum.im, state.count)
+
+
+def _chain(params: dict, mesh) -> ShardedChain:
+    chain = ShardedChain(mesh, AXIS)
+    if params["kind"] == "ofa":
+        chain.add_fft_filter(params["taps"]).add_map(lambda x: x * 2.0)
+        return chain.add_quadrature_demod(0.7)
+    if params["kind"] == "chan":
+        return chain.add_channelizer(params["taps"], params["m"],
+                                     params["m"], list(range(params["m"])))
+    return chain.add_fir_filter(params["taps"], 4).add_quadrature_demod(0.7)
+
+
+def _chain_run(params: dict, frames, mesh, states=None):
+    """The chain over every frame from init_state() (or a JAX state's
+    hand-over): per frame this rank's output block, then its states."""
+    init, step = _chain(params, mesh).compile()
+    if states is None:
+        states = init()
+    else:
+        states = P.sharded_chain_state_from_reference(states, mesh, AXIS)
+    ys = []
+    for x in frames:
+        states, y = step(states, torch.from_numpy(_block(x, mesh)))
+        ys.append(y)
+    return ys, states
+
+
+def _xe_refused(mesh) -> list:
+    """The divisibility errors of the X-Engine factories and functions (at
+    an axis size above 1)."""
+    d = axis_size(mesh, AXIS)
+    msgs = []
+    for call in (
+            lambda: make_sharded_xengine(2 * d + 1, 4 * d, 2, 4, mesh, AXIS),
+            lambda: make_sharded_xengine(2 * d, 4 * d + 1, 2, 4, mesh, AXIS),
+            lambda: make_sharded_xengine_stacked(2 * d, 4 * d + 1, 2, 4, mesh,
+                                                 AXIS),
+            lambda: make_sharded_xengine_stacked(d + 1, 4 * d, 1, 4, mesh,
+                                                 AXIS),
+            lambda: sharded_xengine(torch.zeros((4, 2, 4 * d + 1, 2),
+                                                dtype=torch.complex64), mesh,
+                                    AXIS)):
+        try:
+            call()
+        except ValueError as e:
+            msgs.append(str(e))
+        else:
+            msgs.append(None)
+    return msgs
+
+
 def run_case(kind: str, params: dict, frames, mesh):
     if kind == "ring":
         return [ring_forward(torch.from_numpy(_block(x, mesh)), mesh, AXIS)
@@ -200,6 +313,23 @@ def run_case(kind: str, params: dict, frames, mesh):
         return _xcorr(kind, params, frames, mesh)
     if kind == "xcorr_refused":
         return _refused(frames, mesh)
+    if kind == "a2a":
+        return _a2a(params, frames, mesh)
+    if kind == "xengine":
+        return _xengine(params, frames, mesh)
+    if kind == "stacked":
+        return _stacked(params, frames, mesh)
+    if kind == "stacked_handover":
+        re, im, count = params["state"]
+        state = P.sharded_xengine_state_from_reference(re, im, count, mesh,
+                                                       AXIS)
+        return _stacked(params, frames, mesh, state)
+    if kind == "chain":
+        return _chain_run(params, frames, mesh)
+    if kind == "chain_handover":
+        return _chain_run(params, frames, mesh, params["states"])
+    if kind == "xengine_refused":
+        return _xe_refused(mesh)
     raise ValueError(f"unknown case kind {kind!r}")
 
 
