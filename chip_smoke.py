@@ -1,8 +1,9 @@
 """Drive the PyTorch / CUDA port's FX receive step, X-Engine path (with
 its synchronised ingest), FM receive path, oversampled channelizer,
 spectrum chain, custom-kernel blocks, carrier recovery, sharded main path
-(with the sharded X-Engines and chains), correlators and typed FIRs once on
-one NVIDIA H100.
+(with the sharded X-Engines and chains), correlators and typed FIRs, the
+GNU Radio adapter, the native host runtime and the CLI tools once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -254,6 +255,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    convolution of the joined stream within 1e-4 × max|float64| (fsf:
    within one count of the truncated and clamped float64 result), with
    the wall time a frame.
+
+15. the GNU Radio adapter, the native runtime and the CLI tools — GNU
+   Radio is not installed on the card's machine, so a minimal stand-in
+   ``gnuradio.gr.basic_block`` and ``pmt`` carry ``gr_compat.wrap``.  The
+   native library is built from ``clenabled_tpu_torch/native/src`` with
+   g++: a 1 MiB ring round trip with wrap-around, both unpacks on 2^24
+   bytes bit for bit the torch unpack on the card, a rolling writer over
+   3 files with sidecars.  ``LowPassFilter`` (the FM path's 49 taps, time
+   domain, planar) → ``QuadratureDemod`` and ``Fft(2048,
+   blackman_harris, shift)`` behind ``wrap`` take 64 work calls of seeded
+   1000..2^17-sample offers, per call and batched (the batched blocks
+   built by the ``grc/`` descriptors' make lines, as GNU Radio builds
+   them), a ``set_taps`` before call 32: the joined outputs within 1e-4 × max|ref| of a ``Flowgraph``
+   over the joined stream retuned at the same sample (bit-equality
+   printed), and ``fir_direct``, ``qdemod_fused`` and ``fft_batched_fused``
+   launched once an ``apply``.  The wrapped LowPass's wall a work call,
+   MSPS and device busy time a work call (``torch.profiler``) at
+   8192-sample offers, per call and batched (printed).  An IChar
+   ``XEngine`` (64 stations × 2 pols, 16 channels, 1024 frames) at the
+   automatic depth 2: every matrix published after ``stop()``, bit for
+   bit a ``Flowgraph``'s, one Gram launch an integration.  Then each tool
+   through its ``main``: ``clview``, ``test_clenabled 2097152 --iterations
+   20 --testcostas`` (every row with a kernel shows launches),
+   ``test_clkernel`` on both new ``Kernel1To1`` examples (held to numpy),
+   ``test_clfilter`` per call and in its complex64 default (launches
+   counted), ``profile --steps 3`` (``fx_reg_kernel`` among the top
+   kernels), ``test_ingest --steps 6 --dtype int8``, ``test_ingest
+   --packed4`` (the sync and resync events, the writer's files and
+   sidecars) and ``test_scaling --devices 1``, flagship and ``--xengine``
+   at 64 stations a rank.
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -3054,6 +3085,573 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the GNU Radio adapter, the native host runtime and the CLI tools
+# --------------------------------------------------------------------------
+
+GR_SEED = 15
+GR_CALLS, GR_RETUNE_AT = 64, 32        # adapter work calls; set_taps before
+GR_OFFER = (1000, 1 << 17)             # the scheduler's offers, samples
+GR_TIME_OFFER, GR_TIME_CALLS = 8192, 256   # the reference's GR buffers
+GR_XE_S, GR_XE_F, GR_XE_T, GR_XE_INTS = 64, 16, 1024, 4
+NATIVE_BYTES = 1 << 24
+TOOL_ARGS: list = []                   # ["--cpu"] to rehearse on the CPU
+TOOL_BLOCK, TOOL_ITERS = 2097152, 20
+INGEST_LOG2, SCALING_SPC, PROFILE_N = 22, 1 << 16, 1 << 21
+
+
+def gr_stand_in() -> list[str]:
+    """Install minimal stand-ins for ``gnuradio.gr.basic_block`` and
+    ``pmt`` (GNU Radio is not installed on the card's machine): the block
+    records what the adapter tells the scheduler, ``pmt.to_pmt`` passes
+    its payload through.  Returns the module names to remove after."""
+    import types
+
+    class BasicBlock:
+        def __init__(self, name=None, in_sig=None, out_sig=None):
+            self._name, self._in_sig, self._out_sig = name, in_sig, out_sig
+            self.consumed, self.published, self.registered_ports = [], [], []
+            self.relative_rate = self.output_multiple = None
+
+        def set_relative_rate(self, r):
+            self.relative_rate = r
+
+        def set_output_multiple(self, m):
+            self.output_multiple = m
+
+        def message_port_register_out(self, sym):
+            self.registered_ports.append(sym)
+
+        def message_port_pub(self, sym, msg):
+            self.published.append((sym, msg))
+
+        def consume_each(self, n):
+            self.consumed.append(n)
+
+    gr = types.ModuleType("gnuradio.gr")
+    gr.basic_block = BasicBlock
+    gnuradio = types.ModuleType("gnuradio")
+    gnuradio.gr = gr
+    pmt = types.ModuleType("pmt")
+    pmt.intern = lambda s: s
+    pmt.to_pmt = lambda x: x
+    names = ["gnuradio", "gnuradio.gr", "pmt"]
+    for name, mod in zip(names, (gnuradio, gr, pmt)):
+        if name in sys.modules:
+            fail(f"{name} is already imported: the stand-in would hide it")
+        sys.modules[name] = mod
+    return names
+
+
+def native_checks(torch, dev) -> dict:
+    """The native library from ``clenabled_tpu_torch/native/src`` (g++):
+    a 1 MiB ring with wrap-around and refusal when full, the unpacks on
+    2^24 bytes bit for bit the port's torch unpack on the card, and a
+    rolling writer over 3 files with sidecars."""
+    import tempfile
+
+    import numpy as np
+
+    from clenabled_tpu_torch import native
+    from clenabled_tpu_torch.dsp import xengine as X
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(GR_SEED)
+    rb = native.RingBuffer(1 << 20)
+    data = rng.integers(0, 256, 3 << 19, dtype=np.uint8)
+    a, b = data[:3 << 18], data[3 << 18:]
+    if rb.write(a) != a.size:
+        fail("ring: the first write was cut")
+    first = rb.read(1 << 19)
+    if rb.write(b) != b.size:                  # wraps past the end
+        fail("ring: the wrapping write was cut")
+    if rb.write(np.zeros(1 << 20, np.uint8)) != 0:
+        fail("ring: a full ring took bytes")
+    rest = rb.read(1 << 21)
+    if not (np.array_equal(first, a[:1 << 19])
+            and np.array_equal(rest, np.concatenate([a[1 << 19:], b]))):
+        fail("ring: the bytes read are not the bytes written")
+    rb.close()
+
+    raw = rng.integers(0, 256, NATIVE_BYTES, dtype=np.uint8)
+    traw = torch.from_numpy(raw).to(dev)
+    out = {"build_s": build_s}
+    for label, host_fn, dev_fn, host_in, dev_in in (
+            ("unpack_4bit_planar", native.unpack_4bit_planar,
+             X.unpack_packed_4bit_planar, raw, traw),
+            ("unpack_i8_planar", native.unpack_i8_planar,
+             X.unpack_char_planar, raw.view(np.int8),
+             traw.view(torch.int8))):
+        t0 = time.perf_counter()
+        re, im = host_fn(host_in)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        z = dev_fn(dev_in)
+        if not (np.array_equal(re, z.re.cpu().numpy())
+                and np.array_equal(im, z.im.cpu().numpy())):
+            fail(f"native {label} differs from the torch unpack on the card")
+        card_ms = time_ms(torch, lambda: dev_fn(dev_in), reps=5, warmup=1)
+        out[label] = {"host_ms": host_ms, "card_ms": card_ms}
+        phase("native", f"{label} on {NATIVE_BYTES} bytes: bit-equal to the "
+                        f"torch unpack on the card; host {host_ms:.2f} ms, "
+                        f"card {card_ms:.4f} ms")
+    with tempfile.TemporaryDirectory(prefix="clen_native_") as tmp:
+        base = os.path.join(tmp, "xout")
+        w = native.RollingFileWriter(base, 1000, json.dumps({"files": 3}))
+        chunk = np.arange(100, dtype=np.float32)
+        for _ in range(6):
+            w.write(chunk)
+        w.close()
+        names = sorted(os.listdir(tmp))
+        want = [f"xout_{i}.{ext}" for i in range(3) for ext in ("bin", "json")]
+        if names != sorted(want):
+            fail(f"rolling writer left {names}")
+        got = np.concatenate([np.fromfile(f"{base}_{i}.bin", np.float32)
+                              for i in range(3)])
+        if not np.array_equal(got, np.tile(chunk, 6)):
+            fail("rolling writer: the files do not hold the stream")
+    phase("native", f"built from clenabled_tpu_torch/native/src in "
+                    f"{build_s:.2f} s; 1 MiB ring round trip with "
+                    f"wrap-around; writer rolled over 3 files, each with "
+                    f"its sidecar")
+    return out
+
+
+def _gr_work(g, ins, space, dtype):
+    """One general_work call: (consumed, produced items)."""
+    import numpy as np
+
+    before = len(g.consumed)
+    out = np.zeros(space, dtype)
+    n = g.general_work(ins, [out])
+    return sum(g.consumed[before:]), out[:n].copy()
+
+
+def _gr_drain(g, dtype, pending=None):
+    """Run out a wrapped block: offer ``pending`` input until it is taken,
+    flush, and emit the queue; returns the produced items."""
+    import numpy as np
+
+    outs = []
+    space = 1 << 20
+    for _ in range(1024):
+        if pending is not None and len(pending):
+            c, y = _gr_work(g, [pending], space, dtype)
+            pending = pending[c:]
+            outs.append(y)
+            if c or len(y):
+                continue
+        g.flush()
+        c, y = _gr_work(g, [np.zeros(0, np.complex64)], space, dtype)
+        outs.append(y)
+        if not len(y) and not (pending is not None and len(pending)):
+            return outs
+    fail("a wrapped block did not run out in 1024 work calls")
+
+
+def grc_make(block_id: str, values: dict, names: dict):
+    """The wrapped block that the GRC descriptor
+    ``clenabled_tpu_torch/grc/clenabled_tpu_torch_<block_id>.block.yml``
+    builds: its ``imports`` run and its ``make`` line evaluated with each
+    ``${param}`` replaced by ``values[param]`` and the flowgraph's
+    variables ``names`` in scope, as GNU Radio Companion's generated code
+    does (read with plain text matching, so no YAML reader is needed).
+    Returns (the wrapped block, the make line)."""
+    import textwrap
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "clenabled_tpu_torch", "grc",
+                           f"clenabled_tpu_torch_{block_id}.block.yml")) as f:
+        text = f.read()
+    imports = re.search(r"^  imports: \|-\n((?:    .*\n)+)", text, re.M)
+    make = re.search(r"^  make: (.*)$", text, re.M)
+    if imports is None or make is None:
+        fail(f"descriptor {block_id}: no imports or make line")
+    line = re.sub(r"\$\{(\w+)\}", lambda m: values[m.group(1)],
+                  make.group(1))
+    scope = dict(names)
+    exec(textwrap.dedent(imports.group(1)), scope)
+    return eval(line, scope), line
+
+
+def adapter_stream_checks(torch, hk, dev) -> dict:
+    """LowPassFilter (49 taps, time domain, planar) → QuadratureDemod and
+    Fft(2048, Blackman-Harris, shift) behind ``gr_compat.wrap``, 64 work
+    calls of seeded offers, per call (built here) and batched (built by
+    the GRC descriptors' make lines, as GNU Radio would), a ``set_taps``
+    before call 32; each held to a Flowgraph over the joined stream
+    retuned at the same sample, and each kernel launched once an
+    ``apply``."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks, gr_compat
+    from clenabled_tpu_torch.dsp import planar, window
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    taps_a, taps_b, _, _ = fm_taps()
+    w = window.blackman_harris(2048)
+    rng = np.random.default_rng(GR_SEED)
+    offers = rng.integers(GR_OFFER[0], GR_OFFER[1] + 1, GR_CALLS)
+    total = int(offers.sum())
+    x = (rng.standard_normal(total) + 1j * rng.standard_normal(total)
+         ).astype(np.complex64)
+
+    def make():
+        lpf = blocks.LowPassFilter(1, 1.0, 10e6, 1.5e6, 500e3, use_time=True,
+                                   planar=True)
+        return (lpf, blocks.QuadratureDemod(1.0, planar=True),
+                blocks.Fft(2048, window=w, shift=True, planar=True))
+
+    def from_descriptors():
+        """The three blocks as the descriptors build them (wrap's
+        defaults: batch_frames "auto", the first card)."""
+        made = [grc_make("clLowPassFilter", {
+                    "decimation": "1", "gain": "1.0", "samp_rate": "10e6",
+                    "cutoff_freq": "1.5e6", "transition_width": "500e3",
+                    "use_time": "True"}, {}),
+                grc_make("clQuadratureDemod", {"gain": "1.0"}, {}),
+                grc_make("clFFT", {
+                    "fft_size": "2048", "direction": "1", "window": "w",
+                    "shift": "True", "num_streams": "1"}, {"w": w})]
+        for _, line in made:
+            phase("gr", f"descriptor make line: {line}")
+        return [g for g, _ in made]
+
+    def pc(a):
+        return planar.PC(torch.from_numpy(np.ascontiguousarray(a.real))
+                         .to(dev), torch.from_numpy(
+                             np.ascontiguousarray(a.imag)).to(dev))
+
+    res = {}
+    for mode in (1, "auto"):
+        if mode == 1:
+            g_lpf, g_qd, g_fft = (gr_compat.wrap(b, batch_frames=1,
+                                                 device=dev)
+                                  for b in make())
+        else:
+            g_lpf, g_qd, g_fft = from_descriptors()
+        if not np.array_equal(g_lpf.taps(), taps_a):
+            fail("the wrapped LowPassFilter is not the FM path's 49 taps")
+        c64, f32 = np.complex64, np.float32
+        ly, qy, fy = [], [], []
+        fifo = np.zeros(0, c64)
+        pos_l = pos_f = 0
+        retune_at = None
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for k, o in enumerate(int(v) for v in offers):
+            if k == GR_RETUNE_AT:
+                g_lpf.set_taps(taps_b)
+                retune_at = pos_l
+            c, y = _gr_work(g_lpf, [x[pos_l:pos_l + o]], o, c64)
+            pos_l += c
+            ly.append(y)
+            fifo = np.concatenate([fifo, y])
+            c, y = _gr_work(g_qd, [fifo], max(1, len(fifo)), f32)
+            fifo = fifo[c:]
+            qy.append(y)
+            c, y = _gr_work(g_fft, [x[pos_f:pos_f + o]], o, c64)
+            pos_f += c
+            fy.append(y)
+        tail = _gr_drain(g_lpf, c64)
+        ly += tail
+        fifo = np.concatenate([fifo, *tail])
+        qy += _gr_drain(g_qd, f32, fifo)
+        fy += _gr_drain(g_fft, c64)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = hk.launch_counts()
+        calls = {"fir_direct": g_lpf.apply_calls,
+                 "qdemod_fused": g_qd.apply_calls,
+                 "fft_batched_fused": g_fft.apply_calls}
+        launches = {k: counts[k] for k in calls}
+        want_launches = calls if dev.type == "cuda" else dict.fromkeys(
+            calls, 0)
+        if launches != want_launches or min(calls.values()) < 1:
+            fail(f"adapter ({mode}): launches {launches}, apply calls "
+                 f"{calls}")
+        ly, qy, fy = (np.concatenate(v) for v in (ly, qy, fy))
+        if not (len(ly) == len(qy) == pos_l and len(fy) == pos_f):
+            fail(f"adapter ({mode}): {len(ly)}/{len(qy)} LPF/QD items for "
+                 f"{pos_l} consumed, {len(fy)} FFT items for {pos_f}")
+
+        lpf_r, qd_r, fft_r = make()
+        g = Flowgraph()
+        g.external_input(lpf_r)
+        g.connect(lpf_r, qd_r)
+        g.tap(lpf_r, name="filtered")
+        g.tap(qd_r, name="audio")
+        r = g.compile(1, device=dev)
+        parts = [r.step(pc(x[:retune_at]))]
+        r.set_taps(lpf_r, taps_b)
+        parts.append(r.step(pc(x[retune_at:pos_l])))
+        want_l = torch.cat([planar.to_complex(p["filtered"]) for p in parts])
+        want_q = torch.cat([p["audio"] for p in parts])
+        g2 = Flowgraph()
+        g2.external_input(fft_r)
+        g2.tap(fft_r, name="spectra")
+        want_f = planar.to_complex(g2.compile(2048, device=dev).step(
+            pc(x[:pos_f]))["spectra"])
+        errs = {}
+        bit = {}
+        for label, got, want in (("LowPassFilter", ly, want_l),
+                                 ("QuadratureDemod", qy, want_q),
+                                 ("Fft", fy, want_f)):
+            errs[label] = check(torch, f"wrapped {label} ({mode}) vs "
+                                       f"Flowgraph over {len(got)} samples",
+                                [torch.from_numpy(got).to(dev)], [want])
+            bit[label] = bool(np.array_equal(got, want.cpu().numpy()))
+        res[str(mode)] = {"launches": launches, "apply_calls": calls,
+                          "consumed": pos_l, "retune_at": retune_at,
+                          "wall_ms": wall * 1e3, "bit_equal": bit,
+                          "err": errs}
+        built = "wrap" if mode == 1 else "the descriptors' wrap"
+        phase("gr", f"{built}(batch_frames={mode!r}): {GR_CALLS} work calls of "
+                    f"{GR_OFFER[0]}..{GR_OFFER[1]}-sample offers, {pos_l} "
+                    f"samples through LowPass(49 taps, TD, planar) -> "
+                    f"QuadratureDemod, set_taps at sample {retune_at}, "
+                    f"{pos_f} through Fft(2048); launches {launches} = "
+                    f"apply calls; bit-equal to the Flowgraph {bit}; wall "
+                    f"{wall * 1e3:.1f} ms")
+    return res
+
+
+def adapter_timing(torch, dev) -> dict:
+    """The wrapped LowPassFilter at the reference's 8192-sample offers,
+    per call against batched: the wall time a work call and MSPS, and the
+    device's busy time a work call (kernels and copies, from
+    ``torch.profiler`` over a window of 256 work calls after 30 ms of
+    uncounted ones: ``device_busy_ms``)."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks, gr_compat
+
+    n = GR_TIME_OFFER * GR_TIME_CALLS
+    rng = np.random.default_rng(GR_SEED + 1)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    out = {}
+    for mode in (1, "auto"):
+        g = gr_compat.wrap(blocks.LowPassFilter(
+            1, 1.0, 10e6, 1.5e6, 500e3, use_time=True, planar=True),
+            batch_frames=mode, device=dev)
+        for _ in range(4):                      # warm-up
+            _gr_work(g, [x[:GR_TIME_OFFER]], GR_TIME_OFFER, np.complex64)
+        _gr_drain(g, np.complex64)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = 0
+        for k in range(GR_TIME_CALLS):
+            got += len(_gr_work(g, [x[k * GR_TIME_OFFER:(k + 1)
+                                      * GR_TIME_OFFER]], GR_TIME_OFFER,
+                                np.complex64)[1])
+        got += sum(len(y) for y in _gr_drain(g, np.complex64))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if got != n:
+            fail(f"adapter timing ({mode}): {got} of {n} samples out")
+        ms = wall / GR_TIME_CALLS * 1e3
+        busy_ms = None
+        if dev.type == "cuda":
+            busy_ms = device_busy_ms(torch, lambda: _gr_work(
+                g, [x[:GR_TIME_OFFER]], GR_TIME_OFFER, np.complex64),
+                steps=GR_TIME_CALLS)
+            _gr_drain(g, np.complex64)
+        out[str(mode)] = {"ms_per_call": ms, "msps": n / wall / 1e6,
+                          "busy_ms_per_call": busy_ms}
+        busy = "not measured" if busy_ms is None else (
+            f"{busy_ms:.4f} ms (wall / busy {ms / busy_ms:.1f})")
+        phase("gr", f"wrapped LowPass(49 taps, TD, planar), batch_frames="
+                    f"{mode!r}: {GR_TIME_CALLS} work calls of "
+                    f"{GR_TIME_OFFER}: wall {ms:.4f} ms a call, "
+                    f"{n / wall / 1e6:.1f} MSPS; device busy a call {busy}")
+    return out
+
+
+def adapter_sink_check(torch, hk, dev) -> dict:
+    """XEngine on IChar bytes (64 stations × 2 pols: the int8 Gram
+    kernel) behind ``wrap`` at the automatic depth 2: every matrix
+    published after ``stop()``, in order, bit for bit a Flowgraph's; one
+    Gram launch an integration."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks, gr_compat
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    def make():
+        return blocks.XEngine(data_type=5, polarization=2,
+                              num_inputs=GR_XE_S, num_channels=GR_XE_F,
+                              integration=GR_XE_T, planar=True)
+
+    xe = make()
+    q = xe.quantum
+    g = gr_compat.wrap(xe, in_sig=[np.int8] * GR_XE_S, batch_frames=1,
+                       device=dev)
+    rng = np.random.default_rng(GR_SEED + 2)
+    feeds = [[rng.integers(-128, 128, q, dtype=np.int8)
+              for _ in range(GR_XE_S)] for _ in range(GR_XE_INTS)]
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for fr in feeds:
+        if g.general_work(fr, []) != 0:
+            fail("a sink produced stream items")
+    before = len(g.published)
+    g.stop()
+    wall = time.perf_counter() - t0
+    launches = hk.gram_launches()
+    if dev.type == "cuda" and launches != GR_XE_INTS:
+        fail(f"wrapped XEngine: {launches} Gram launches for {GR_XE_INTS} "
+             f"integrations")
+    if before != GR_XE_INTS - 1 or len(g.published) != GR_XE_INTS:
+        fail(f"wrapped XEngine published {before} before stop(), "
+             f"{len(g.published)} after")
+    xr = make()
+    fg = Flowgraph()
+    for s in range(GR_XE_S):
+        fg.external_input(xr, s)
+    r = fg.compile(q, device=dev)
+    msgs = []
+    r.on_message(f"{xr.name}.xcorr", msgs.append)
+    for fr in feeds:
+        r.step(*(torch.from_numpy(f).to(dev) for f in fr))
+    for k, ((port, got), want) in enumerate(zip(g.published, msgs)):
+        if port != "xcorr" or bool(got["valid"]) != bool(want["valid"]):
+            fail(f"wrapped XEngine message {k}: port {port}, valid "
+                 f"{got['valid']}")
+        m = got["matrix"]
+        if not (np.array_equal(m.real, want["matrix"].re.cpu().numpy())
+                and np.array_equal(m.imag,
+                                   want["matrix"].im.cpu().numpy())):
+            fail(f"wrapped XEngine matrix {k} differs from the Flowgraph's")
+    phase("gr", f"wrap(XEngine IChar S={GR_XE_S} P=2 F={GR_XE_F} "
+                f"T={GR_XE_T}), depth 2: {before} published before stop(), "
+                f"{len(g.published)} after, each bit-equal to the "
+                f"Flowgraph's in order; Gram launches {launches}; wall "
+                f"{wall * 1e3:.1f} ms")
+    return {"launches": launches, "published_before_stop": before,
+            "published": len(g.published), "wall_ms": wall * 1e3}
+
+
+def tools_checks(torch, hk, dev) -> dict:
+    """Each CLI tool through its ``main(argv)`` in this process."""
+    import tempfile
+
+    import numpy as np
+
+    from clenabled_tpu_torch.tools import (clview, profile, test_clenabled,
+                                           test_clfilter, test_clkernel,
+                                           test_ingest, test_scaling)
+
+    on_card = dev.type == "cuda"
+    out = {"clview": clview.main(list(TOOL_ARGS))["devices"]}
+    rows = test_clenabled.main([str(TOOL_BLOCK), "--iterations",
+                                str(TOOL_ITERS), "--testcostas", *TOOL_ARGS])
+    missing = [r["name"] for r in rows if r["has_kernel"] and
+               not r["launches"]]
+    if on_card and missing:
+        fail(f"test_clenabled rows with a kernel that launched none: "
+             f"{missing}")
+    launched = sorted({k for r in rows for k in r["launches"]})
+    want = ["costas_scalar", "fft_batched_fused", "fir_direct",
+            "ofs_filter_planar", "qdemod_fused"]
+    if on_card and launched != want:
+        fail(f"test_clenabled launched {launched}")
+    out["test_clenabled"] = [{k: r[k] for k in ("name", "msps", "launches")}
+                             for r in rows]
+    here = os.path.dirname(os.path.abspath(__file__))
+    out["test_clkernel"] = {}
+    for name, fn, flag, ref in (
+            ("kernel1to1_multiply_const_float", "multiply_float_const",
+             "--float", lambda a: a * np.float32(3.0)),
+            ("kernel1to1_sincos", "sincos", "--complex",
+             lambda a: (np.sin(a.real) + 1j * np.cos(a.imag)).astype(
+                 np.complex64))):
+        rec = test_clkernel.main([
+            f"--kernelfile={here}/clenabled_tpu_torch/examples/{name}.py",
+            f"--fnname={fn}", "--1to1", flag, str(TOOL_BLOCK),
+            "--iterations", str(TOOL_ITERS), *TOOL_ARGS])
+        err = float(np.abs(rec["output"] - ref(rec["inputs"][0])).max())
+        if not err <= 1e-5:
+            fail(f"test_clkernel {fn}: max abs err {err} against numpy")
+        out["test_clkernel"][fn] = {"msps": rec["msps"], "err": err}
+    out["test_clfilter"] = {}
+    for flags in (["--percall"], []):
+        hk.reset_launch_counts()
+        rows = test_clfilter.main(["--iterations", str(TOOL_ITERS), *flags,
+                                   *TOOL_ARGS])
+        counts = {k: hk.launch_counts()[k] for k in ("fir_direct",
+                                                     "ofs_filter_planar")}
+        if on_card and min(counts.values()) < TOOL_ITERS:
+            fail(f"test_clfilter {flags}: launches {counts}")
+        out["test_clfilter"][" ".join(flags) or "complex64"] = {
+            "rows": [{k: r[k] for k in ("name", "msps")} for r in rows],
+            "launches": counts}
+    with tempfile.TemporaryDirectory(prefix="clen_tools_") as tmp:
+        prof = profile.main(["--steps", "3", "--samples-per-step",
+                             str(PROFILE_N), "--outdir", tmp, *TOOL_ARGS])
+        if on_card and not any("fx_reg_kernel" in n for n, _ in prof["top"]):
+            fail(f"profile: fx_reg_kernel is not among {prof['top']}")
+        out["profile"] = prof["top"]
+        out["test_ingest"] = test_ingest.main([
+            "--steps", "6", "--dtype", "int8", "--samples-per-step",
+            str(INGEST_LOG2), *TOOL_ARGS])
+        p4 = test_ingest.main(["--packed4", "--samples-per-step",
+                               str(INGEST_LOG2), "--outdir",
+                               os.path.join(tmp, "p4"), *TOOL_ARGS])["packed4"]
+        files = sorted(os.listdir(os.path.join(tmp, "p4")))
+        if p4["events"] != [("sync", 4), ("resync", 5, 6)]:
+            fail(f"test_ingest --packed4: events {p4['events']}")
+        bins = [f for f in files if f.endswith(".bin")]
+        if not bins or len(files) != 2 * len(bins):
+            fail(f"test_ingest --packed4: the writer left {files}")
+        out["test_ingest_packed4"] = {k: p4[k] for k in (
+            "events", "e2e_ms", "e2e_msps", "wire_gbs", "files",
+            "writer_bytes", "write_s")}
+    sc = test_scaling.main(["--devices", "1", "--samples-per-chip",
+                            str(SCALING_SPC), "--iterations", "10",
+                            *TOOL_ARGS])
+    sx = test_scaling.main(["--devices", "1", "--xengine",
+                            "--stations-per-chip", "64", *TOOL_ARGS])
+    if on_card:
+        fx_l = sc["rows"][0]["launches"][0]
+        if fx_l != {d: {"fx_correlate_streams_v2": 2} for d in
+                    ("float32", "int8")}:
+            fail(f"test_scaling: launches {fx_l}")
+        if sx["rows"][0]["launches"][0].get("xengine_gram_stacked_tri") != 1:
+            fail(f"test_scaling --xengine: launches "
+                 f"{sx['rows'][0]['launches'][0]}")
+    out["test_scaling"] = sc["rows"]
+    out["test_scaling_xengine"] = sx["rows"]
+    return out
+
+
+def gr_tools_phase(torch, hk, dev) -> dict:
+    """Phase 15: the native runtime, the GNU Radio adapter on stream
+    blocks and on a sink, and the CLI tools, each failing the run."""
+    phase("gr", "GNU Radio is not installed here: a minimal stand-in "
+                "gnuradio.gr.basic_block and pmt carry the adapter")
+    t0 = time.perf_counter()
+    names = gr_stand_in()
+    try:
+        res = {"native": native_checks(torch, dev),
+               "stream": adapter_stream_checks(torch, hk, dev),
+               "timing": adapter_timing(torch, dev),
+               "sink": adapter_sink_check(torch, hk, dev)}
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+    res["adapter_s"] = time.perf_counter() - t0
+    res["tools"] = tools_checks(torch, hk, dev)
+    res["phase_s"] = time.perf_counter() - t0
+    phase("gr", f"phase 15 in {res['phase_s']:.1f} s (adapter and native "
+                f"{res['adapter_s']:.1f} s)")
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3383,6 +3981,11 @@ def main() -> None:
     correlators["phase_s"] = time.perf_counter() - t0
     phase("correlators", f"phase 14 in {correlators['phase_s']:.1f} s on "
                          f"{card}")
+    torch.cuda.empty_cache()
+
+    # 15. the native runtime, the GNU Radio adapter and the CLI tools
+    gr_tools = gr_tools_phase(torch, hk, dev)
+    phase("gr", f"on {card}")
     print(card, flush=True)
 
     # the least time the card could take for each kernel's work at the
@@ -3474,6 +4077,7 @@ def main() -> None:
                    xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
              sharded_launches=sharded["xengine"]["launches"]["int8"],
              sync_launches=xe_sync["launches"],
+             adapter_launches=gr_tools["sink"]["launches"],
              device_ms=gram_res["int8 device"],
              k4_ms_plain_ms=gram_res["int8 k=4"],
              k4_bound_ms=bounds["gram k=4"][0],
@@ -3502,6 +4106,8 @@ def main() -> None:
                    fm["td"]["launches"]["fir_direct"], fmk["fir"],
                    *fmk["fir 49"][:2], bounds["fir"], fmk["conv1d 49"]),
              body=hk.fir_body(k49, 1, dev), bodies=fmk["fir bodies"],
+             adapter_launches={m: r["launches"]["fir_direct"] for m, r in
+                               gr_tools["stream"].items()},
              by_ntaps={k: {"ms": fmk[f"fir {k}"][0],
                            "plain_ms": fmk[f"fir {k}"][1],
                            "events_ms": fmk[f"fir {k}"][2],
@@ -3512,9 +4118,11 @@ def main() -> None:
                        for k in ("49", "241", "1601")},
              first_body={k: v["ms"] for k, v in fmk["fir first"].items()},
              cuda_kernels=sorted(fir_ptxas), ptxas=fir_ptxas),
-        entry("qdemod_fused", "qdemod.cu", 358,
-              sum(fm[p]["launches"]["qdemod_fused"] for p in fm), fmk["qd"],
-              *fmk["qd time"][:2], bounds["qd"]),
+        dict(entry("qdemod_fused", "qdemod.cu", 358,
+                   sum(fm[p]["launches"]["qdemod_fused"] for p in fm),
+                   fmk["qd"], *fmk["qd time"][:2], bounds["qd"]),
+             adapter_launches={m: r["launches"]["qdemod_fused"] for m, r in
+                               gr_tools["stream"].items()}),
         dict(entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
                    osr["launches"], osr["err"], *osr["time"][:2],
                    osr["bounds"]["bound"]),
@@ -3526,7 +4134,9 @@ def main() -> None:
         dict(entry("fft_batched_fused", "fft_batched.cu", 505,
                    spr["launches"], spr["err"], *spr["time"][:2],
                    spr["bound"], spr["library_ms"]),
-             bare_by_size=spr["sizes"]),
+             bare_by_size=spr["sizes"],
+             adapter_launches={m: r["launches"]["fft_batched_fused"]
+                               for m, r in gr_tools["stream"].items()}),
         dict(entry("costas_scalar", "costas.cu", 2287, cor["launches"],
                    cor["err"], *cor["time"], cor["bound"]),
              latency_bound_ms=cor["timing"][2]["latency_bound_ms"],
@@ -3575,7 +4185,8 @@ def main() -> None:
                       frames=cob["chunked_frames"]),
                   "costas_streams": cob["streams_path"],
                   "planar_step": planar,
-                  "sharded": sharded, "correlators": correlators}}
+                  "sharded": sharded, "correlators": correlators,
+                  "gr_tools": gr_tools}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,11 +32,18 @@ The same streaming SDR library, written for an NVIDIA Hopper GPU:
 - ``sharding``  — the mesh over ``torch.distributed``, the halo filters,
                   the window-parallel correlators, the station-sharded
                   X-Engines on ``all_to_all`` and ``ShardedChain``.
-- ``tools``     — ``test_clxengine``, ``test_clfilter``,
-                  ``test_clenabled_fft`` and ``test_clxcorrelate``, the
-                  X-Engine, filter, FFT and correlator benchmarks.
-- ``examples``  — the reference's two custom-kernel examples as user
-                  torch functions for ``Kernel1To1``/``Kernel2To1``.
+- ``gr_compat`` — ``wrap``: any block as a GNU Radio ``gr.basic_block``,
+                  for the descriptors in ``grc/``.
+- ``native``    — the ring buffer, unpacks, X-Engine marshal and rolling
+                  file writer in C++, built with g++ at first use.
+- ``tools``     — the reference's CLIs (``clview``, ``test_clenabled``,
+                  ``test_clkernel``, ``test_clfilter``, ``test_clxengine``,
+                  ``test_clenabled_fft``, ``test_clxcorrelate``), the
+                  ingest, scaling, multi-host and profiling tools, the
+                  GRC generators and the kernels' A/B tools.
+- ``examples``  — the reference's four custom-kernel examples as user
+                  torch functions for ``Kernel1To1``/``Kernel2To1``, and
+                  ``examples/grc``: demo flowgraphs on the descriptors.
 
 The kernels in ``csrc/`` are compiled by ``_build`` at their first launch,
 never at import: importing this package touches no GPU.

@@ -77,15 +77,18 @@ class Fft(Block):
     """clFFT (lib/clFFT_impl.cc): stream→stream FFT over fft_size vectors
     with window taps and shift semantics.  ``num_streams`` gives the block
     N parallel in/out ports, each transformed like the reference's
-    multi-stream loop (lib/clFFT_impl.cc:537).  ``use_pallas`` routes
-    planar streams as ``dsp.fft.fft_stream_planar`` does ("auto": the
-    kernel when a card is visible and the size is covered)."""
+    multi-stream loop (lib/clFFT_impl.cc:537).  A planar.PC stream stays
+    planar; ``planar=True`` also splits a complex64 stream into planar.PC
+    pairs, so the block always emits the planar form.  ``use_pallas``
+    routes planar streams as ``dsp.fft.fft_stream_planar`` does ("auto":
+    the kernel when a card is visible and the size is covered)."""
 
     stateless = True
 
     def __init__(self, fft_size: int, direction: int = dsp_fft.FORWARD,
                  window=None, shift: bool = False, num_streams: int = 1,
-                 name: str = "", use_pallas: bool | str = "auto", **legacy):
+                 name: str = "", use_pallas: bool | str = "auto",
+                 planar: bool = False, **legacy):
         strip_legacy_kwargs(legacy, self)
         if window is not None and len(window) != fft_size:
             raise ValueError("window length must equal fft_size")
@@ -100,9 +103,12 @@ class Fft(Block):
         self.n_inputs = num_streams
         self.n_outputs = num_streams
         self.use_pallas = use_pallas
+        self.planar = planar
 
     def apply(self, state, inputs):
         def one(x):
+            if self.planar and not isinstance(x, pl_mod.PC):
+                x = pl_mod.PC(x.real.contiguous(), x.imag.contiguous())
             planar_in = isinstance(x, pl_mod.PC)
             dev = (x.re if planar_in else x).device
             win = None if self._window_on is None else self._window_on(dev)
@@ -172,11 +178,22 @@ class MultiplyConst(Block):
         return self._k
 
     def set_k(self, k: float):
+        """A new constant: a Runner takes it at ``refresh()``, a wrapped
+        block (``gr_compat.wrap``) at its next work call."""
         self._k = k
+        self._retuned = True
 
     def init_state(self):
         dtype = torch.complex64 if isinstance(self._k, complex) else torch.float32
         return torch.tensor(self._k, dtype=dtype)
+
+    def migrate_state(self, old_state):
+        """The constant is the whole state: after ``set_k`` it is the new
+        one, otherwise the old state is kept."""
+        if not getattr(self, "_retuned", False):
+            return old_state
+        self._retuned = False
+        return self.init_state()
 
     def apply(self, state, inputs):
         return state, (ew.multiply_const(inputs[0], state),), {}

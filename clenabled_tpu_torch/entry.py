@@ -20,9 +20,13 @@
   chunk 512, warm-up 256) over 2·D channels of a 0.003 rad/sample tone,
   1024 samples; leg 3e, the window-parallel correlators (the TD lag scan,
   max_shift 32, over magnitudes of ones [3, 2D, 512]; the FD correlator
-  over vectors of ones [3, 2D, 256] with ``perform_fft_first``).  The JAX
-  dry run's leg 4 (two processes over ``jax.distributed``) waits for the
-  multi-host tool (ROADMAP.md A.14).
+  over vectors of ones [3, 2D, 256] with ``perform_fft_first``); leg 4,
+  the multi-host path (``multihost_run``, also behind
+  ``tools/test_multihost``): two launcher processes of n // 2 ranks each
+  join one world through a TCP store on 127.0.0.1 and run one complex64
+  sharded step (4 antennas, 512 samples a rank, 16 channels) on a seeded
+  frame, held by rank 0 to the unsharded step within 1e-4 × max|ref|.  At
+  n = 1 there is no second host and leg 4 does not run.
 """
 
 from __future__ import annotations
@@ -114,8 +118,77 @@ def _dryrun_rank() -> dict:
     return out
 
 
+MH_TOL, MH_SEED = 1e-4, 3   # × max|ref|; the global frame's seed
+MH_A, MH_M, MH_L = 4, 16, 512  # antennas, channels, samples a rank
+
+
+def _multihost_frame(d: int) -> np.ndarray:
+    rng = np.random.default_rng(MH_SEED)
+    shape = (MH_A, MH_L * d)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            ).astype(np.complex64)
+
+
+def multihost_rank() -> dict:
+    """One rank of the multi-host leg: its block of the seeded global
+    frame through the complex64 sharded step (TF32 off); rank 0 also runs
+    the unsharded step over the whole frame ("ref")."""
+    from clenabled_tpu_torch import exact_f32
+    from clenabled_tpu_torch.sharding import axis_index
+
+    ctx = get_context()
+    mesh, dev = ctx.mesh, ctx.device
+    rank, d = axis_index(mesh), ctx.num_devices
+    x = torch.from_numpy(_multihost_frame(d)).to(dev)
+    cfg = P.FxPipelineConfig(num_antennas=MH_A, num_channels=MH_M,
+                             samples_per_step=MH_L)
+    with torch.no_grad(), exact_f32():
+        fn, (_, hist) = P.make_sharded_fx_pipeline(mesh, cfg=cfg)
+        out = fn(x[:, rank * MH_L:(rank + 1) * MH_L].contiguous(), hist)
+        res = {"rank": rank, "world": d, "device": str(dev),
+               "out": tuple(out)}
+        if rank == 0:
+            ufn, (_, uh) = P.make_fx_pipeline(
+                cfg._replace(samples_per_step=MH_L * d), device=dev)
+            res["ref"] = tuple(ufn(x, uh))
+    return res
+
+
+def multihost_run(procs: int, ranks_per_proc: int,
+                  device: str = "cuda") -> tuple[list[dict], float, list]:
+    """The multi-host leg: ``procs`` launcher processes of
+    ``ranks_per_proc`` ranks each (``launch.spawn``) run
+    ``multihost_rank``.  Returns (each rank's result, rank 0's worst error
+    over its tolerance (≤ 1 passes), the ranks whose outputs differ from
+    rank 0's)."""
+    results = launch.spawn(multihost_rank, procs * ranks_per_proc, device,
+                           procs=procs)
+    r0 = results[0]
+    worst = 0.0
+    for got, want in zip(r0["out"], r0["ref"]):
+        scale = float(np.abs(want).max())
+        if scale:
+            worst = max(worst, float(np.abs(got - want).max())
+                        / (MH_TOL * scale))
+    differ = [r["rank"] for r in results
+              if not all(np.array_equal(a, b)
+                         for a, b in zip(r["out"], r0["out"]))]
+    return results, worst, differ
+
+
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[dict]:
     """Run the sharded legs once on ``n_devices`` ranks: NCCL on as many
     cards (raises when fewer are visible), or gloo with
-    ``device="cpu"``.  Returns each rank's outputs by leg, as numpy."""
-    return launch.spawn(_dryrun_rank, n_devices, device)
+    ``device="cpu"``.  Returns each rank's outputs by leg, as numpy; with
+    n ≥ 2, leg 4's outputs ("4": fd, xmat, hist) on its 2 · (n // 2)
+    ranks (leg 4 raises when rank 0 misses the tolerance)."""
+    out = launch.spawn(_dryrun_rank, n_devices, device)
+    if n_devices >= 2:
+        leg4, worst, differ = multihost_run(2, n_devices // 2, device)
+        if worst > 1.0 or differ:
+            raise RuntimeError(f"leg 4: rank 0 at {worst:.4f} x tolerance "
+                               f"of the unsharded step; ranks {differ} "
+                               f"differ from rank 0")
+        for r in leg4:
+            out[r["rank"]]["4"] = r["out"]
+    return out

@@ -153,6 +153,69 @@ def card_info() -> str:
     return out.stdout.strip()
 
 
+def supports_complex() -> bool:
+    """Capability probe (the role of GRCLBase's fp64/FMA probes,
+    lib/GRCLBase.cpp:300-342): complex64 tensors run on the card and the
+    CPU alike, so the complex blocks need no planar fallback here."""
+    return True
+
+
+def device_info(kind: str = "cuda") -> list[dict]:
+    """Per-device capability summary, the role of ``clview``
+    (lib/clview.cc:43-246: platform, clock, compute units, memory): for
+    each visible card its name, compute capability, SM count, memory,
+    clocks (from ``nvidia-smi``, None where it cannot be read) and
+    ``torch.cuda.mem_get_info``; with ``kind="cpu"`` one entry for the
+    host CPU.  Raises for ``"cuda"`` when no card is visible."""
+    import os
+    import platform
+
+    if kind == "cpu":
+        return [{"id": 0, "platform": "cpu",
+                 "name": platform.processor() or platform.machine(),
+                 "cores": os.cpu_count(),
+                 "threads": torch.get_num_threads()}]
+    get_device(kind)
+    clocks = _smi_clocks()
+    out = []
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        free, _ = torch.cuda.mem_get_info(i)
+        out.append({"id": i, "platform": "gpu", "name": p.name,
+                    "compute_capability": f"{p.major}.{p.minor}",
+                    "sm_count": p.multi_processor_count,
+                    "memory_bytes": p.total_memory, "mem_free_bytes": free,
+                    **(clocks[i] if i < len(clocks) else {})})
+    return out
+
+
+def _smi_clocks() -> list[dict]:
+    """Per card: SM and memory clocks (current and maximum, MHz) and the
+    power limit, from ``nvidia-smi``; empty when it cannot be run."""
+    keys = ("clocks.sm", "clocks.max.sm", "clocks.mem", "clocks.max.mem",
+            "power.limit")
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return []
+    rows = []
+    for line in res.stdout.strip().splitlines():
+        vals = [v.strip() for v in line.split(",")]
+        rows.append({k.replace(".", "_"): _number(v)
+                     for k, v in zip(keys, vals)})
+    return rows
+
+
+def _number(text: str):
+    try:
+        return float(text)
+    except ValueError:
+        return None
+
+
 def _device_events(fn, least: int, tries: int):
     """(fn(), [(name, µs)] of the device events it ran), read from
     ``torch.profiler``.  The profiler can miss the first milliseconds of

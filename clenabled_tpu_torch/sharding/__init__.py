@@ -22,7 +22,8 @@ communication:
   with the 1-sample-halo quadrature demod;
 - ``xcorr_sharded``: the TD and FD correlators, window-parallel with no
   collective;
-- ``launch``: ``spawn``, which starts the ranks of a run.
+- ``launch``: ``spawn``, which starts the ranks of a run, from this
+  process or from several launcher processes.
 
 The sharded FX steps are ``pipelines.make_sharded_fx_pipeline[_fused]``.
 """

@@ -30,22 +30,32 @@ def _backend(device: str) -> str:
 
 def initialize_distributed(device: str, init_method: str | None = None,
                            world_size: int | None = None,
-                           rank: int | None = None) -> None:
+                           rank: int | None = None,
+                           timeout_s: float | None = None,
+                           store: dist.Store | None = None) -> None:
     """Start this process's rank: NCCL for ``device="cuda"``, on card
     ``rank % cuda.device_count()`` (the ranks of a host fill its cards in
     order; ``LOCAL_RANK`` or ``RANK`` from the environment when ``rank``
     is None), gloo for ``"cpu"``.  ``init_method``, ``world_size`` and
     ``rank`` are ``torch.distributed.init_process_group``'s (None: read
     from the environment), e.g. ``file:///tmp/x/store`` or
-    ``tcp://host:port``."""
+    ``tcp://host:port``, or ``store``, a ``torch.distributed`` store to
+    meet on in place of ``init_method``; ``timeout_s`` bounds the bring-up
+    and every collective (None: torch's default)."""
     backend = _backend(device)
     kw = {}
+    if timeout_s is not None:
+        import datetime
+
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     if device == "cuda":
         local = rank if rank is not None else int(
             os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
         index = local % torch.cuda.device_count()
         torch.cuda.set_device(index)
         kw["device_id"] = torch.device("cuda", index)
+    if store is not None:
+        kw["store"] = store
     dist.init_process_group(backend, init_method=init_method,
                             world_size=-1 if world_size is None else world_size,
                             rank=-1 if rank is None else rank, **kw)

@@ -272,13 +272,29 @@ def test_port_imports_no_jax():
             "clenabled_tpu_torch.runtime.dtypes",
             "clenabled_tpu_torch.runtime.config",
             "clenabled_tpu_torch.sharding.xcorr_sharded",
-            "clenabled_tpu_torch.tools.test_clxcorrelate"]
+            "clenabled_tpu_torch.tools.test_clxcorrelate",
+            "clenabled_tpu_torch.gr_compat", "clenabled_tpu_torch.native",
+            "clenabled_tpu_torch.tools._timing",
+            "clenabled_tpu_torch.tools.clview",
+            "clenabled_tpu_torch.tools.test_clenabled",
+            "clenabled_tpu_torch.tools.test_clkernel",
+            "clenabled_tpu_torch.tools.profile",
+            "clenabled_tpu_torch.tools.test_ingest",
+            "clenabled_tpu_torch.tools.test_scaling",
+            "clenabled_tpu_torch.tools.test_multihost",
+            "clenabled_tpu_torch.tools.gen_grc_yaml",
+            "clenabled_tpu_torch.tools.gen_grc_examples",
+            "clenabled_tpu_torch.examples.kernel1to1_multiply_const_float",
+            "clenabled_tpu_torch.examples.kernel1to1_sincos"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from clenabled_tpu_torch.runtime import (DeviceContext, "
             "get_context, set_default_mesh)\n"
             "from clenabled_tpu_torch.pipelines import ("
             "make_sharded_fx_pipeline, make_sharded_fx_pipeline_fused)\n"
+            "from clenabled_tpu_torch.runtime.device import (device_info, "
+            "supports_complex)\n"
+            "from clenabled_tpu_torch.entry import multihost_run\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' "
             "or k.startswith(('jax.', 'jaxlib', 'clenabled_tpu.')))\n"
             "print(bad)\n"

@@ -1322,9 +1322,11 @@ def test_dryrun_multichip_on_cpu():
     res = dryrun_multichip(2, device="cpu")
     assert len(res) == 2
     legs = {"1", "1b float32", "1b bfloat16", "1b int8", "2", "2b", "3",
-            "3b", "3c", "3d", "3e td", "3e fd"}
+            "3b", "3c", "3d", "3e td", "3e fd", "4"}
     for r in res:
         assert set(r) == legs
+        # leg 4: two launcher processes of one rank each, one sharded step
+        assert [v.shape for v in r["4"]] == [(3, 16), (16, 10, 1), (4, 399)]
         corr, lag, vectors = r["3e td"]      # magnitudes of ones: all 1
         assert corr.shape == lag.shape == (2, 2) and (lag == -32).all()
         np.testing.assert_allclose(vectors, np.ones((2, 2, 64)), atol=1e-5)
@@ -1367,6 +1369,8 @@ def test_dryrun_multichip_on_cpu():
 def test_spawn_checks():
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         S.spawn(R.run_cases, 2, "tpu", None, {})
+    with pytest.raises(ValueError, match="launchers"):
+        S.spawn(R.run_cases, 3, "cpu", None, {}, procs=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cards"):
             S.spawn(R.run_cases, 2, "cuda", None, {})
