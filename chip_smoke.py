@@ -2,8 +2,8 @@
 its synchronised ingest), FM receive path, oversampled channelizer,
 spectrum chain, custom-kernel blocks, carrier recovery, sharded main path
 (with the sharded X-Engines and chains), correlators and typed FIRs, the
-GNU Radio adapter, the native host runtime and the CLI tools once on one
-NVIDIA H100.
+GNU Radio adapter, the native host runtime, the CLI tools and the example
+scripts once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -285,6 +285,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    --packed4`` (the sync and resync events, the writer's files and
    sidecars) and ``test_scaling --devices 1``, flagship and ``--xengine``
    at 64 stations a rank.
+16. examples — the root example scripts' twins
+   (``clenabled_tpu_torch/examples/``) through their ``main`` at their
+   default sizes, launch counts reset before each and read after it,
+   each script's wall time and rate printed.  ``flagship`` (the fused step
+   at 4 × 2^21, two warm-up and 20 timed steps): one
+   ``fx_correlate_streams_v2`` launch a step and no other kernel, ant2-ant0
+   the strongest cross baseline, the last step held to
+   ``fx_correlate_streams_v2_plain`` on its inputs and tails within 1e-4 ×
+   max|plain|.  ``streaming_ingest --seconds 2`` (ring → C++ unpack →
+   49-tap planar LowPass → demod, 2^16 a frame): one ``fir_direct`` and
+   one ``qdemod_fused`` launch a frame; the last frame's filtered stream
+   held to ``fir_direct_plain`` from the previous frame's history, and its
+   audio to ``qdemod_fused_plain`` of the path's own filtered stream.
+   ``xengine_synchronized``: the sync at window 4 and the resync (13, 16),
+   ant2-ant0 in each of the 4 emissions, one int8 Gram launch
+   (``xengine_gram_stacked_tri``, S·P = 8 padded to 128 lanes) an aligned
+   window, every emission bit-equal to ``xengine_gram_stacked_plain`` of
+   its 4 windows scaled and summed as the engine does.  ``fft_xcorr``,
+   ``fm_receiver``, ``xcorr_test``, ``xcorr_max_rate`` and
+   ``xengine_demo`` (no kernel on their paths: complex64 streams, the
+   correlators and the complex engine are plain torch, as the JAX
+   scripts' are XLA): no launch, their outputs held to their own
+   ``--cpu`` runs within 1e-4 × max (the correlator's rate run to one CPU
+   frame of the same signals), delays 25 and 37 and ant2-ant0 recovered.
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -3652,6 +3676,207 @@ def gr_tools_phase(torch, hk, dev) -> dict:
     return res
 
 
+# the example scripts: the ingest run's seconds, and the flags added to every
+# card run (["--cpu"] rehearses phase 16 on the CPU)
+EX_INGEST_S = 2.0
+EX_ARGS: list = []
+
+
+def example_run(torch, hk, name: str, mod, argv) -> tuple:
+    """One example script's ``main(argv)`` on the phase's device, its
+    launches counted: (record, wall s, launches)."""
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = mod.main([*argv, *EX_ARGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    phase("examples", f"{name}: {wall:.2f} s wall, launches {counts}")
+    return rec, wall, counts
+
+
+def example_flagship(torch, hk, dev, flagship) -> dict:
+    """The flagship on its fused step: one ``fx_correlate_streams_v2``
+    launch a step, ant2-ant0 the strongest cross baseline, and the last
+    step held to the plain form on the same inputs and tails."""
+    rec, wall, counts = example_run(torch, hk, "flagship", flagship, [])
+    if dev.type == "cuda" and counts != {"fx_correlate_streams_v2":
+                                         rec["steps"]}:
+        fail(f"flagship: launches {counts}, {rec['steps']} steps")
+    if rec["baseline"] != (2, 0):
+        fail(f"flagship: strongest cross baseline {rec['baseline']}")
+    fn, n = rec["step"], rec["samples_per_step"]
+    fd_sum, gram = hk.fx_correlate_streams_v2_plain(*rec["last_step"],
+                                                    fn.taps_rm, A, M)
+    want = (torch.roll(fd_sum / (n // M), M // 2, dims=-1),
+            gram[:, :M].T[:, :, None], gram[:, M:].T[:, :, None])
+    got = [torch.as_tensor(rec[k], device=dev) for k in ("fd", "xre", "xim")]
+    err = check(torch, f"flagship last step [{A}x{n}] vs "
+                       f"fx_correlate_streams_v2_plain", got, want)
+    return {"wall_s": wall, "launches": counts, "steps": rec["steps"],
+            "msps": rec["msps"], "step_ms": rec["step_s"] * 1e3,
+            "samples_per_step": n, "err": err}
+
+
+def example_ingest(torch, hk, dev, streaming_ingest) -> dict:
+    """The ring → unpack → LowPass → demod chain for ``EX_INGEST_S``: one
+    ``fir_direct`` and one ``qdemod_fused`` launch a frame; the last
+    frame's filtered stream held to ``fir_direct_plain`` from the previous
+    frame's history, and its audio to ``qdemod_fused_plain`` of the path's
+    own filtered stream (an angle's error is the filter's over the
+    sample's magnitude, so the stages are held apart)."""
+    from clenabled_tpu_torch import native
+    from clenabled_tpu_torch.dsp import planar
+
+    rec, wall, counts = example_run(torch, hk, "streaming_ingest",
+                                    streaming_ingest,
+                                    ["--seconds", str(EX_INGEST_S)])
+    nf = rec["frames"]
+    if nf < 2:
+        fail(f"streaming_ingest: {nf} frames")
+    if dev.type == "cuda" and counts != {"fir_direct": nf,
+                                         "qdemod_fused": nf}:
+        fail(f"streaming_ingest: launches {counts}, {nf} frames")
+    taps = torch.as_tensor(rec["taps"], device=dev)
+    k = taps.numel()
+
+    def planes(raw):
+        return [torch.as_tensor(c, device=dev)
+                for c in native.unpack_4bit_planar(raw)]
+
+    (pr, pi), (lr, li) = (planes(raw) for raw in rec["raws"])
+    (fpr, fpi), (flr, fli) = ([torch.as_tensor(c, device=dev) for c in f]
+                              for f in rec["filtered"])
+    want = hk.fir_direct_plain(planar.PC(lr, li), taps,
+                               history=planar.PC(pr[-(k - 1):],
+                                                 pi[-(k - 1):]))
+    err = check(torch, f"streaming_ingest last frame ({rec['frame']}) "
+                       f"filtered vs fir_direct_plain", [flr, fli],
+                [want.re, want.im])
+    audio = torch.as_tensor(rec["audio"], device=dev)
+    want = hk.qdemod_fused_plain(flr, fli, fpr[-1:], fpi[-1:], 1.0)
+    err_qd = check(torch, "streaming_ingest last frame audio vs "
+                          "qdemod_fused_plain", [audio], [want])
+    return {"wall_s": wall, "launches": counts, "frames": nf,
+            "frame": rec["frame"], "msps": rec["msps"],
+            "run_wall_s": rec["wall_s"], "drain_s": rec["drain_s"],
+            "fir_err": err, "qd_err": err_qd}
+
+
+def example_xengine_sync(torch, hk, dev, xengine_synchronized) -> dict:
+    """The synchronised IChar X-Engine: the sync and resync windows as
+    planned, one int8 Gram launch an aligned window, and every emission
+    bit-equal to ``xengine_gram_stacked_plain`` of its windows (lanes
+    zero-padded as the kernel ran them), scaled and summed as the engine
+    does."""
+    import shutil
+
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.dsp import xengine as X
+
+    rec, wall, counts = example_run(torch, hk, "xengine_synchronized",
+                                    xengine_synchronized, [])
+    shutil.rmtree(rec["outdir"], ignore_errors=True)
+    nw, pipe = len(rec["windows"]), rec["pipeline_integration"]
+    if rec["events"] != [("sync", 4), ("resync", 13, 16)]:
+        fail(f"xengine_synchronized: events {rec['events']}")
+    if rec["baselines"] != [(2, 0)] * 4 or len(rec["files"]) != 2:
+        fail(f"xengine_synchronized: baselines {rec['baselines']}, files "
+             f"{rec['files']}")
+    if dev.type == "cuda" and counts != {"xengine_gram_stacked_tri": nw}:
+        fail(f"xengine_synchronized: launches {counts}, {nw} windows")
+    f, t, sp = rec["shape"]
+    s, p = sp // 2, 2
+    xe = blocks.XEngine(data_type=5, polarization=p, num_inputs=s,
+                        num_channels=f, integration=t, planar=True)
+    scale = np.float32(1.0 / 127.0 ** 2)
+    zero = torch.zeros((f, X.num_baselines(s), p * p), device=dev)
+    acc = planar.PC(zero, zero)
+    for k, window in enumerate(rec["windows"][:len(rec["matrices"]) * pipe]):
+        zr, zi = (torch.nn.functional.pad(z, (0, -sp % 128)) for z in
+                  xe._decode_int([torch.as_tensor(w, device=dev)
+                                  for w in window]))
+        a, b = hk.xengine_gram_stacked_plain(zr, zi)
+        a, b = a[:, :sp, :sp], b[:, :sp, :sp]
+        tri = X._triangular(planar.PC(a.float() * scale,
+                                      (b - b.mT).float() * scale), s, p)
+        acc = planar.PC(acc.re + tri.re, acc.im + tri.im)
+        if (k + 1) % pipe == 0:
+            mat = rec["matrices"][k // pipe]
+            if not (np.array_equal(acc.re.cpu().numpy(), mat.real)
+                    and np.array_equal(acc.im.cpu().numpy(), mat.imag)):
+                fail(f"xengine_synchronized: emission {k // pipe} differs "
+                     f"from xengine_gram_stacked_plain")
+            acc = planar.PC(zero, zero)
+    phase("check", f"xengine_synchronized: {len(rec['matrices'])} emissions "
+                   f"of {pipe} windows [F={f}, T={t}, S·P={sp}] bit-equal to "
+                   f"xengine_gram_stacked_plain")
+    return {"wall_s": wall, "launches": counts, "windows": nw,
+            "emissions": len(rec["matrices"]), "events": rec["events"]}
+
+
+def examples_phase(torch, hk, dev) -> dict:
+    """Phase 16: the root example scripts' twins through their ``main`` at
+    their default sizes, each counted; the three with kernels held to the
+    plain forms, the others to their own ``--cpu`` runs."""
+    import shutil
+
+    import numpy as np
+
+    from clenabled_tpu_torch.examples import (fft_xcorr, flagship,
+                                              fm_receiver, streaming_ingest,
+                                              xcorr_max_rate, xcorr_test,
+                                              xengine_demo,
+                                              xengine_synchronized)
+
+    t0 = time.perf_counter()
+    res = {"flagship": example_flagship(torch, hk, dev, flagship),
+           "streaming_ingest": example_ingest(torch, hk, dev,
+                                              streaming_ingest),
+           "xengine_synchronized": example_xengine_sync(
+               torch, hk, dev, xengine_synchronized)}
+    # the kernel-free scripts: (name, module, card argv, CPU argv, outputs);
+    # the correlator's rate run takes one frame of the same signals on the CPU
+    plain = (("fft_xcorr", fft_xcorr, [], [], ("corr",)),
+             ("fm_receiver", fm_receiver, [], [], ("audio",)),
+             ("xcorr_test", xcorr_test, [], [], ("corr", "corrvect")),
+             ("xcorr_max_rate", xcorr_max_rate, [], ["--frames", "1"],
+              ("corr", "corr_vectors")),
+             ("xengine_demo", xengine_demo, [], [], ("matrices",)))
+    for name, mod, argv, cpu_argv, keys in plain:
+        rec, wall, counts = example_run(torch, hk, name, mod, argv)
+        ref = mod.main([*cpu_argv, "--cpu"])
+        for r in (rec, ref):
+            if "outdir" in r:
+                shutil.rmtree(r["outdir"], ignore_errors=True)
+        if dev.type == "cuda" and counts:
+            fail(f"{name} launched {counts}; its path runs no kernel")
+        err = check(torch, f"{name} on {dev.type} vs its --cpu run",
+                    [torch.as_tensor(np.asarray(rec[k])) for k in keys],
+                    [torch.as_tensor(np.asarray(ref[k])) for k in keys])
+        res[name] = {"wall_s": wall, "launches": counts, "err": err}
+        if "msps" in rec:
+            res[name]["msps"] = rec["msps"]
+        for k, want in (("delay", 25), ("lags", [-37] * 4),
+                        ("baselines", [(2, 0)] * 3)):
+            if k in rec and rec[k] != want:
+                fail(f"{name}: {k} {rec[k]}, expected {want}")
+            if k in ref and ref[k] != want:
+                fail(f"{name} --cpu: {k} {ref[k]}, expected {want}")
+        if "lag" in rec and not np.array_equal(rec["lag"], ref["lag"]):
+            fail(f"{name}: lags {rec['lag']} on the card, {ref['lag']} on "
+                 f"the CPU")
+    res["phase_s"] = time.perf_counter() - t0
+    phase("examples", "rates: " + ", ".join(
+        f"{k} {v['msps']:.1f} MSPS" for k, v in res.items()
+        if isinstance(v, dict) and "msps" in v))
+    phase("examples", f"phase 16 in {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3986,6 +4211,11 @@ def main() -> None:
     # 15. the native runtime, the GNU Radio adapter and the CLI tools
     gr_tools = gr_tools_phase(torch, hk, dev)
     phase("gr", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 16. the example scripts, counted
+    examples = examples_phase(torch, hk, dev)
+    phase("examples", f"on {card}")
     print(card, flush=True)
 
     # the least time the card could take for each kernel's work at the
@@ -4049,6 +4279,8 @@ def main() -> None:
         dict(entry("fx_correlate_streams_v2", "fx_correlate.cu", 1172,
                    launches["fx"], errs["fx"], *times["fx f32"], bounds["fx"]),
              body=hk.fx_body(M), sharded_launches=sharded["launches"],
+             example_launches=examples["flagship"]["launches"].get(
+                 "fx_correlate_streams_v2", 0),
              ms_plain_ms_by_dtype={k[3:]: times[k] for k in (
                  "fx f32", "fx bf16", "fx int8")},
              dense_dft_bound_ms=bounds["fx dense"][0]),
@@ -4078,6 +4310,8 @@ def main() -> None:
              sharded_launches=sharded["xengine"]["launches"]["int8"],
              sync_launches=xe_sync["launches"],
              adapter_launches=gr_tools["sink"]["launches"],
+             example_launches=examples["xengine_synchronized"][
+                 "launches"].get("xengine_gram_stacked_tri", 0),
              device_ms=gram_res["int8 device"],
              k4_ms_plain_ms=gram_res["int8 k=4"],
              k4_bound_ms=bounds["gram k=4"][0],
@@ -4108,6 +4342,8 @@ def main() -> None:
              body=hk.fir_body(k49, 1, dev), bodies=fmk["fir bodies"],
              adapter_launches={m: r["launches"]["fir_direct"] for m, r in
                                gr_tools["stream"].items()},
+             example_launches=examples["streaming_ingest"]["launches"].get(
+                 "fir_direct", 0),
              by_ntaps={k: {"ms": fmk[f"fir {k}"][0],
                            "plain_ms": fmk[f"fir {k}"][1],
                            "events_ms": fmk[f"fir {k}"][2],
@@ -4122,7 +4358,9 @@ def main() -> None:
                    sum(fm[p]["launches"]["qdemod_fused"] for p in fm),
                    fmk["qd"], *fmk["qd time"][:2], bounds["qd"]),
              adapter_launches={m: r["launches"]["qdemod_fused"] for m, r in
-                               gr_tools["stream"].items()}),
+                               gr_tools["stream"].items()},
+             example_launches=examples["streaming_ingest"]["launches"].get(
+                 "qdemod_fused", 0)),
         dict(entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
                    osr["launches"], osr["err"], *osr["time"][:2],
                    osr["bounds"]["bound"]),
@@ -4186,7 +4424,7 @@ def main() -> None:
                   "costas_streams": cob["streams_path"],
                   "planar_step": planar,
                   "sharded": sharded, "correlators": correlators,
-                  "gr_tools": gr_tools}}
+                  "gr_tools": gr_tools, "examples": examples}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -238,8 +238,9 @@ def _block_takes(s: int, npol: int,
     triangular order's (row, col) products: the a pick reads the lower
     block (x, y) or, for x < y, the transposed (y, x) block (a is
     symmetric); every gi pick lies in a lower block, since a baseline's
-    station1 ≥ station2.  Cached per device."""
-    kb = s * npol // LANES
+    station1 ≥ station2.  S·P may fall short of a block multiple (the
+    lanes the kernel ran padded).  Cached per device."""
+    kb = -(-s * npol // LANES)
     idx = {}
     for i in range(kb):
         for j in range(i + 1):
@@ -259,10 +260,15 @@ def _block_takes(s: int, npol: int,
 
 
 def _stacked_use_kernel(zr: torch.Tensor, sp: int) -> bool:
-    """The JAX auto rule read for CUDA: the kernel on a CUDA tensor when
-    S·P is a multiple of 128 and the operands are int8 or bfloat16."""
-    return (zr.device.type == "cuda" and sp % LANES == 0
-            and zr.dtype in (torch.int8, torch.bfloat16))
+    """The JAX auto rule read for CUDA, widened: the kernel on a CUDA
+    tensor with int8 or bfloat16 operands when S·P is a multiple of 128
+    (JAX's rule) or T is tileable, the kernel then running on lanes
+    zero-padded to a multiple of 128 (JAX runs XLA's dot there)."""
+    if zr.device.type != "cuda" or zr.dtype not in (torch.int8,
+                                                    torch.bfloat16):
+        return False
+    sub = 32 if zr.dtype == torch.int8 else 16
+    return sp % LANES == 0 or zr.shape[1] % sub == 0
 
 
 def xengine_correlate_stacked(zr, zi, npol: int = 2,
@@ -277,12 +283,13 @@ def xengine_correlate_stacked(zr, zi, npol: int = 2,
     and summed in float32.  Returns planar.PC float32, triangular xGPU
     order or full matrix.
 
-    use_kernel (the JAX function's ``use_pallas``; default auto: on for a
-    CUDA tensor when S·P is a multiple of 128 and the dtype is int8 or
-    bfloat16) routes the contraction through the Gram kernel
-    (``hopper_kernels``), which forms only the lower block-triangle; the
-    triangular order is then two static-index takes from its block
-    outputs.  On a CPU tensor the wrappers run their plain forms."""
+    use_kernel (the JAX function's ``use_pallas``; default auto, see
+    ``_stacked_use_kernel``) routes the contraction through the Gram
+    kernel (``hopper_kernels``), which forms only the lower block-triangle;
+    the triangular order is then two static-index takes from its block
+    outputs.  Where S·P is not a multiple of 128 the kernel runs on lanes
+    zero-padded up to one, which add nothing to any sum.  On a CPU tensor
+    the wrappers run their plain forms."""
     from clenabled_tpu_torch.dsp import hopper_kernels
 
     f, t, sp = zr.shape
@@ -293,6 +300,9 @@ def xengine_correlate_stacked(zr, zi, npol: int = 2,
     if use_kernel is None:
         use_kernel = _stacked_use_kernel(zr, sp)
     if use_kernel:
+        if sp % LANES:
+            zr, zi = (torch.nn.functional.pad(z, (0, -sp % LANES))
+                      for z in (zr, zi))
         if output_format == CLXCORR_TRIANGULAR_ORDER:
             a_blk, gi_blk, _ = hopper_kernels.xengine_gram_stacked_tri(zr, zi)
             pa, pgi = _block_takes(s, npol, a_blk.device)
@@ -306,6 +316,7 @@ def xengine_correlate_stacked(zr, zi, npol: int = 2,
             return planar.PC(gr_t.reshape(f, nb, npol * npol),
                              gi_t.reshape(f, nb, npol * npol))
         a, b = hopper_kernels.xengine_gram_stacked(zr, zi)
+        a, b = a[:, :sp, :sp], b[:, :sp, :sp]
         gr = a.float()
         gi = (b - b.transpose(-1, -2)).float()
     else:

@@ -146,6 +146,12 @@ def test_example_mains_run(capsys):
     assert "custom 2:1 kernel ok" in out
 
 
+# the root example scripts' twins
+SCRIPTS = ("fft_xcorr", "fm_receiver", "streaming_ingest", "flagship",
+           "xcorr_max_rate", "xcorr_test", "xengine_demo",
+           "xengine_synchronized")
+
+
 def test_examples_import_no_jax():
     import subprocess
     import sys
@@ -155,7 +161,10 @@ def test_examples_import_no_jax():
             "import clenabled_tpu_torch.examples.kernel1to1_multiply_const_complex\n"
             "import clenabled_tpu_torch.examples.kernel2to1_multiply_complex\n"
             "import clenabled_tpu_torch.blocks\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' "
+            + "".join(f"import clenabled_tpu_torch.examples.{name}\n"
+                      for name in SCRIPTS) +
+            "bad = sorted(k for k in sys.modules if k in ('jax', "
+            "'clenabled_tpu') "
             "or k.startswith(('jax.', 'jaxlib', 'clenabled_tpu.')))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

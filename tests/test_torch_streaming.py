@@ -343,7 +343,7 @@ def test_xengine_flowgraph_ichar_matches_jax(ref):
     frames = _ichar_frames(4, seed=4)
     got, want = _run_both(_xengine(), _jxengine(),
                           [(fr, fr) for fr in frames])
-    assert hk.gram_launches() == 0                # S·P = 16: batched products
+    assert hk.gram_launches() == 0                # the CPU: plain forms
     for (gr, gi, _), (wr, wi, _) in zip(got, want):
         assert gr.shape == (F, S * (S + 1) // 2, P * P)
         equal(gr, wr)

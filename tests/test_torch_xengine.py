@@ -180,6 +180,24 @@ def test_stacked_matches_jax(ref, shape, dt, fmt):
             match(got.im, w.im, dt)
 
 
+@pytest.mark.parametrize("fmt", [TRI, FULL], ids=["tri", "full"])
+@pytest.mark.parametrize("dt", ["int8", "bfloat16"])
+def test_stacked_kernel_route_pads_lanes(ref, dt, fmt):
+    """S·P = 8 (4 stations × 2 pols, the synchronised X-Engine example's
+    width) through the Gram wrappers: the lanes are zero-padded to 128 and
+    the result is JAX's einsum path's, int8 bit for bit."""
+    qr, qi, s, p = _cm_inputs(("s4", 8, 64, 4, 2), dt, 6)
+    scale = 1.0 / 127 ** 2 if dt == "int8" else 1.0
+    want = j_xe.xengine_correlate_stacked(_j(qr, dt), _j(qi, dt), npol=p,
+                                          output_format=fmt, scale=scale,
+                                          use_pallas=False)
+    got = xe.xengine_correlate_stacked(_t(qr, dt), _t(qi, dt), npol=p,
+                                       output_format=fmt, scale=scale,
+                                       use_kernel=True)
+    match(got.re, want.re, dt)
+    match(got.im, want.im, dt)
+
+
 def test_stacked_auto_rule_and_compute_dtype(ref):
     """Auto routing picks the products on the CPU; compute_dtype casts
     first, as in JAX."""
@@ -1139,6 +1157,23 @@ def test_stacked_engine_uses_kernel_on_card(card):
     assert torch.equal(got.im.cpu(), want.im)
     with pytest.raises(ValueError, match="int8 or bfloat16"):
         hk.xengine_gram_stacked(zr.float(), zi.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [TRI, FULL], ids=["tri", "full"])
+def test_stacked_engine_pads_lanes_on_card(card, fmt):
+    """S·P = 8: the auto rule takes the kernel on lanes padded to 128, one
+    launch, bit-equal to the CPU's plain form."""
+    qr, qi = _ints(10, (2, 32, 64, 8))
+    zr, zi = _t(qr, "int8", card), _t(qi, "int8", card)
+    hk.reset_launch_counts()
+    got = xe.xengine_correlate_stacked(zr, zi, output_format=fmt,
+                                       scale=1 / 127 ** 2)
+    assert hk.gram_launches() == 1
+    want = xe.xengine_correlate_stacked(zr.cpu(), zi.cpu(), output_format=fmt,
+                                        scale=1 / 127 ** 2)
+    assert torch.equal(got.re.cpu(), want.re)
+    assert torch.equal(got.im.cpu(), want.im)
 
 
 # (channels, frames, S·P): T % 32 == 16, kb = 4, one channel
