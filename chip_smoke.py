@@ -2,8 +2,8 @@
 its synchronised ingest), FM receive path, oversampled channelizer,
 spectrum chain, custom-kernel blocks, carrier recovery, sharded main path
 (with the sharded X-Engines and chains), correlators and typed FIRs, the
-GNU Radio adapter, the native host runtime, the CLI tools and the example
-scripts once on one NVIDIA H100.
+GNU Radio adapter, the native host runtime, the CLI tools, the example
+scripts and the vectorised K-frame dispatch once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -309,6 +309,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    scripts' are XLA): no launch, their outputs held to their own
    ``--cpu`` runs within 1e-4 × max (the correlator's rate run to one CPU
    frame of the same signals), delays 25 and 37 and ant2-ant0 recovered.
+17. vectorised K-frame dispatch — (a) ``Fft(2048, blackman_harris,
+   shift=True)`` → ``MultiplyConst(2)`` → ``ComplexToMag`` fed planar
+   8192-sample frames at the automatic K (512) with ``vectorize=True``
+   (one ``torch.func.vmap`` of the step) and with ``vectorize=False`` (the
+   loop, pinned to the same K): one ``fft_batched_fused`` launch against
+   512, bit-equal, and within 1e-4 × max of the plain chain; the kernel
+   alone at the dispatch's 2^22 samples beside its bound; (b)
+   ``XCorrelateFFTVCF(8192, 2)`` at K = 512 (``tools/test_clxcorrelate``'s
+   block-API shape), vectorised within 1e-4 × max|loop| of the loop; (c)
+   ``Fft(2048, blackman_harris, shift)`` behind ``gr_compat.wrap`` under
+   the stand-in ``gr`` at 8192-sample offers, batched at the adapter's
+   automatic K (64) against per call: one launch and one ``apply`` a
+   batch against one a call, the streams bit-equal.  Each form's wall
+   and device busy time a dispatch or a work call (a loop's busy time from
+   32 of its single-frame steps, times K).
 
 Phases 10-12 print the path's device time per frame (``torch.profiler``)
 and wall time per frame, and each kernel's device time beside its plain
@@ -3877,6 +3892,223 @@ def examples_phase(torch, hk, dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the vectorised K-frame dispatch
+# --------------------------------------------------------------------------
+
+VEC_N, VEC_FFT = 8192, 2048        # the GR-buffer frame; the Fft block's size
+VEC_REPS = 2                       # timed dispatches a form
+VEC_BUSY_FRAMES = 32               # single-frame steps traced for the loop
+VEC_GR_BATCHES = 4                 # the adapter's batches of auto K frames
+
+
+def vec_times(torch, label: str, fn, per: int, what: str,
+              frame_fn=None) -> dict:
+    """Wall and device busy time of ``fn`` (a dispatch of ``per`` frames, or
+    a run of work calls), after one warm-up call.  Given ``frame_fn``, one
+    frame of a loop, the busy time is its own over VEC_BUSY_FRAMES calls
+    times ``per``: a trace of a whole 512-frame loop holds every torch
+    call of its frames as a host event, and the profiler's bookkeeping of
+    them takes seconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VEC_REPS):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / VEC_REPS * 1e3
+    if frame_fn is None:
+        busy_ms = device_busy_ms(torch, fn, steps=1)
+    else:
+        busy_ms = device_busy_ms(torch, frame_fn, steps=VEC_BUSY_FRAMES)
+        busy_ms = None if busy_ms is None else busy_ms * per
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.4f} ms"
+    phase("vectorised", f"{label}: wall {wall_ms:.4f} ms a {what} "
+                        f"({per} frames of {VEC_N}), device busy {busy} "
+                        f"a {what}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def vectorised_graphs(torch, hk, dev) -> dict:
+    """(a) Fft(2048, blackman_harris, shift) → MultiplyConst(2) →
+    ComplexToMag fed planar 8192-sample frames at auto K: the vectorised
+    dispatch (one ``fft_batched_fused`` launch) bit-equal to the loop (K
+    launches) and within 1e-4 × max of the plain chain; (b)
+    XCorrelateFFTVCF(8192, 2) at auto K: the vectorised dispatch within
+    1e-4 × max|loop| of the loop.  Both forms timed."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import planar, window
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    win = window.blackman_harris(VEC_FFT)
+    rng = np.random.default_rng(17)
+
+    def spectrum(vectorize, k):
+        fft = blocks.Fft(VEC_FFT, window=win, shift=True)
+        mc, mag = blocks.MultiplyConst(2.0), blocks.ComplexToMag()
+        g = Flowgraph()
+        g.external_input(fft)
+        g.connect(fft, mc)
+        g.connect(mc, mag)
+        g.tap(mag, name="mag")
+        return g.compile(VEC_N, k, vectorize=vectorize, device=dev)
+
+    def xcorr(vectorize, k):
+        xc = blocks.XCorrelateFFTVCF(VEC_N, 2)
+        g = Flowgraph()
+        for p in range(2):
+            g.external_input(xc, p)
+        g.tap(xc, name="corr")
+        return g.compile(VEC_N, k, vectorize=vectorize, device=dev)
+
+    def feed(k):
+        return planar.PC(*(rng.standard_normal((k, VEC_N), np.float32)
+                           for _ in range(2)))
+
+    res = {}
+    for name, make, ports in (("spectrum", spectrum, 1),
+                              ("xcorrelate_fft_vcf", xcorr, 2)):
+        # the vectorised form at auto K; the loop pinned to the same K (its
+        # own auto K would be 2^21 samples, not 2^22)
+        runners = {True: make(True, "auto")}
+        k = runners[True].steps_per_dispatch
+        runners[False] = make(False, k)
+        if not runners[True]._vectorized() or runners[False]._vectorized():
+            fail(f"{name}: the dispatch forms are not the ones asked for")
+        feeds = [feed(k) for _ in range(ports)]
+        outs, launches, times = {}, {}, {}
+        for v, r in runners.items():
+            form = "vectorised" if v else "loop"
+            hk.reset_launch_counts()
+            outs[form] = r.step(*feeds)
+            torch.cuda.synchronize()
+            launches[form] = hk.fft_batched_fused.launches
+            frame = tuple(planar.PC(f.re[0], f.im[0]) for f in feeds)
+            times[form] = vec_times(
+                torch, f"{name} {form}", lambda r=r: r.step(*feeds), k,
+                "dispatch", None if v else lambda r=r: r._dispatch([frame]))
+        tap = "mag" if name == "spectrum" else "corr"
+        got, loop = outs["vectorised"][tap], outs["loop"][tap]
+        if tuple(got.shape) != (k, VEC_N) or not bool(
+                torch.isfinite(got).all()):
+            fail(f"{name}: vectorised output {tuple(got.shape)} is not "
+                 f"finite [{k}, {VEC_N}]")
+        bit = bool(torch.equal(got, loop))
+        rec = {"k": k, "launches": launches, "bit_equal": bit,
+               "times": times}
+        if name == "spectrum":
+            if launches != {"vectorised": 1, "loop": k}:
+                fail(f"spectrum: fft_batched_fused launches {launches}, "
+                     f"expected 1 vectorised and {k} in the loop")
+            if not bit:
+                fail("spectrum: the vectorised dispatch is not bit-equal to "
+                     "the loop")
+            x = [torch.as_tensor(a, device=dev).reshape(-1)
+                 for a in feeds[0]]
+            y = planar.PC(*hk.fft_batched_fused_plain(*x, VEC_FFT, False,
+                                                      win, True))
+            want = planar.pabs(planar.scale(y, 2.0)).reshape(k, VEC_N)
+            rec["err"] = check(torch, f"spectrum vectorised [{k}, {VEC_N}] "
+                                      f"vs the plain chain", [got], [want])
+            # the kernel alone at the dispatch's shape
+            args = (*x, VEC_FFT, False,
+                    torch.as_tensor(win, device=dev), True)
+            rec["kernel_ms"] = (device_busy_ms(
+                torch, lambda: hk.fft_batched_fused(*args), 10)
+                or time_ms(torch, lambda: hk.fft_batched_fused(*args)))
+            rec["kernel_bound"] = fft_bound(k * VEC_N, VEC_FFT, True)
+            phase("time", f"fft_batched {VEC_FFT} window shift "
+                          f"[{k * VEC_N}] (one vectorised dispatch): device "
+                          f"kernel {rec['kernel_ms']:.4f} ms, bound "
+                          f"{rec['kernel_bound'][0]:.4f} ms")
+        else:
+            rec["err"] = check(torch, f"xcorrelate_fft_vcf vectorised [{k}, "
+                                      f"{VEC_N}] vs the loop", [got], [loop])
+        phase("vectorised", f"{name} at auto K = {k}: fft_batched_fused "
+                            f"launches {launches}; vectorised bit-equal to "
+                            f"the loop: {bit}")
+        res[name] = rec
+        del runners, feeds, outs, got, loop
+    return res
+
+
+def vectorised_adapter(torch, hk, dev) -> dict:
+    """(c) The wrapped Fft(2048, blackman_harris, shift, planar) under the
+    stand-in GNU Radio at 8192-sample offers, batched at auto K against
+    per call: one launch a batch, the streams bit-equal; both timed."""
+    import numpy as np
+
+    from clenabled_tpu_torch import blocks, gr_compat
+    from clenabled_tpu_torch.dsp import window
+
+    win = window.blackman_harris(VEC_FFT)
+    gs = {mode: gr_compat.wrap(blocks.Fft(VEC_FFT, window=win, shift=True,
+                                          planar=True),
+                               batch_frames=mode, device=dev)
+          for mode in ("auto", 1)}
+    k = min(64, (1 << 21) // VEC_N)         # the adapter's automatic K
+    calls = VEC_GR_BATCHES * k
+    rng = np.random.default_rng(18)
+    x = (rng.standard_normal(calls * VEC_N)
+         + 1j * rng.standard_normal(calls * VEC_N)).astype(np.complex64)
+    outs, launches, times = {}, {}, {}
+    for mode, g in gs.items():
+        hk.reset_launch_counts()
+        ys = [_gr_work(g, [x[j * VEC_N:(j + 1) * VEC_N]], VEC_N,
+                       np.complex64)[1] for j in range(calls)]
+        ys += _gr_drain(g, np.complex64)
+        torch.cuda.synchronize()
+        launches[str(mode)] = (hk.fft_batched_fused.launches, g.apply_calls)
+        outs[str(mode)] = np.concatenate(ys)
+
+        def work(g=g):
+            for j in range(k):
+                _gr_work(g, [x[j * VEC_N:(j + 1) * VEC_N]], VEC_N,
+                         np.complex64)
+        t = vec_times(torch, f"wrapped Fft batch_frames={mode!r}", work, k,
+                      f"run of {k} work calls")
+        times[str(mode)] = {key: None if v is None else v / k
+                            for key, v in t.items()}
+        _gr_drain(g, np.complex64)
+    if launches != {"auto": (VEC_GR_BATCHES, VEC_GR_BATCHES),
+                    "1": (calls, calls)}:
+        fail(f"wrapped Fft: (launches, apply calls) {launches}, expected "
+             f"one a batch of {k} batched and one a call per call")
+    if len(outs["auto"]) != len(x):
+        fail(f"wrapped Fft: {len(outs['auto'])} of {len(x)} samples out")
+    bit = bool(np.array_equal(outs["auto"], outs["1"]))
+    if not bit:
+        fail("wrapped Fft: the batched stream is not bit-equal to the "
+             "per-call stream")
+    phase("vectorised", f"wrapped Fft({VEC_FFT}) at {VEC_N}-sample offers: "
+                        f"(launches, apply calls) {launches}; batched "
+                        f"bit-equal to per call; a work call: " + ", ".join(
+                            f"{m} wall {t['wall_ms']:.4f} ms busy "
+                            + ("not measured" if t["busy_ms"] is None
+                               else f"{t['busy_ms']:.4f} ms")
+                            for m, t in times.items()))
+    return {"k": k, "launches": launches, "bit_equal": bit,
+            "per_work_call": times}
+
+
+def vectorised_phase(torch, hk, dev) -> dict:
+    """Phase 17: the vectorised K-frame dispatch of all-stateless Runner
+    graphs and of a stateless block behind the GNU Radio adapter."""
+    t0 = time.perf_counter()
+    res = vectorised_graphs(torch, hk, dev)
+    names = gr_stand_in()
+    try:
+        res["adapter"] = vectorised_adapter(torch, hk, dev)
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+    res["phase_s"] = time.perf_counter() - t0
+    phase("vectorised", f"phase 17 in {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -4216,6 +4448,11 @@ def main() -> None:
     # 16. the example scripts, counted
     examples = examples_phase(torch, hk, dev)
     phase("examples", f"on {card}")
+    torch.cuda.empty_cache()
+
+    # 17. the vectorised K-frame dispatch, counted
+    vectorised = vectorised_phase(torch, hk, dev)
+    phase("vectorised", f"on {card}")
     print(card, flush=True)
 
     # the least time the card could take for each kernel's work at the
@@ -4374,7 +4611,16 @@ def main() -> None:
                    spr["bound"], spr["library_ms"]),
              bare_by_size=spr["sizes"],
              adapter_launches={m: r["launches"]["fft_batched_fused"]
-                               for m, r in gr_tools["stream"].items()}),
+                               for m, r in gr_tools["stream"].items()},
+             vectorised_launches={
+                 "spectrum": vectorised["spectrum"]["launches"],
+                 "adapter": vectorised["adapter"]["launches"]},
+             vectorised_dispatch={
+                 "shape": vectorised["spectrum"]["k"] * VEC_N,
+                 "ms": vectorised["spectrum"]["kernel_ms"],
+                 "bound_ms": vectorised["spectrum"]["kernel_bound"][0],
+                 "bound_by": vectorised["spectrum"]["kernel_bound"][1],
+                 "max_abs_err": vectorised["spectrum"]["err"]}),
         dict(entry("costas_scalar", "costas.cu", 2287, cor["launches"],
                    cor["err"], *cor["time"], cor["bound"]),
              latency_bound_ms=cor["timing"][2]["latency_bound_ms"],
@@ -4424,7 +4670,8 @@ def main() -> None:
                   "costas_streams": cob["streams_path"],
                   "planar_step": planar,
                   "sharded": sharded, "correlators": correlators,
-                  "gr_tools": gr_tools, "examples": examples}}
+                  "gr_tools": gr_tools, "examples": examples,
+                  "vectorised": vectorised}}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,15 +105,16 @@ def _fused_fft_supported(x: planar.PC, fft_size: int) -> bool:
 def fft_stream_planar(x: planar.PC, fft_size: int, direction: int = FORWARD,
                       window=None, shift: bool = False,
                       use_pallas: bool | str = "auto") -> planar.PC:
-    """Planar fft_stream: a PC of 1-D streams chopped into fft_size
-    vectors.
+    """Planar fft_stream: a PC of streams [..., n] chopped into fft_size
+    vectors along the last axis.
 
     use_pallas: ``"auto"`` takes the hand-written kernel
     (``hopper_kernels.fft_batched_fused``) when a CUDA card is visible and
     ``_fused_fft_supported`` holds — the JAX rule, with the card in the
     TPU backend's place; ``True`` forces the kernel wherever its envelope
-    (n2 a power of two in [2, 128], 1-D streams) covers the size; ``False``
-    pins the two-stage planar DFT.  The kernel runs its plain form on CPU
+    (n2 a power of two in [2, 128]) covers the size, a stream of any rank
+    folding its leading axes into the kernel's vectors; ``False`` pins the
+    two-stage planar DFT.  The kernel runs its plain form on CPU
     tensors."""
     from clenabled_tpu_torch.dsp import hopper_kernels
 
@@ -122,15 +123,14 @@ def fft_stream_planar(x: planar.PC, fft_size: int, direction: int = FORWARD,
     if use_pallas == "auto":
         use_pallas = (torch.cuda.is_available()
                       and _fused_fft_supported(x, fft_size))
-    if use_pallas and not (x.re.dim() == 1
-                           and hopper_kernels.fft_size_covered(fft_size)):
+    if use_pallas and not hopper_kernels.fft_size_covered(fft_size):
         use_pallas = False
     if use_pallas:
         yr, yi = hopper_kernels.fft_batched_fused(
-            x.re.contiguous(), x.im.contiguous(), fft_size,
+            x.re.reshape(-1), x.im.reshape(-1), fft_size,
             inverse=direction != FORWARD,
             window=_check_window(window, fft_size, x.re.device), shift=shift)
-        return planar.PC(yr, yi)
+        return planar.PC(yr.reshape(x.re.shape), yi.reshape(x.im.shape))
     shp = x.re.shape[:-1] + (-1, fft_size)
     out = fft_planar(planar.PC(x.re.reshape(shp), x.im.reshape(shp)),
                      direction=direction, window=window, shift=shift)

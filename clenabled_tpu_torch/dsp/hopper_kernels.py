@@ -1235,13 +1235,31 @@ def fft_batched_fused(xr, xi, fft_size: int, inverse: bool = False,
     ``Fft`` block's: forward, an fftshift of each output vector; inverse,
     the input halves swapped before the window (lib/clFFT_impl.cc:544-607).
     The JAX function leaves the shift to its caller; the kernel does it in
-    its load and store indices.  Returns (yr, yi) [n] float32."""
+    its load and store indices.  Returns (yr, yi) [n] float32.
+
+    The call goes through the operator ``clenabled_tpu_torch::fft_batched``,
+    whose ``torch.func.vmap`` rule folds the batch axes into the stream:
+    under ``vmap`` over K frames (the Runner's vectorised dispatch) the K
+    frames' vectors are transformed in one launch, bit-equal to K calls
+    (the kernel transforms each vector on its own).  The window is shared
+    by every frame and may not be batched."""
+    _, window = _check_fft(xr, xi, fft_size, window)
+    return _fft_op(xr, xi, fft_size, bool(inverse), window, bool(shift))
+
+
+@torch.library.custom_op("clenabled_tpu_torch::fft_batched", mutates_args=())
+def _fft_op(xr: torch.Tensor, xi: torch.Tensor, fft_size: int, inverse: bool,
+            window: torch.Tensor | None, shift: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over the whole stream (the plain form on CPU
+    tensors)."""
     if xr.device.type == "cpu":
         return fft_batched_fused_plain(xr, xi, fft_size, inverse, window,
                                        shift)
     n, window = _check_fft(xr, xi, fft_size, window)
     dev = xr.device
     tw = _fft_twiddles(fft_size, dev)
+    xr, xi = xr.contiguous(), xi.contiguous()
     ins = (xr, xi, tw) if window is None else (xr, xi, tw, window.contiguous())
     _require_cuda(*ins)
     if xr.dtype != torch.float32 or xi.dtype != torch.float32:
@@ -1260,6 +1278,23 @@ def fft_batched_fused(xr, xi, fft_size: int, inverse: bool = False,
                            f"memory per block)")
     fft_batched_fused.launches += 1
     return yr, yi
+
+
+@_fft_op.register_vmap
+def _fft_op_vmap(info, in_dims, xr, xi, fft_size, inverse, window, shift):
+    """The batch rule: every frame's vectors in one stream, one call."""
+    if in_dims[4] is not None:
+        raise ValueError("fft_batched_fused: the window is shared by every "
+                         "frame and cannot be batched")
+    b = info.batch_size
+
+    def rows(x, dim):
+        x = x.expand(b, *x.shape) if dim is None else x.movedim(dim, 0)
+        return x.contiguous().reshape(-1)
+
+    yr, yi = _fft_op(rows(xr, in_dims[0]), rows(xi, in_dims[1]), fft_size,
+                     inverse, window, shift)
+    return (yr.reshape(b, -1), yi.reshape(b, -1)), (0, 0)
 
 
 fft_batched_fused.launches = 0

@@ -191,16 +191,24 @@ def xengine_correlate(z: torch.Tensor, npol: int = 2,
 
 
 def xengine_correlate_planar(z: planar.PC, npol: int = 2,
-                             output_format: int = CLXCORR_TRIANGULAR_ORDER
-                             ) -> planar.PC:
+                             output_format: int = CLXCORR_TRIANGULAR_ORDER,
+                             compute_dtype=None) -> planar.PC:
     """Planar X-Engine: z is a planar.PC of [T, S, F, P]; same output as
-    xengine_correlate, as a planar.PC."""
+    xengine_correlate, as a planar.PC.  compute_dtype (e.g.
+    ``torch.bfloat16``) casts the operands first; products are formed in
+    float32 without TF32, so bf16 operands of samples quantized to ≤ 8
+    bits give the float32 result bit for bit."""
+    from clenabled_tpu_torch.dsp import hopper_kernels
+
     t, s, f, p = z.re.shape
     if p != npol:
         raise ValueError(f"input has {p} pols, expected {npol}")
     zr = z.re.permute(0, 1, 3, 2).reshape(t, s * p, f)
     zi = z.im.permute(0, 1, 3, 2).reshape(t, s * p, f)
-    g = _gram_planar(zr, zi)
+    if compute_dtype is not None:
+        zr, zi = zr.to(compute_dtype), zi.to(compute_dtype)
+    with hopper_kernels._full_f32():
+        g = _gram_planar(zr.float(), zi.float())
     if output_format == CLXCORR_FULL_MATRIX:
         return g
     return _triangular(g, s, p)

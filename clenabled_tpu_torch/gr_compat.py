@@ -32,9 +32,13 @@ Where the torch idiom differs from the JAX adapter:
   state is passed through ``block.migrate_state`` before each call, as
   ``Runner.refresh`` does; a ``set_*`` callback called on the wrapper first
   runs the frames already consumed on the old configuration.
-* A batch of K frames goes to the device in one copy a port and runs
-  through ``apply`` frame by frame, in order; the K outputs of a port are
-  joined on the device and fetched in one copy.
+* A batch of K frames goes to the device in one copy a port.  A
+  ``stateless`` block runs the K frames through one ``torch.func.vmap`` of
+  ``apply``, its state passed through unchanged, as JAX's ``_scan_fn``
+  vmaps them (the FFT kernel's batch rule launches it once for the K
+  frames); any other block runs them through ``apply`` frame by frame, in
+  order.  The K outputs of a port are joined on the device and fetched in
+  one copy, and the messages are published frame by frame.
 * Pipelining (depth D > 1, sinks only) queues, at dispatch, non-blocking
   copies of the messages into pinned host buffers followed by a CUDA event,
   and waits on that event when the publish comes due D−1 calls later, so
@@ -387,6 +391,22 @@ def wrap(block, in_sig=None, out_sig=None, msg_ports=None, name=None,
             for msgs in msgs_all:
                 self._publish(msgs)
 
+        def _run_stacked(self, stacked, k):
+            """A stateless block's K stacked frames through one vmapped
+            ``apply`` (the state passes through unchanged); each port's K
+            outputs joined and fetched in one copy, the messages published
+            frame by frame."""
+            self._migrate()
+            st, blk = self._state, self._blk
+            outs, msgs = torch.func.vmap(
+                lambda *fr: tuple(blk.apply(st, list(fr))[1:]))(*stacked)
+            self.apply_calls += 1
+            for p in range(n_out):
+                self._outq[p].append(_to_numpy(
+                    _tree.tree_map(lambda a: a.reshape(-1), outs[p])))
+            for j in range(k):
+                self._publish(_tree.tree_map(lambda a, j=j: a[j], msgs))
+
         def _dispatch_group(self):
             self._drain_inflight()   # keep message order across path mixes
             k = bk
@@ -395,8 +415,11 @@ def wrap(block, in_sig=None, out_sig=None, msg_ports=None, name=None,
                        for p, s in zip(range(n_in), in_sig)]
             for p in range(n_in):
                 del self._pend[p][:k]
-            self._run_frames([[_row(x, j) for x in stacked]
-                              for j in range(k)])
+            if getattr(block, "stateless", False):
+                self._run_stacked(stacked, k)
+            else:
+                self._run_frames([[_row(x, j) for x in stacked]
+                                  for j in range(k)])
 
         def flush(self):
             """Run the consumed-but-unprocessed frames one at a time and

@@ -45,10 +45,12 @@ class Block:
     # stateless=True is a CONTRACT: apply() returns the carried state
     # UNCHANGED and this frame's outputs depend only on (state, inputs) —
     # no cross-frame dependence.  When every block of a flowgraph is
-    # stateless the Runner's automatic frames-per-dispatch is larger (the
-    # JAX package batches such frames into one program; the port runs them
-    # in order, with the same results).  Blocks that update state
-    # (filters, loops, sources, integrators) must keep False.
+    # stateless the Runner's automatic frames-per-dispatch is larger and
+    # its K frames run as one torch.func.vmap of the step (JAX: jax.vmap),
+    # as does a stateless block's batch in the GNU Radio adapter; apply()
+    # must then be vmappable (no .item() or data-dependent Python control
+    # flow on its tensors).  Blocks that update state (filters, loops,
+    # sources, integrators) must keep False.
     stateless: bool = False
 
     def set_debug(self, debug: bool = True) -> "Block":

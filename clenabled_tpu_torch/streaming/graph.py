@@ -6,10 +6,16 @@ multi-rate frame-size solver) is the JAX package's, unchanged.  The Runner
 drives the step eagerly on the device named at ``compile(device=...)``:
 
 - ``jax.jit`` has no counterpart; the step is the blocks' torch calls.
-- The K-frame dispatch (``lax.scan``, or ``jax.vmap`` for all-stateless
-  graphs) is a loop over the K frames, threading state exactly as K
-  ``step()`` calls do; tapped outputs come back stacked on a leading K
-  axis and message handlers are called once per frame, as in JAX.
+- The K-frame dispatch of an all-stateless graph with external inputs
+  is, as JAX's ``jax.vmap``, one ``torch.func.vmap`` of the step over the
+  frame axis: each port's K stacked frames go to the device in one copy,
+  the plain torch ops batch by themselves, and the hand-written kernel on
+  this path (``hopper_kernels.fft_batched_fused``) is an operator whose
+  batch rule launches it once for the K frames.  ``vectorize=False`` and
+  every other graph take the counterpart of ``lax.scan``: a loop over the
+  K frames, threading state exactly as K ``step()`` calls do.  Either way
+  tapped outputs come back stacked on a leading K axis and message
+  handlers are called once per frame, in frame order, as in JAX.
 - ``precision`` and ``lowered_text`` are XLA's and have no counterpart;
   a debug block prints its item counts only.
 - ``refresh`` rebuilds the step closure where JAX re-traces and re-jits;
@@ -122,7 +128,11 @@ class Flowgraph:
         inputs and ``vectorize`` — and then ``step()`` keeps per-frame
         semantics for per-frame feeds and takes the K-frame dispatch only
         for stacked [K, ...] feeds or via ``run()``.  An explicit int pins
-        K (``step()`` then requires stacked feeds)."""
+        K (``step()`` then requires stacked feeds).
+
+        vectorize: an all-stateless graph with external inputs runs its
+        K-frame dispatch as one ``torch.func.vmap`` of the step (see
+        ``Runner``); ``False`` forces the frame-by-frame loop."""
         order, step, frames, resolved = self._build(frame_size)
         auto = steps_per_dispatch == "auto"
         if auto:
@@ -135,7 +145,7 @@ class Flowgraph:
                                                 (1 << 21) // max(1, resolved)))
         return Runner(self, order, step, frames, resolved,
                       steps_per_dispatch=steps_per_dispatch,
-                      auto_dispatch=auto, device=device)
+                      auto_dispatch=auto, vectorize=vectorize, device=device)
 
     def _resolve_frame_size(self, order, in_edges, ext_ports,
                             frame_size: int | None) -> int:
@@ -301,7 +311,7 @@ class Runner:
     def __init__(self, graph: Flowgraph, order: Sequence[Block],
                  step_fn: Callable, frames: dict, frame_size: int,
                  steps_per_dispatch: int = 1, auto_dispatch: bool = False,
-                 *, device: torch.device | str):
+                 vectorize: bool = True, *, device: torch.device | str):
         if steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         self._graph = graph
@@ -309,6 +319,9 @@ class Runner:
         self._step_fn = step_fn
         self.steps_per_dispatch = steps_per_dispatch
         self.auto_dispatch = auto_dispatch
+        # vectorize=False forces the frame-by-frame loop even for
+        # all-stateless graphs (the same results; A/B and debugging)
+        self.vectorize = vectorize
         self.device = torch.device(device)
         self.frames = frames
         self.frame_size = frame_size
@@ -384,9 +397,47 @@ class Runner:
                 raise ValueError(
                     f"feed {i}: steps_per_dispatch={k} needs stacked "
                     f"[{k}, frame_size] feeds, got {np.shape(arr)}")
+        if self._vectorized():
+            return self._dispatch_vmap(feeds)
         per_frame = [tuple(_tree.tree_map(lambda a, j=j: a[j], f)
                            for f in feeds) for j in range(k)]
         return _stack(self._dispatch(per_frame, collect=True))
+
+    def _vectorized(self) -> bool:
+        """Whether a K-frame dispatch runs as one vmapped step: K > 1,
+        ``vectorize``, external inputs, and every block stateless (its
+        frames independent of each other), as JAX's ``Runner._wrap``
+        decides."""
+        return (self.vectorize and self.steps_per_dispatch > 1
+                and bool(self._graph._external)
+                and all(getattr(b, "stateless", False) for b in self._order))
+
+    def _dispatch_vmap(self, feeds: tuple) -> dict:
+        """The vectorised K-frame dispatch: the stacked [K, ...] feeds on
+        the device in one copy each, the step vmapped over the frame axis
+        with the states passed through unchanged (the stateless contract),
+        then each frame's messages in frame order.  A block that cannot be
+        vmapped raises; ``vectorize=False`` runs the loop instead."""
+        t0 = time.perf_counter()
+        k = self.steps_per_dispatch
+        states, step_fn = self.states, self._step_fn
+        try:
+            tapped, messages = torch.func.vmap(
+                lambda fs: step_fn(states, fs)[1:])(self._to_device(feeds))
+        except RuntimeError as e:
+            if "vmap" not in str(e):
+                raise
+            raise RuntimeError(
+                f"the vectorised {k}-frame dispatch cannot vmap this graph's "
+                f"step ({e}); compile with vectorize=False to run the frames "
+                f"one by one") from e
+        for j in range(k):
+            self._deliver(_tree.tree_map(lambda a, j=j: a[j], messages))
+        self.stats["steps"] += k
+        self.stats["wall_s"] += time.perf_counter() - t0
+        self.stats["samples"] += self.frame_size * k
+        self._debug_report(k)
+        return tapped
 
     def _dispatch(self, frame_feeds: list[tuple], collect: bool = False):
         """Run the frames in order, threading state; then deliver each
@@ -437,8 +488,10 @@ class Runner:
     def run(self, feeds_iter, n_steps: int | None = None) -> list[dict]:
         """Drive from an iterator of PER-FRAME feed tuples; collects tapped
         outputs.  With steps_per_dispatch=K frames go K at a time (results
-        carry a leading K axis); a remainder of fewer than K frames at the
-        end runs frame by frame, so every frame is processed."""
+        carry a leading K axis; for the vectorised dispatch each port's K
+        frames are stacked on the host first); a remainder of fewer than K
+        frames at the end runs frame by frame, so every frame is
+        processed."""
         k = self.steps_per_dispatch
         results = []
         group: list[tuple] = []
@@ -450,7 +503,14 @@ class Runner:
                 continue
             group.append(tuple(feeds))
             if len(group) == k:
-                results.append(_stack(self._dispatch(group, collect=True)))
+                if self._vectorized():
+                    stacked = tuple(_tree.tree_map(_stack_host,
+                                                   *(g[p] for g in group))
+                                    for p in range(len(group[0])))
+                    results.append(self._dispatch_vmap(stacked))
+                else:
+                    results.append(_stack(self._dispatch(group,
+                                                         collect=True)))
                 group = []
         for feeds in group:          # remainder < K: one frame at a time
             results.append(self._dispatch([feeds]))
@@ -519,6 +579,14 @@ class Runner:
         if _tree.structure(data) != _tree.structure(self.states):
             raise ValueError("checkpoint does not match this flowgraph")
         self.states = self._to_device(data)
+
+
+def _stack_host(*frames):
+    """K per-frame feed leaves → one [K, ...] leaf where they are: numpy
+    on the host, tensors on their device."""
+    if any(torch.is_tensor(f) for f in frames):
+        return torch.stack([torch.as_tensor(f) for f in frames])
+    return np.stack(frames)
 
 
 def _stack(tapped: list[dict]) -> dict:

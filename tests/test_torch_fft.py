@@ -203,6 +203,75 @@ def test_routing(monkeypatch):
         hk.fft_batched_fused(x.re, x.im, 1024, window=np.ones(512))
 
 
+@pytest.mark.parametrize("lead", [(3,), (2, 2)], ids=["2-D", "3-D"])
+def test_forced_kernel_folds_leading_axes(ref, monkeypatch, lead):
+    """use_pallas=True on a stream of any rank reaches the kernel's entry
+    once, the leading axes folded into its vectors (not the plain DFT),
+    and matches the plain route and JAX's fft_stream_planar."""
+    calls = []
+    real = hk.fft_batched_fused
+
+    def spy(xr, *a, **k):
+        calls.append(tuple(xr.shape))
+        return real(xr, *a, **k)
+
+    monkeypatch.setattr(hk, "fft_batched_fused", spy)
+    size = 1024
+    x = samples(lead + (2 * size,), seed=7)
+    w = window.blackman_harris(size)
+    got = fft.fft_stream_planar(tpc(x), size, fft.FORWARD, w, shift=True,
+                                use_pallas=True)
+    assert calls == [(int(np.prod(lead)) * 2 * size,)]
+    assert tuple(got.re.shape) == tuple(got.im.shape) == lead + (2 * size,)
+    plain = fft.fft_stream_planar(tpc(x), size, fft.FORWARD, w, shift=True,
+                                  use_pallas=False)
+    want = j_fft.fft_stream_planar(jpc(x), size, j_fft.FORWARD, w,
+                                   shift=True)
+    for g, p_, j_ in ((got.re, plain.re, want.re), (got.im, plain.im,
+                                                    want.im)):
+        close(g, p_)
+        close(g, j_)
+
+
+def test_kernel_batch_rule(monkeypatch):
+    """torch.func.vmap of the kernel's wrapper enters its operator once for
+    all frames — batched on any axis, an unbatched operand broadcast, two
+    vmaps nested — within 1e-5 × max of one call a frame; a batched
+    window raises."""
+    entries = []
+    plain = hk.fft_batched_fused_plain
+
+    def counted(xr, *a, **k):
+        entries.append(tuple(xr.shape))
+        return plain(xr, *a, **k)
+
+    monkeypatch.setattr(hk, "fft_batched_fused_plain", counted)
+    size, k = 512, 3
+    w = torch.as_tensor(window.blackman_harris(size))
+    x = torch.from_numpy(samples((k, 2 * size), seed=8))
+
+    def f(re, im):
+        return hk.fft_batched_fused(re, im, size, False, w, True)
+
+    want = [f(x[0, j], x[1, j]) for j in range(k)]
+    entries.clear()
+    for got in (torch.func.vmap(f)(x[0], x[1]),
+                torch.func.vmap(f, in_dims=(1, 1))(x[0].T, x[1].T)):
+        for j in range(k):
+            close(got[0][j], want[j][0])
+            close(got[1][j], want[j][1])
+    bcast = torch.func.vmap(f, in_dims=(0, None))(x[0], x[1, 0])
+    close(bcast[1][2], f(x[0, 2], x[1, 0])[1])
+    nested = torch.func.vmap(torch.func.vmap(f))(x[0].reshape(k, 1, -1),
+                                                 x[1].reshape(k, 1, -1))
+    close(nested[0][1, 0], want[1][0])
+    assert entries == [(k * 2 * size,)] * 3 + [(2 * size,)] + [
+        (k * 2 * size,)]
+    with pytest.raises(ValueError, match="window"):
+        torch.func.vmap(lambda re, win: hk.fft_batched_fused(
+            re, re, size, window=win))(x[0], w.expand(k, size))
+
+
 def stockham(x, radices, tw, inverse=False):
     """numpy model of the kernel core's passes (csrc/fft_core.cuh) over the
     last axis, in complex128 with the complex64 pass twiddles: pass p of

@@ -9,8 +9,10 @@ message payloads agree within 1e-4 × max|JAX| (ints exactly).
 Then the port's own contract: a ``set_taps`` or ``set_k`` between work
 calls takes effect on the next call, as a ``Flowgraph`` retuned at the
 same sample; the ``ValueError`` for an explicit depth > 1 on a stream
-block; the sink's tail after ``stop()``; and, on a card, the pinned-copy
-pipelining."""
+block; the sink's tail after ``stop()``; a stateless block's batch as one
+vmapped ``apply`` (the FFT operator entered once a batch, the stream
+equal to the per-call path's and within 1e-4 × max of the JAX adapter's);
+and, on a card, the pinned-copy pipelining and one FFT launch a batch."""
 
 from __future__ import annotations
 
@@ -677,3 +679,81 @@ def test_pinned_copy_pipelining_on_card(card, fake_gr):
     for a, b in zip(out[2], out[1]):
         for key in b:
             np.testing.assert_array_equal(a[key], b[key])
+
+
+# --- the vectorised batch of a stateless block --------------------------
+
+FFT_WIN = np.hanning(1024).astype(np.float32)
+
+
+def _wrapped_fft(wrap, batch, x, offer, **kw):
+    """A wrapped Fft(1024, Hann, shift) driven over ``x`` in offers of
+    ``offer`` samples; returns the recorder."""
+    from clenabled_tpu_torch import blocks
+
+    blk = kw.pop("blocks", blocks).Fft(1024, window=FFT_WIN, shift=True,
+                                       **kw)
+    rec = Rec(wrap(blk, batch_frames=batch))
+    _drive(rec, x, offer, 1 << 16)
+    return rec
+
+
+def test_batched_stateless_fft_enters_the_op_once_a_batch(fake_gr,
+                                                          monkeypatch):
+    """A stateless wrapped Fft (planar, on the kernel's route) in batched
+    mode runs each batch of 4 frames of 8192 through one vmapped ``apply``
+    that enters the FFT operator once; its stream equals the per-call
+    path's bit for bit and the JAX adapter's batched stream within 1e-4 ×
+    max."""
+    from clenabled_tpu_torch.dsp import hopper_kernels as hk
+
+    entries = []
+    plain = hk.fft_batched_fused_plain
+
+    def counted(xr, *a, **kw):
+        entries.append(xr.numel())
+        return plain(xr, *a, **kw)
+
+    monkeypatch.setattr(hk, "fft_batched_fused_plain", counted)
+    x = _crand(np.random.default_rng(9), 3 * 4 * 8192)
+    torch_side, jax_side = Side("torch"), Side("jax")
+    rec = _wrapped_fft(torch_side.wrap, 4, x, 4 * 8192, planar=True,
+                       use_pallas=True)
+    assert entries == [4 * 8192] * 3 and rec.g.apply_calls == 3
+    entries.clear()
+    one = _wrapped_fft(torch_side.wrap, 1, x, 4 * 8192, planar=True,
+                       use_pallas=True)
+    assert len(entries) == one.g.apply_calls == 3
+    got = rec.summary()["outs"][0]
+    assert len(got) == len(x)
+    np.testing.assert_array_equal(got, one.summary()["outs"][0])
+    want = _wrapped_fft(jax_side.wrap, 4, x, 4 * 8192,
+                        blocks=jax_side.blocks).summary()["outs"][0]
+    _close(got, want, "the JAX adapter's batched stream")
+
+
+@pytest.mark.cuda
+def test_batched_stateless_fft_one_launch_a_batch_on_card(card, fake_gr):
+    """On the card: a wrapped Fft(2048, Blackman-Harris, shift) at
+    8192-sample offers, batched at the automatic K (64 frames), launches
+    ``fft_batched_fused`` once a batch and equals the per-call path bit
+    for bit."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import hopper_kernels as hk
+    from clenabled_tpu_torch.dsp import window
+    from clenabled_tpu_torch.gr_compat import wrap
+
+    x = _crand(np.random.default_rng(10), 2 * 64 * 8192)
+    outs, launches = {}, {}
+    for batch in ("auto", 1):
+        g = wrap(blocks.Fft(2048, window=window.blackman_harris(2048),
+                            shift=True, planar=True),
+                 batch_frames=batch, device="cuda")
+        hk.reset_launch_counts()
+        rec = Rec(g)
+        _drive(rec, x, 8192, 1 << 16)
+        torch.cuda.synchronize()
+        launches[batch] = (hk.fft_batched_fused.launches, g.apply_calls)
+        outs[batch] = rec.summary()["outs"][0]
+    assert launches == {"auto": (2, 2), 1: (128, 128)}
+    np.testing.assert_array_equal(outs["auto"], outs[1])

@@ -4,7 +4,12 @@ X-Engine path through it.
 Graph structure — toposort, frame-size resolution, per-port frames — is
 held to the JAX package's Flowgraph on the same blocks.  The Runner's
 K-frame dispatch is held to K single steps (equal: the same calls in the
-same order), and the X-Engine flowgraph to the JAX flowgraph on the same
+same order).  The vectorised dispatch of all-stateless graphs (one
+``torch.func.vmap`` of the step) is held, block class by block class, to
+JAX's vmapped Runner at rtol = atol = 1e-4 and to the port's own
+``vectorize=False`` loop (bit for bit for elementwise blocks, 1e-5 × max
+for the DFTs, whose matmuls may block by the batch shape).  The X-Engine
+flowgraph is held to the JAX flowgraph on the same
 numpy feeds: IChar (int8) matrices equal bit for bit, float32 feeds within
 1e-5 × max|ref| (float32 sums in another order than XLA's).
 """
@@ -216,6 +221,263 @@ def test_k_frame_stateless_matches_single_steps_and_jax(ref):
     for name in ("c0", "c1"):
         assert got[name].shape == (4, 32)
         close(got[name], jgot[name])
+
+
+# --------------------------------------------------------------------------
+# the vectorised K-frame dispatch (all-stateless graphs, torch.func.vmap)
+# --------------------------------------------------------------------------
+
+KV, NV, FS = 4, 2048, 1024      # frames a dispatch, samples a frame, FFT size
+WIN = np.hanning(FS).astype(np.float32)
+JAX_TOL = 1e-4                  # rtol = atol, as JAX's own vmap test
+LOOP_REL = 1e-5                 # × max|loop|: matmul-based blocks on the CPU
+
+
+def _one(make, kinds, exact=True):
+    """A case of one block fed on every input and tapped on every output;
+    ``exact``: the vectorised dispatch equals the loop bit for bit (the
+    elementwise blocks), else within LOOP_REL (the DFTs are matmuls whose
+    blocking may follow the batch shape)."""
+    def wire(mb, fb, g):
+        b = make(mb, fb)
+        for p in range(b.n_inputs):
+            g.external_input(b, p)
+        for p in range(b.n_outputs):
+            g.tap(b, p, name=f"y{p}")
+    return wire, kinds, exact
+
+
+def _magphase(mb, fb, g):
+    to, back = mb.ComplexToMagPhase(), mb.MagPhaseToComplex()
+    g.external_input(to)
+    for p in range(2):
+        g.connect(to, back, p, p)
+        g.tap(to, p, name=f"mp{p}")
+    g.tap(back, name="y0")
+
+
+STATELESS = {
+    "Fft": _one(lambda mb, fb: mb.Fft(FS, window=WIN, shift=True), "p",
+                exact=False),
+    "Fft-kernel-route": _one(lambda mb, fb: mb.Fft(
+        FS, window=WIN, shift=True, use_pallas=True), "p", exact=False),
+    "Fft-reverse-complex": _one(lambda mb, fb: mb.Fft(
+        FS, direction=-1, window=WIN, shift=True), "c", exact=False),
+    "MultiplyConst": _one(lambda mb, fb: mb.MultiplyConst(2.5), "c"),
+    "AddConst": _one(lambda mb, fb: mb.AddConst(1.5), "c"),
+    **{f"MathOp-{op}": _one(lambda mb, fb, op=op: mb.MathOp(op), kinds)
+       for op, kinds in ((1, "cc"), (2, "cc"), (3, "cc"), (4, "c"),
+                         (5, "cc"), (6, "f"), (7, "f"))},
+    "ComplexToMag": _one(lambda mb, fb: mb.ComplexToMag(), "c"),
+    "ComplexToArg": _one(lambda mb, fb: mb.ComplexToArg(), "c"),
+    "ComplexToMagPhase-MagPhaseToComplex": (_magphase, "c", True),
+    "Log": _one(lambda mb, fb: mb.Log(20.0, 3.0), "f"),
+    "SNRHelper": _one(lambda mb, fb: mb.SNRHelper(10.0, 1.0), "ff"),
+    "XCorrelateFFTVCF": _one(lambda mb, fb: mb.XCorrelateFFTVCF(FS, 3),
+                             "ppp", exact=False),
+    "XCorrelateFFTVCF-time-series": _one(lambda mb, fb: mb.XCorrelateFFTVCF(
+        FS, 2, input_type=2), "cc", exact=False),
+    "FunctionBlock": _one(lambda mb, fb: fb(
+        lambda x, y: (x * y + 1.0, x - y), n_inputs=2, n_outputs=2), "ff"),
+    "Kernel1To1": _one(lambda mb, fb: mb.Kernel1To1(lambda x: x.conj() * 3),
+                       "c"),
+    "Kernel2To1": _one(lambda mb, fb: mb.Kernel2To1(
+        lambda a, b: a * b.conj() + a), "cc"),
+}
+
+
+def _stateless_feeds(kinds, seed, pc=planar.PC, k=KV):
+    """Stacked [k, NV] feeds: c complex64, f float32 in [0.5, 3.5), p a
+    planar pair."""
+    rng = np.random.default_rng(seed)
+
+    def one(kind):
+        if kind == "f":
+            return rng.uniform(0.5, 3.5, (k, NV)).astype(np.float32)
+        re, im = (rng.standard_normal((k, NV)).astype(np.float32)
+                  for _ in range(2))
+        return pc(re, im) if kind == "p" else (re + 1j * im).astype(
+            np.complex64)
+    return [one(kind) for kind in kinds]
+
+
+def _stateless_runner(case, side="torch", **compile_kw):
+    wire = STATELESS[case][0]
+    if side == "jax":
+        g = j_graph.Flowgraph()
+        wire(j_blocks, j_block.FunctionBlock, g)
+        return g.compile(NV, steps_per_dispatch=KV, **compile_kw)
+    g = Flowgraph()
+    wire(blocks, FunctionBlock, g)
+    return g.compile(NV, steps_per_dispatch=KV, device="cpu", **compile_kw)
+
+
+def _flat(x):
+    if isinstance(x, (planar.PC,)) or (jnp is not None
+                                        and isinstance(x, j_planar.PC)):
+        return np_of(x.re) + 1j * np_of(x.im)
+    return np_of(x)
+
+
+@pytest.mark.parametrize("case", sorted(STATELESS))
+def test_k_frame_vectorised_block_matches_loop_and_jax(ref, case):
+    """Each stateless block class through the vectorised K-frame dispatch:
+    held to JAX's vmapped Runner on the same stacked feeds (rtol = atol =
+    1e-4) and to the port's own ``vectorize=False`` loop (bit for bit for
+    the elementwise blocks, LOOP_REL × max for the DFTs)."""
+    _, kinds, exact = STATELESS[case]
+    seed = sorted(STATELESS).index(case)
+    r = _stateless_runner(case)
+    assert r.vectorize and r._vectorized()
+    got = r.step(*_stateless_feeds(kinds, seed))
+    loop_r = _stateless_runner(case, vectorize=False)
+    assert not loop_r._vectorized()
+    loop = loop_r.step(*_stateless_feeds(kinds, seed))
+    want = _stateless_runner(case, "jax").step(
+        *_stateless_feeds(kinds, seed, j_planar.PC))
+    assert sorted(got) == sorted(loop) == sorted(want)
+    for name in got:
+        g, lp, w = _flat(got[name]), _flat(loop[name]), _flat(want[name])
+        assert g.shape == w.shape and g.shape[0] == KV
+        if exact:
+            equal(g, lp)
+        else:
+            close(g, lp, LOOP_REL)
+        np.testing.assert_allclose(g, w, rtol=JAX_TOL, atol=JAX_TOL)
+
+
+def _counted_fft(monkeypatch):
+    """Count entries of the FFT operator (its plain form on the CPU) and
+    the Runner's host-to-device moves."""
+    counts = {"fft": 0, "to_device": 0}
+    plain, move = hk.fft_batched_fused_plain, t_graph.Runner._to_device
+
+    def fft(*a, **kw):
+        counts["fft"] += 1
+        return plain(*a, **kw)
+
+    def to_device(self, tree):
+        counts["to_device"] += 1
+        return move(self, tree)
+
+    monkeypatch.setattr(hk, "fft_batched_fused_plain", fft)
+    monkeypatch.setattr(t_graph.Runner, "_to_device", to_device)
+    return counts
+
+
+def _spectrum_graph(stateful=False):
+    """Fft (kernel route) → MultiplyConst → ComplexToMag, with a FIR after
+    the Fft when ``stateful``."""
+    fft = blocks.Fft(FS, window=WIN, shift=True, use_pallas=True)
+    mc, mag = blocks.MultiplyConst(2.0), blocks.ComplexToMag()
+    g = Flowgraph()
+    g.external_input(fft)
+    if stateful:
+        fir = blocks.FIRTapFilter(1, np.array([0.5, 0.25, 0.125], np.float32),
+                                  use_time=True, planar=True)
+        g.connect(fft, fir)
+        g.connect(fir, mc)
+    else:
+        g.connect(fft, mc)
+    g.connect(mc, mag)
+    g.tap(mag, name="mag")
+    return g
+
+
+@pytest.mark.parametrize("vectorize", [True, False])
+def test_fft_op_entered_once_per_vectorised_dispatch(monkeypatch, vectorize):
+    """The vectorised dispatch enters the FFT operator once (its batch rule
+    folds the K frames into one call) and moves each feed once; the loop
+    enters it and moves a feed once a frame.  run() stacks its per-frame
+    host feeds first."""
+    counts = _counted_fft(monkeypatch)
+    r = _spectrum_graph().compile(NV, steps_per_dispatch=KV,
+                                  vectorize=vectorize, device="cpu")
+    feeds = _stateless_feeds("p", 3)
+    counts.update(fft=0, to_device=0)
+    got = r.step(*feeds)["mag"]
+    per = 1 if vectorize else KV
+    assert counts == {"fft": per, "to_device": per}
+    counts.update(fft=0, to_device=0)
+    frames = [(planar.PC(feeds[0].re[j], feeds[0].im[j]),)
+              for j in range(KV)]
+    ran = r.run(iter(frames + frames))
+    assert counts == {"fft": 2 * per, "to_device": 2 * per}
+    assert len(ran) == 2 and all(o["mag"].shape == (KV, NV) for o in ran)
+    equal(ran[0]["mag"], got)
+    equal(ran[1]["mag"], got)
+
+
+def test_stateful_graph_ignores_vectorize(monkeypatch):
+    """A graph with a stateful block loops over its K frames with either
+    setting, bit for bit, state included."""
+    counts = _counted_fft(monkeypatch)
+    feeds = _stateless_feeds("p", 4)
+    outs, states = [], []
+    for vectorize in (True, False):
+        r = _spectrum_graph(stateful=True).compile(
+            NV, steps_per_dispatch=KV, vectorize=vectorize, device="cpu")
+        assert r.vectorize == vectorize and not r._vectorized()
+        counts.update(fft=0)
+        outs.append(r.step(*feeds)["mag"])
+        assert counts["fft"] == KV
+        states.append(r.states)
+    equal(outs[0], outs[1])
+    for a, b in zip(states[0], states[1]):
+        t_graph._tree.tree_map(equal, a, b)
+
+
+def test_non_vmappable_stateless_block_raises():
+    """A stateless block that cannot be vmapped (a data-dependent
+    ``.item()``) raises from step(); vectorize=False runs it frame by
+    frame."""
+    def build():
+        b = FunctionBlock(lambda x: x / x.abs().max().item())
+        g = Flowgraph()
+        g.external_input(b)
+        g.tap(b, name="y")
+        return g
+    x = _stateless_feeds("f", 5)[0]
+    with pytest.raises(RuntimeError, match="vectorize=False"):
+        build().compile(NV, steps_per_dispatch=KV, device="cpu").step(x)
+    y = build().compile(NV, steps_per_dispatch=KV, vectorize=False,
+                        device="cpu").step(x)["y"]
+    equal(y, x / np.abs(x).max(axis=1, keepdims=True))
+
+
+@pytest.mark.cuda
+def test_vectorised_spectrum_graph_on_card():
+    """On the card: the spectrum chain at 8192-sample frames, auto K, one
+    ``fft_batched_fused`` launch a vectorised dispatch and K with
+    ``vectorize=False``, the outputs bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from clenabled_tpu_torch.dsp import window
+
+    def runner(vectorize, k):
+        fft = blocks.Fft(2048, window=window.blackman_harris(2048),
+                         shift=True)
+        mc, mag = blocks.MultiplyConst(2.0), blocks.ComplexToMag()
+        g = Flowgraph()
+        g.external_input(fft)
+        g.connect(fft, mc)
+        g.connect(mc, mag)
+        g.tap(mag, name="mag")
+        return g.compile(8192, k, vectorize=vectorize, device="cuda")
+
+    assert runner(True, "auto").steps_per_dispatch == 512
+    outs = {}
+    for vectorize in (True, False):
+        r = runner(vectorize, 512)
+        k = r.steps_per_dispatch
+        rng = np.random.default_rng(6)
+        x = planar.PC(*(rng.standard_normal((k, 8192)).astype(np.float32)
+                        for _ in range(2)))
+        hk.reset_launch_counts()
+        outs[vectorize] = r.step(x)["mag"]
+        torch.cuda.synchronize()
+        assert hk.fft_batched_fused.launches == (1 if vectorize else k)
+    equal(outs[True], outs[False])
 
 
 def _xengine(**kw):

@@ -234,6 +234,29 @@ def test_time_major_engines_match_jax(ref):
         close(got.im, want.im)
 
 
+@pytest.mark.parametrize("fmt", [TRI, FULL], ids=["triangular", "full"])
+def test_planar_compute_dtype_matches_jax(ref, fmt):
+    """bf16 operands of 8-bit samples: every product and sum is an integer
+    below 2^24, so the port's and JAX's bf16 paths equal each other and
+    their float32 paths bit for bit."""
+    t, s, f, p = 64, 6, 8, 2
+    zr, zi = (_ints(seed, (t, s, f, p), 128).clip(-128, 127)
+              .astype(np.float32) for seed in (21, 22))
+    want = j_xe.xengine_correlate_planar(j_planar.PC(zr, zi), npol=p,
+                                         output_format=fmt,
+                                         compute_dtype=jnp.bfloat16)
+    want32 = j_xe.xengine_correlate_planar(j_planar.PC(zr, zi), npol=p,
+                                           output_format=fmt)
+    z = planar.PC(_t(zr, "float32"), _t(zi, "float32"))
+    got = xe.xengine_correlate_planar(z, npol=p, output_format=fmt,
+                                      compute_dtype=torch.bfloat16)
+    got32 = xe.xengine_correlate_planar(z, npol=p, output_format=fmt)
+    assert got.re.dtype == got.im.dtype == torch.float32
+    for a, b in ((got, want), (got, got32), (want, want32)):
+        equal(a.re, b.re)
+        equal(a.im, b.im)
+
+
 # --------------------------------------------------------------------------
 # kernel B.4: plain forms against the Pallas kernel, block by block
 # --------------------------------------------------------------------------
