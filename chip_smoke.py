@@ -151,12 +151,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``nvidia-smi`` reading at 90% utilization or more, taken while the
    kernel runs for 3 s), and the latency bound (``latency_bound_ms``: the
    samples × the loop-carried chain's dependent operations × 4 cycles at
-   that clock).  Then the batched entry (``costas_batched``, the same
-   chain body one block a row) against its plain form on [8, 4096], order
-   2 on BPSK and order 4 on QPSK from per-row states (phases outside ±2π
-   among them), every row against ``costas_scalar`` on that row alone,
-   and windows of 1536 at a stride of 1024 read in place ([4, 1536] and
-   [2, 4, 1536]) against the same rows copied, all bit for bit; counts
+   that clock).  Then the batched entry (``costas_batched``) under each
+   of its two bodies, forced (``block``: the chain body one block a row;
+   ``lane``: one row a lane, 32 loops a warp), against its plain form on
+   [8, 4096], order 2 on BPSK and order 4 on QPSK from per-row states
+   (phases outside ±2π among them), every row against ``costas_scalar``
+   on that row alone and each body against the other, on [1, 4096] and
+   [33, 4096] (a partial warp) against ``costas_scalar`` row by row and
+   the other body, and windows of 1536 at a stride of 1024 read in place
+   ([4, 1536] and [2, 4, 1536]) against the same rows copied, all bit
+   for bit; counts
    reset, ``CostasLoop(0.00628, 2, planar=True, chunked=True, chunk=4096,
    warmup=512)`` over 8 chained frames of 2^20 of seeded BPSK, three
    ``costas_batched`` launches a frame and no other kernel, each frame's
@@ -176,11 +180,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``CostasLoop(0.00628, 2, planar=True, num_streams=16)`` over 16 seeded
    BPSK streams (offsets over ±0.005) × 8 frames of 2^16, one launch a
    frame, each stream bit-equal to ``costas_scalar`` over its joined
-   stream; then the multi-stream runner at [8, 4096] and [1024, 4096],
-   held to the plain form bit for bit and timed beside it and its bound
-   (the larger of the bytes and operations at the peak rates and one
-   chain's latency at the measured clock; no latency term where the clock
-   was not read).
+   stream; one 2^23 frame through the chunked loop (2048 windows a
+   launch), three ``costas_batched`` launches and no other kernel, bit
+   for bit the same run with ``costas_batched_plain`` in the kernel's
+   place, its device busy a frame under each body (the rule's as the
+   path calls it, the other forced through the rule, the wrapper and its
+   launch count unchanged); then the multi-stream runner at [8, 4096],
+   [1024, 4096] and [8192, 4096], held to the plain form bit for bit
+   under each body and timed under each the same way, beside the plain
+   form and the bound (the larger of the bytes and operations at the
+   peak rates and one chain's latency at the measured clock; no latency
+   term where the clock was not read), with the body the rule takes at
+   each shape.
 
 13. sharded main path — a ``torch.distributed`` NCCL group of one rank
    from a ``file://`` store in a temporary directory, and
@@ -346,6 +357,7 @@ package beside this script, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -386,12 +398,15 @@ CO_BW, CO_N, CO_FRAMES, CO_CHECK_N, CO_OFFSET = 0.00628, 1 << 16, 8, 1 << 12, 0.
 # 2 (e+1, |a|-|b|; its 0.5 can go into the gains), frequency 2 (mul, add),
 # phase 2 (add, add)
 CO_CHAIN = {2: 19, 4: 21}
-# the batched Costas entry: [8, 4096] checks and times, and the multi-stream
-# runner at BENCH_TPU's 1024 loops of 4096; the chunked path at BENCH_TPU's
-# chunk and warm-up over 8 frames of 2^20; 16 streams over 8 frames of 2^16
-# with offsets spread over +-CO_OFFSET
-CB_B, CB_N, CB_MANY = 8, 1 << 12, 1024
-CH_CHUNK, CH_WARMUP, CH_N, CH_FRAMES = 4096, 512, 1 << 20, 8
+# the batched Costas entry: [8, 4096] checks and times, [1, 4096] and
+# [33, 4096] checks (one warp partial), and the multi-stream runner at
+# BENCH_TPU's 1024 loops of 4096 and at 8192 carrier-recovery channels; the
+# chunked path at BENCH_TPU's chunk and warm-up over 8 frames of 2^20 and
+# on one 2^23 frame (the main path's frame an antenna: 2048 windows a
+# launch); 16 streams over 8 frames of 2^16 with offsets spread over
+# +-CO_OFFSET
+CB_B, CB_N, CB_MANY, CB_HUGE, CB_PARTIAL = 8, 1 << 12, 1024, 8192, (1, 33)
+CH_CHUNK, CH_WARMUP, CH_N, CH_FRAMES, CH_BIG_N = 4096, 512, 1 << 20, 8, 1 << 23
 # the residual under which the JAX test holds a chunked frame to 2e-2 of
 # the sequential loop (tests/test_siggen_demod.py:147-159)
 CH_RESID = 1e-3
@@ -412,8 +427,9 @@ DEVICE = ("cuda", 0)
 # FP32 outside the tensor cores, int8 and bf16 on the tensor cores
 HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # the __global__ functions of csrc/*.cu, one launched per counted wrapper call
-# (costas_kernel<order, halved gains> matches "costas_kernel"; the sin/cos
-# probe is counted by no wrapper and runs in no timed window)
+# (costas_kernel<order, halved gains> matches "costas_kernel",
+# costas_lanes_kernel<...> "costas_lanes_kernel"; the sin/cos probe is
+# counted by no wrapper and runs in no timed window)
 PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
                 "pfb_packed_reg_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
@@ -421,7 +437,7 @@ PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
                 "fir_direct_kernel", "fir_reg_kernel", "ofs_filter_kernel",
                 "qdemod_kernel",
                 "pfb_os_kernel", "pfb_os_reg_kernel", "fft_batched_kernel",
-                "costas_kernel",
+                "costas_kernel", "costas_lanes_kernel",
                 "costas_sincos_probe_kernel")
 
 
@@ -567,7 +583,7 @@ def ptxas_summary(log: str, names) -> dict:
     """Registers, stack frame and spill bytes of each instantiation of the
     named kernels in an ``nvcc -Xptxas -v`` log, keyed ``name<true>`` /
     ``name<false>`` for a kernel templated on one bool, ``name<16, 2>`` for
-    one templated on ints."""
+    one templated on ints, ``name<2, true>`` for ints then bools."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -576,11 +592,14 @@ def ptxas_summary(log: str, names) -> dict:
             for name in names:
                 if name in m.group(1):
                     arg = re.search(name + r"ILb([01])E", m.group(1))
-                    ints = re.search(name + r"I((?:Li\d+E)+)E", m.group(1))
+                    ints = re.search(name + r"I((?:L[ib]\d+E)+)E",
+                                     m.group(1))
                     if arg:
                         cur = f"{name}<{('false', 'true')[int(arg.group(1))]}>"
                     elif ints:
-                        vals = re.findall(r"Li(\d+)E", ints.group(1))
+                        vals = [v if t == "i" else ("false", "true")[int(v)]
+                                for t, v in re.findall(r"L([ib])(\d+)E",
+                                                       ints.group(1))]
                         cur = f"{name}<{', '.join(vals)}>"
                     else:
                         cur = name
@@ -1930,6 +1949,22 @@ def costas_batched_bound(b: int, n: int, mhz) -> dict:
             "sm_clock_mhz": mhz}
 
 
+@contextlib.contextmanager
+def costas_body_forced(hk, body: str | None):
+    """``hk.costas_batched`` launching ``body`` whatever the rule picks, so
+    that a path that calls it (the chunked and multi-stream loops) can be
+    timed under either body; None leaves the rule.  Only the rule
+    (``hk.costas_body``) is replaced: the wrapper and its launch count
+    stay."""
+    rule = hk.costas_body
+    if body is not None:
+        hk.costas_body = lambda rows, device: body
+    try:
+        yield
+    finally:
+        hk.costas_body = rule
+
+
 def host_calls(torch, fn) -> int:
     """The top-level torch operator calls of one ``fn()`` on the host
     (``torch.profiler``'s ``aten::`` events with no ``aten::`` parent)."""
@@ -1959,6 +1994,12 @@ def costas_batched_phase(torch, hk, dev) -> dict:
     res = {"err": 0.0}
     alpha, beta = demod.costas_gains(CO_BW)
     rng = np.random.default_rng(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule_rows = sms * hk.COSTAS_FULL_RATE_BLOCKS
+    res["rule"] = {"sms": sms, "block_rows": rule_rows}
+    phase("costas", f"costas_batched: the rule takes the block body up to "
+                    f"{hk.COSTAS_FULL_RATE_BLOCKS} blocks an SM x {sms} SMs "
+                    f"= {rule_rows} rows, the lane body above")
 
     def equal(got, want) -> bool:
         return all(torch.equal(g, w) for g, w in zip(got, want))
@@ -1968,40 +2009,70 @@ def costas_batched_phase(torch, hk, dev) -> dict:
                        device=dev)[:CB_B],
           torch.linspace(-0.004, 0.004, CB_B, device=dev),
           torch.zeros(CB_B, device=dev))
+    def against_rows(label, x, states, order, got):
+        # every row of a batched result against costas_scalar on it alone
+        for b in range(x.shape[1]):
+            one = hk.costas_scalar(x[0, b], x[1, b], *(v[b] for v in states),
+                                   order, alpha, beta)
+            if not equal(one, [v[b] for v in got]):
+                fail(f"{label}: row {b} differs from costas_scalar on it")
+
+    bodies = hk.COSTAS_BODIES
     for order in (2, 4):
         x = torch.as_tensor(np.stack([costas_stream(np, rng, CB_N, order)
                                       for _ in range(CB_B)], 1), device=dev)
         args = (x[0], x[1], *st, order, alpha, beta)
-        got = hk.costas_batched(*args)
+        got = {body: hk.costas_batched(*args, body=body) for body in bodies}
         torch.cuda.synchronize()
-        label = f"costas_batched order {order} [{CB_B}, {CB_N}]"
-        res["err"] = max(res["err"], costas_check(
-            torch, f"{label} against its plain form", got,
-            hk.costas_batched_plain(*args)))
-        for b in range(CB_B):
-            one = hk.costas_scalar(x[0, b], x[1, b], st[0][b], st[1][b],
-                                   st[2][b], order, alpha, beta)
-            if not equal(one, [v[b] for v in got]):
-                fail(f"{label}: row {b} differs from costas_scalar on it")
-        phase("check", f"{label}: every row equals costas_scalar on that "
-                       f"row alone, bit for bit")
+        want = hk.costas_batched_plain(*args)
+        for body in bodies:
+            label = (f"costas_batched ({body} body) order {order} "
+                     f"[{CB_B}, {CB_N}]")
+            res["err"] = max(res["err"], costas_check(
+                torch, f"{label} against its plain form", got[body], want))
+            against_rows(label, x, st, order, got[body])
+        phase("check", f"costas_batched order {order} [{CB_B}, {CB_N}]: "
+                       f"every row of both bodies equals costas_scalar on "
+                       f"that row alone, bit for bit")
+        # one row, and 33: the lane body's second warp holds one live lane
+        for b in CB_PARTIAL:
+            xb = torch.as_tensor(np.stack([costas_stream(np, rng, CB_N, order)
+                                           for _ in range(b)], 1), device=dev)
+            sb = (torch.linspace(-12.0, 12.0, b, device=dev),
+                  torch.linspace(-0.008, 0.008, b, device=dev),
+                  torch.linspace(-1.0, 1.0, b, device=dev))
+            gb = {body: hk.costas_batched(xb[0], xb[1], *sb, order, alpha,
+                                          beta, body=body) for body in bodies}
+            torch.cuda.synchronize()
+            if not equal(gb["block"], gb["lane"]):
+                fail(f"costas_batched order {order} [{b}, {CB_N}]: the lane "
+                     f"body differs from the block body")
+            against_rows(f"costas_batched order {order} [{b}, {CB_N}]", xb,
+                         sb, order, gb["lane"])
+            phase("check", f"costas_batched order {order} [{b}, {CB_N}]: "
+                           f"both bodies equal, and every row equals "
+                           f"costas_scalar on it, bit for bit")
         # windows of w + c at a stride of c, read in place, against copies
         ext = torch.cat([torch.zeros(2, 2, CH_WARMUP, device=dev),
                          x[:, :2]], -1)
         c, w, nch = 1024, CH_WARMUP, CB_N // 1024
         win = [e.as_strided((2, nch, w + c), (w + CB_N, c, 1)) for e in ext]
-        got = hk.costas_batched(*win, 0.0, 0.0, 0.0, order, alpha, beta)
         flat = [v[0] for v in win]
-        got2 = hk.costas_batched(*flat, 0.0, 0.0, 0.0, order, alpha, beta)
         want = hk.costas_batched(*(v.contiguous() for v in win), 0.0, 0.0,
-                                 0.0, order, alpha, beta)
-        torch.cuda.synchronize()
-        if not (equal(got, want) and equal(got2, [v[0] for v in want])):
-            fail(f"costas_batched order {order}: strided windows differ from "
-                 f"the same rows copied")
+                                 0.0, order, alpha, beta, body="block")
+        for body in bodies:
+            got = hk.costas_batched(*win, 0.0, 0.0, 0.0, order, alpha, beta,
+                                    body=body)
+            got2 = hk.costas_batched(*flat, 0.0, 0.0, 0.0, order, alpha,
+                                     beta, body=body)
+            torch.cuda.synchronize()
+            if not (equal(got, want) and equal(got2, [v[0] for v in want])):
+                fail(f"costas_batched ({body} body) order {order}: strided "
+                     f"windows differ from the same rows copied")
         phase("check", f"costas_batched order {order}: [2, {nch}, {w + c}] "
                        f"and [{nch}, {w + c}] windows at a stride of {c}, "
-                       f"read in place, equal the rows copied bit for bit")
+                       f"read in place by either body, equal the rows "
+                       f"copied bit for bit")
 
     # the chunked path: Flowgraph -> CostasLoop(planar, chunked), counted
     stream = torch.as_tensor(costas_stream(np, rng, CH_N * CH_FRAMES, 2),
@@ -2150,6 +2221,54 @@ def costas_batched_phase(torch, hk, dev) -> dict:
                            "busy": busy and CH_N / busy / 1e3}
     del stream, feeds, outs, joined
 
+    # one 2^23 frame through the chunked loop: 2048 windows a launch, past
+    # the block body's rows, counted and held to the same run on the plain
+    # form; then its device busy under the rule's body and under each
+    big = torch.as_tensor(costas_stream(np, rng, CH_BIG_N, 2), device=dev)
+    feed = planar.PC(big[0], big[1])
+    run = demod.make_costas_loop_chunked(CO_BW, 2, chunk=CH_CHUNK,
+                                         warmup=CH_WARMUP)
+    st_big = run.init_state(dev)
+
+    def big_frame():
+        state, o, d = run(st_big, feed)
+        return [o.re, o.im, *state[0], state[1].re, state[1].im,
+                *(d[k] for k in sorted(d))]
+
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    got = big_frame()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in hk.launch_counts().items() if v}
+    rows = CH_BIG_N // CH_CHUNK
+    chosen = hk.costas_body(rows, dev)
+    phase("costas", f"chunked loop, one frame of {CH_BIG_N} ({rows} windows "
+                    f"a launch, the {chosen} body): launches {counts}")
+    if counts != {"costas_batched": 3}:
+        fail(f"the chunked 2^23 frame: expected 3 costas_batched launches "
+             f"and no other, got {counts}")
+    kernel = hk.costas_batched
+    hk.costas_batched = hk.costas_batched_plain
+    try:
+        want = big_frame()
+    finally:
+        hk.costas_batched = kernel
+    res["err"] = max(res["err"], costas_check(
+        torch, f"chunked frame of {CH_BIG_N} ([1, {rows}] windows a segment) "
+               f"against the same run on costas_batched_plain", got, want))
+    del got, want
+    big_busy = {}
+    for body in hk.COSTAS_BODIES:   # the rule's body unforced
+        with costas_body_forced(hk, None if body == chosen else body):
+            big_busy[body] = device_busy_ms(torch, big_frame, 3)
+    res["chunked_big"] = {"n": CH_BIG_N, "rows": rows, "body": chosen,
+                          "launches": counts.get("costas_batched", 0),
+                          "busy_ms": big_busy}
+    phase("time", f"chunked frame of {CH_BIG_N}: device busy " + ", ".join(
+        f"{k} body " + ("not measured" if v is None else f"{v:.4f} ms")
+        for k, v in big_busy.items()) + f" (the rule: {chosen})")
+    del big, feed, st_big
+
     # the multi-stream path: Flowgraph -> CostasLoop(planar, num_streams)
     offs = np.linspace(-CO_OFFSET, CO_OFFSET, MS_S)
     streams = torch.as_tensor(np.stack([
@@ -2193,19 +2312,18 @@ def costas_batched_phase(torch, hk, dev) -> dict:
                                      MS_S * MS_N)
     del streams, frames_, outs
 
-    # the batched entry through the multi-stream runner at [8, 4096] and
-    # [1024, 4096], timed, and held to its plain form bit for bit (the
-    # plain call timed once); beside it its bound
+    # the batched entry through the multi-stream runner at [8, 4096],
+    # [1024, 4096] and [8192, 4096] under each body, held to its plain form
+    # bit for bit (the plain call timed once) and timed; beside it its bound
     run = demod._make_costas_loop_streams(CO_BW, 2, True)
     res["shapes"] = {}
-    for b in (CB_B, CB_MANY):
+    for b in (CB_B, CB_MANY, CB_HUGE):
         x = torch.as_tensor(np.stack([costas_stream(np, rng, CB_N, 2)
                                       for _ in range(b)], 1), device=dev)
         z = torch.zeros(b, device=dev)
         st0 = demod.CostasState(z, z, z)
         fr = planar.PC(x[0], x[1])
         call = lambda: run(st0, fr)
-        st1, out = call()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -2214,28 +2332,43 @@ def costas_batched_phase(torch, hk, dev) -> dict:
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
-        err = costas_check(torch, f"costas_batched [{b}, {CB_N}] (the "
-                                  f"multi-stream runner) against its plain "
-                                  f"form", (out.re, out.im, *st1), want)
-        res["err"] = max(res["err"], err)
-        events_ms = time_ms(torch, call, reps=10)
-        busy = device_busy_ms(torch, call, 5)
-        ms = busy or events_ms
+        chosen = hk.costas_body(b, dev)
+        times = {}
+        for body in hk.COSTAS_BODIES:   # the rule's body unforced
+            with costas_body_forced(hk, None if body == chosen else body):
+                st1, out = call()
+                err = costas_check(torch, f"costas_batched ({body} body) "
+                                          f"[{b}, {CB_N}] (the multi-stream "
+                                          f"runner) against its plain form",
+                                   (out.re, out.im, *st1), want)
+                res["err"] = max(res["err"], err)
+                del st1, out
+                events_ms = time_ms(torch, call, reps=10)
+                busy = device_busy_ms(torch, call, 5)
+            times[body] = {"ms": busy or events_ms, "events_ms": events_ms,
+                           "device_ms": busy}
         mhz, nbusy = sm_clock_mhz(torch, call)
         bnd = costas_batched_bound(b, CB_N, mhz)
+        ms = times[chosen]["ms"]
         res["shapes"][f"[{b}, {CB_N}]"] = dict(
-            ms=ms, events_ms=events_ms, device_ms=busy, plain_ms=plain_ms,
-            err=err, clock_readings_busy=nbusy, **bnd)
+            ms=ms, events_ms=times[chosen]["events_ms"],
+            device_ms=times[chosen]["device_ms"], plain_ms=plain_ms, err=0.0,
+            body=chosen, bodies=times, clock_readings_busy=nbusy, **bnd)
         shown = ("SM clock not read: no latency bound" if mhz is None else
                  f"latency {bnd['latency_ms']:.4f} ms at {mhz:.0f} MHz from "
                  f"{nbusy} busy readings")
-        phase("time", f"costas_batched [{b}, {CB_N}]: device "
-                      f"{'not measured' if busy is None else f'{busy:.4f} ms'},"
-                      f" events {events_ms:.4f} ms, {b * CB_N / ms / 1e3:.1f} "
-                      f"MSPS aggregate; plain {plain_ms:.1f} ms; bound "
-                      f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-                      f"({shown})")
-        del x, out, want
+        for body, t in times.items():
+            busy = ("not measured" if t["device_ms"] is None
+                    else f"{t['device_ms']:.4f} ms")
+            phase("time", f"costas_batched [{b}, {CB_N}] {body} body"
+                          f"{' (the rule)' if body == chosen else ''}: device "
+                          f"{busy}, events {t['events_ms']:.4f} ms, "
+                          f"{b * CB_N / t['ms'] / 1e3:.1f} MSPS aggregate, "
+                          f"{t['ms'] / bnd['bound_ms']:.2f}x the bound")
+        phase("time", f"costas_batched [{b}, {CB_N}]: plain {plain_ms:.1f} "
+                      f"ms; bound {bnd['bound_ms']:.4f} ms by "
+                      f"{bnd['bound_by']} ({shown})")
+        del x, want, fr, st0
     return res
 
 
@@ -4159,6 +4292,17 @@ def main() -> None:
     if "registers" not in reg or reg.get("spill_stores") or reg.get(
             "spill_loads"):
         fail(f"fir_reg_kernel: ptxas reports {reg or 'nothing'}")
+    costas_ptxas = ptxas_summary(_build.last_build["log"],
+                                 ("costas_kernel", "costas_lanes_kernel"))
+    for name, info in costas_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
+    for o in (2, 4):
+        for h in ("true", "false"):
+            reg = costas_ptxas.get(f"costas_lanes_kernel<{o}, {h}>", {})
+            if "registers" not in reg or reg.get("spill_stores") or reg.get(
+                    "spill_loads"):
+                fail(f"costas_lanes_kernel<{o}, {h}>: ptxas reports "
+                     f"{reg or 'nothing'}")
     pk_ptxas = ptxas_summary(_build.last_build["log"],
                              ("pfb_packed_kernel", "pfb_packed_reg_kernel"))
     for name, info in pk_ptxas.items():
@@ -4634,19 +4778,29 @@ def main() -> None:
                            for h in ("true", "false")]
              + ["costas_sincos_probe_kernel"]),
         *(dict(entry("costas_batched", "costas.cu", 2287,
-                     cob["chunked_launches"] + cob["streams_launches"],
+                     cob["chunked_launches"] + cob["streams_launches"]
+                     + cob["chunked_big"]["launches"],
                      max(r["err"], cob["err"]), r["ms"], r["plain_ms"],
                      (r["bound_ms"], r["bound_by"])),
-               shape=shape, device_ms=r["device_ms"],
+               shape=shape, body=r["body"], body_rule=cob["rule"],
+               bodies={k: t["ms"] for k, t in r["bodies"].items()},
+               bodies_events_ms={k: t["events_ms"]
+                                 for k, t in r["bodies"].items()},
+               device_ms=r["device_ms"],
                events_ms=r["events_ms"], latency_bound_ms=r["latency_ms"],
                sm_clock_mhz=r["sm_clock_mhz"],
                clock_readings_busy=r["clock_readings_busy"],
                launches_by_path={"chunked": cob["chunked_launches"],
+                                 "chunked_2p23": cob["chunked_big"][
+                                     "launches"],
                                  "streams": cob["streams_launches"]},
+               chunked_2p23=cob["chunked_big"],
                jax_counterpart="clenabled_tpu/dsp/demod.py:274-285 and "
                                "clenabled_tpu/blocks/demod.py:95 (jax.vmap "
                                "of the lax.scan; no Pallas kernel)",
-               cuda_kernels=["costas_kernel<2, true>"])
+               cuda_kernels=["costas_kernel<2, true>",
+                             "costas_lanes_kernel<2, true>"],
+               ptxas=costas_ptxas)
           for shape, r in cob["shapes"].items()),
     ], "step_ms": step_ms, "ingest_msps": stats.msps,
         "stage_ms": stage_ms, "h2d_ms": h2d_ms,
@@ -4668,6 +4822,7 @@ def main() -> None:
                       cob["chunked_path"], msps=cob["chunked_msps"],
                       frames=cob["chunked_frames"]),
                   "costas_streams": cob["streams_path"],
+                  "costas_chunked_2p23": cob["chunked_big"],
                   "planar_step": planar,
                   "sharded": sharded, "correlators": correlators,
                   "gr_tools": gr_tools, "examples": examples,

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "clen_costas_batched": ([_P, _P] + [ctypes.c_longlong] * 4
                             + [_P, _P, _P, _P, ctypes.c_longlong, _I,
                                ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                               ctypes.c_float, _P], _I),
+                               ctypes.c_float, _I, _P], _I),
     "clen_costas_sincos_probe": ([ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
                                   _P], _I),
 }

@@ -18,7 +18,9 @@ The port of ``clenabled_tpu.dsp.demod``:
   port's counterpart of JAX's ``vmap`` of the scan), three launches a
   frame, and the certificate, branch correction and carried state are
   tensor code.  ``_make_costas_loop_streams`` runs N independent loops
-  (``CostasLoop(num_streams=N)``) in one batched launch a frame.
+  (``CostasLoop(num_streams=N)``) in one batched launch a frame.  The
+  batched kernel runs a row a block up to two such blocks an SM and a
+  row a lane, 32 loops a warp, past it (``costas_body``).
 """
 
 from __future__ import annotations

@@ -41,8 +41,11 @@ ported so far:
   of the ``Fft`` block, windowed, in natural order.
 - ``costas_scalar`` (``csrc/costas.cu``): the exact sequential Costas loop,
   its (phase, freq, error) state in a 3-float device tensor;
-  ``costas_batched``, the same chain body over B independent rows (one
-  block a row), for the chunked and multi-stream loops.
+  ``costas_batched``, the same recurrence over B independent rows, for
+  the chunked and multi-stream loops.  Two ``__global__`` bodies, chosen
+  in ``costas_body``: ``costas_kernel`` (one block a row) up to two of
+  its blocks an SM, ``costas_lanes_kernel`` (one lane a row, 32 loops a
+  warp) above.
 
 Each wrapper keeps the JAX function's argument order, shapes and outputs.
 Given CPU tensors it runs its plain torch form (``*_plain``: the
@@ -1426,8 +1429,39 @@ def costas_batched_plain(xr, xi, phase, freq, error, order: int,
     return (torch.stack(outs_r, -1), torch.stack(outs_i, -1)) + carry
 
 
+# the two bodies of csrc/costas.cu's batched entry, by their C body code
+COSTAS_BODIES = ("block", "lane")
+# block-body blocks an SM that each keep one chain's latency: a Hopper SM
+# has 4 warp schedulers and a block 2 warps (the chain, its staging warp);
+# a third block shares a scheduler with a chain.  On an H100 the block
+# body is faster at 264 rows (2 an SM) and slower from 330 rows
+# (tools/costas_ab.py --batched)
+COSTAS_FULL_RATE_BLOCKS = 2
+
+
+def _pick_costas_body(rows: int, sm_count: int) -> str:
+    """``block`` while every row has a block slot that keeps one chain's
+    latency (``COSTAS_FULL_RATE_BLOCKS`` an SM), ``lane`` past that, where
+    the block body slows down and then runs in waves and the lane body
+    packs 32 rows into a warp."""
+    return "lane" if rows > COSTAS_FULL_RATE_BLOCKS * sm_count else "block"
+
+
+def costas_body(rows: int, device) -> str:
+    """The body a ``costas_batched`` call of ``rows`` rows launches on the
+    CUDA ``device`` (``_pick_costas_body`` on the card's SM count).  A CPU
+    call runs the plain form, which has no body."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"costas_body names a CUDA kernel body; got {device}")
+    sms = torch.cuda.get_device_properties(
+        device.index or 0).multi_processor_count
+    return _pick_costas_body(rows, sms)
+
+
 def costas_batched(xr, xi, phase, freq, error, order: int, alpha: float,
-                   beta: float, f_min: float = -1.0, f_max: float = 1.0):
+                   beta: float, f_min: float = -1.0, f_max: float = 1.0,
+                   body: str | None = None):
     """B independent exact sequential Costas loops (``csrc/costas.cu``'s
     batched entry on CUDA): row b runs ``costas_scalar`` on its samples
     from its own (phase, freq, error), bit for bit what ``costas_scalar``
@@ -1438,10 +1472,16 @@ def costas_batched(xr, xi, phase, freq, error, order: int, alpha: float,
     that overlap are read where they lie, e.g. from ``as_strided``).
     phase/freq/error: the rows' states, tensors of the leading shape (or
     broadcastable to it).  Returns (o_r, o_i) of xr's shape, contiguous,
-    and (phase', freq', error') of the leading shape.  On the card one
-    block (the single chain's 64 threads and 32 KB of rings) runs a row;
-    f_min and f_max must not be NaN there.  The JAX counterpart is
-    ``jax.vmap`` of the ``lax.scan`` over ``_costas_step_planar``."""
+    and (phase', freq', error') of the leading shape.  On the card
+    ``body`` picks the kernel body: ``"block"`` (one block, the single
+    chain's 64 threads and 32 KB of rings, a row), ``"lane"`` (one lane a
+    row, 32 loops a warp, samples loaded into registers a group ahead) or
+    None, ``costas_body``'s choice by the number of rows; the two agree bit
+    for bit.  f_min and f_max must not be NaN there.  The JAX counterpart
+    is ``jax.vmap`` of the ``lax.scan`` over ``_costas_step_planar``."""
+    if body is not None and body not in COSTAS_BODIES:
+        raise ValueError(f"unknown Costas body {body!r}; use one of "
+                         f"{COSTAS_BODIES} or None")
     if xr.device.type == "cpu":
         return costas_batched_plain(xr, xi, phase, freq, error, order, alpha,
                                     beta, f_min, f_max)
@@ -1470,13 +1510,15 @@ def costas_batched(xr, xi, phase, freq, error, order: int, alpha: float,
     else:
         group_rows, group_stride, row_stride = (xr.shape[1], xr.stride(0),
                                                 xr.stride(1))
+    body = costas_body(rows, dev) if body is None else body
     err = _load().clen_costas_batched(
         xr.data_ptr(), xi.data_ptr(), rows, group_rows, group_stride,
         row_stride, st.data_ptr(), st_out.data_ptr(), o_r.data_ptr(),
         o_i.data_ptr(), n, order, float(alpha), float(beta), float(f_min),
-        float(f_max), _stream(dev))
+        float(f_max), COSTAS_BODIES.index(body), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"costas_batched launch failed: CUDA error {err}")
+        raise RuntimeError(f"costas_batched launch failed ({body} body): "
+                           f"CUDA error {err}")
     costas_batched.launches += 1
     return o_r, o_i, st_out[..., 0], st_out[..., 1], st_out[..., 2]
 

@@ -487,12 +487,17 @@ def test_costas_ab_cli_arguments():
     from clenabled_tpu_torch.tools import costas_ab as cli
 
     args = cli.parse_args([])
-    assert (args.sources, args.n, args.rounds, args.calls) == (
-        [], 1 << 16, 7, 10)
+    assert (args.sources, args.n, args.rounds, args.calls, args.batched) == (
+        [], 1 << 16, 7, 10, None)
     args = cli.parse_args(["a=x.cu", "b=y.cu", "--n", "4096"])
     assert (args.sources, args.n) == (["a=x.cu", "b=y.cu"], 4096)
+    args = cli.parse_args(["--batched", "8192", "--n", "4096", "a=x.cu",
+                           "old=y.cu"])
+    assert (args.batched, args.n, args.sources) == (
+        8192, 4096, ["a=x.cu", "old=y.cu"])
     if not torch.cuda.is_available():
         assert cli.main(["--n", "64"]) == 1
+        assert cli.main(["--batched", "33", "--n", "64"]) == 1
 
 
 @pytest.mark.parametrize("order", [2, 4])

@@ -413,6 +413,40 @@ def test_batched_contract():
         hk.costas_batched(m, m, 0.0, 0.0, 0.0, 2, 0.1, 0.01, float("nan"))
 
 
+@pytest.mark.parametrize("rows, sms, body", [
+    (1, 132, "block"), (256, 132, "block"), (264, 132, "block"),
+    (265, 132, "lane"), (528, 132, "lane"), (1024, 132, "lane"),
+    (2048, 114, "lane"), (8192, 132, "lane"), (132, 66, "block"),
+    (133, 66, "lane"), (3, 1, "lane")])
+def test_costas_body_picker(rows, sms, body):
+    """The batched entry's body: the block body while each row has a
+    block slot at one chain's rate (two blocks an SM), the lane body past
+    it."""
+    assert hk.COSTAS_FULL_RATE_BLOCKS == 2
+    assert hk._pick_costas_body(rows, sms) == body
+
+
+def test_batched_body_argument():
+    """``body`` is None, "block" or "lane"; an unknown name raises on any
+    device.  On the CPU every body is the plain form; ``costas_body``
+    names CUDA bodies only."""
+    x = torch.from_numpy(np.stack(bpsk(96, 0.01, seed=41))).reshape(2, 3, 32)
+    args = (x[0], x[1], 0.2, 0.001, 0.0, 2, 0.1, 0.01)
+    want = hk.costas_batched_plain(*args)
+    for body in (None, *hk.COSTAS_BODIES):
+        got = hk.costas_batched(*args, body=body)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert hk.COSTAS_BODIES == ("block", "lane")
+    for bad in ("warp", "Lane", 1):
+        with pytest.raises(ValueError, match="unknown Costas body"):
+            hk.costas_batched(*args, body=bad)
+    m = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="unknown Costas body"):
+        hk.costas_batched(m, m, 0.0, 0.0, 0.0, 2, 0.1, 0.01, body="rows")
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.costas_body(4, "cpu")
+
+
 # --------------------------------------------------------------------------
 # On the card
 # --------------------------------------------------------------------------
@@ -492,3 +526,102 @@ def test_chunked_on_card_counts_and_exact(card):
         counts = {k: v for k, v in hk.launch_counts().items() if v}
         assert counts["costas_batched"] == 12
         assert counts.get("costas_scalar", 0) % 2 == 0
+
+
+def row_states(b, card, seed):
+    """Per-row (phase, freq, error) of b rows: phases over ±12 (outside
+    ±2π among them), frequencies over ±0.008, errors over ±1."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.uniform(-s, s, b).astype(np.float32),
+                              device=card) for s in (12.0, 0.008, 1.0))
+
+
+def held_to_scalar(x, st, got, order, gains):
+    """Each row of a batched result equals costas_scalar on that row."""
+    for b in range(x.shape[1]):
+        one = hk.costas_scalar(x[0, b], x[1, b], *(s[b] for s in st), order,
+                               *gains)
+        assert all(torch.equal(o, g[b]) for o, g in zip(one, got)), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4096])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 1024])
+def test_lane_body_matches_block_and_scalar_on_card(card, b, n, order):
+    """The lane body against the block body and against costas_scalar on
+    each row, bit for bit, over partial warps, ragged lengths and empty
+    rows, from per-row states."""
+    x = card_rows(card, b, n, order, seed=80 + b)
+    st = row_states(b, card, seed=n)
+    gains = (*demod.costas_gains(0.00628), -0.01, 0.01)
+    lane = hk.costas_batched(x[0], x[1], *st, order, *gains, body="lane")
+    block = hk.costas_batched(x[0], x[1], *st, order, *gains, body="block")
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(lane, block))
+    held_to_scalar(x, st, lane, order, gains)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+def test_lane_body_mixed_wraps_in_a_warp_on_card(card, order):
+    """One warp whose lanes wrap in the same group and lanes that do not
+    (phases just below 2π moving up, beside phases at 0 standing still),
+    then the same state on every lane, so that the warp's vote passes:
+    bit for bit the block body and costas_scalar on each row."""
+    n, b = 4096, 32
+    x = card_rows(card, b, n, order, seed=90)
+    near = torch.arange(b, device=card) % 2 == 0
+    phase = torch.where(near, 6.2 + 0.002 * torch.arange(b, device=card),
+                        torch.zeros(b, device=card))
+    freq = torch.where(near, torch.full((b,), 0.008, device=card),
+                       torch.zeros(b, device=card))
+    gains = (*demod.costas_gains(0.00628), -0.01, 0.01)
+    same = x[:, :1].expand(2, b, n)
+    for xs, st in ((x, (phase, freq, torch.zeros(b, device=card))),
+                   (same, (0.3, 0.001, 0.0))):
+        lane = hk.costas_batched(xs[0], xs[1], *st, order, *gains,
+                                 body="lane")
+        block = hk.costas_batched(xs[0], xs[1], *st, order, *gains,
+                                  body="block")
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(lane, block))
+        rows = tuple(torch.as_tensor(v, device=card).expand(b) for v in st)
+        held_to_scalar(xs, rows, lane, order, gains)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4])
+def test_lane_body_strided_and_unaligned_on_card(card, order):
+    """[nch, w + c] and [G, nch, w + c] windows read in place, at a
+    16-byte stride and at a stride that leaves 16-byte alignment, and rows
+    that start one float past it: the lane body equals the same rows copied
+    and the block body, bit for bit."""
+    x = card_rows(card, 3, 4400, order, seed=95)
+    alpha, beta = demod.costas_gains(0.02)
+    for c, w, off in ((1000, 300, 0), (1001, 300, 0), (1000, 300, 1)):
+        nch = 4
+        for view in ((nch, w + c), (3, nch, w + c)):
+            stride = (c, 1) if len(view) == 2 else (x.shape[-1], c, 1)
+            win = [e.as_strided(view, stride, e.storage_offset() + off)
+                   for e in x]
+            lane = hk.costas_batched(*win, 0.1, 0.002, 0.0, order, alpha,
+                                     beta, body="lane")
+            block = hk.costas_batched(*win, 0.1, 0.002, 0.0, order, alpha,
+                                      beta, body="block")
+            copied = hk.costas_batched(*(v.contiguous() for v in win), 0.1,
+                                       0.002, 0.0, order, alpha, beta,
+                                       body="lane")
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, v) for g, v in zip(lane, block))
+            assert all(torch.equal(g, v) for g, v in zip(lane, copied))
+
+
+@pytest.mark.cuda
+def test_costas_body_rule_on_card(card):
+    """On the card the rule takes the block body up to two of its blocks
+    an SM and the lane body past that."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    slots = sms * hk.COSTAS_FULL_RATE_BLOCKS
+    assert hk.costas_body(slots, card) == "block"
+    assert hk.costas_body(slots + 1, card) == "lane"
