@@ -12,10 +12,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card   — require a Hopper card; print its name and power limit.
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
    one ``nvcc`` per source, all started together; print ptxas's lines and,
-   for each instantiation of the int8 Gram kernels, of
-   ``pfb_os_reg_kernel``, of both direct-FIR bodies and of both packed-PFB
-   bodies, its registers, stack frame and spill bytes; a spill in
-   ``fir_reg_kernel`` or in any ``pfb_packed_reg_kernel<M>`` fails.
+   for each instantiation of the int8 Gram kernels, of the three
+   oversampled-PFB bodies, of both direct-FIR bodies and of both
+   packed-PFB bodies, its registers, stack frame and spill bytes; a spill
+   in ``fir_reg_kernel``, in any ``pfb_packed_reg_kernel<M>`` or in any
+   ``pfb_os_wide_kernel<M, L>`` fails.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
@@ -113,15 +114,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    a rotation offset, then at 16 channels R=4, 2 and 1 (L = 4, 8, 16) and
    with 1600 taps on ragged last blocks (2^21 + 80 samples), each case
    printing the body ``hopper_kernels.os_body`` ran (``pfb_os_reg_kernel``
-   at M ≤ 16, ``pfb_os_kernel`` above); the first body, ``pfb_os_kernel``,
-   on the path's call through the C entry (body 0, no wrapper counting
-   it), held to the plain form and timed beside the new one; and a channel
-   subset through the streaming form;
+   at M ≤ 16, ``pfb_os_wide_kernel`` above); the first body,
+   ``pfb_os_kernel``, on the path's call through the C entry (body 0, no
+   wrapper counting it), held to the plain form and timed beside the new
+   one; ``OS_WIDE`` (BENCH_TPU.md's 64 channels R=16 with 192 and 1600
+   taps, 32 channels R=4 with 96, and 128 channels R=16) at 2^23 on the
+   rule's body as the path calls it and on ``pfb_os_kernel`` through the
+   C entry, both held to the plain form and timed beside their bounds; and
+   a channel subset through the streaming form;
    then counts reset, a ``Flowgraph`` of ``PolyphaseChannelizer(proto,
    2**23, 16, 8, list(range(16)), planar=True, fused=True)`` (the 155-tap
    ``firdes.low_pass(1.0, 16.0, 0.5, 0.25)`` zero-padded to 160) over 4
    chained frames of 2^23, one launch per frame, held to the plain chain
-   within 1e-4 × max|plain|, tails bit-equal.
+   within 1e-4 × max|plain|, tails bit-equal; and again, counts reset, at
+   64 channels R=16 with the 1600-tap prototype, its step's kernel named
+   ``pfb_os_wide_kernel`` by ``torch.profiler``.
 11. spectrum chain — the FFT kernel (B.5) against its plain form at 256,
    1024, 2048 and 16384 points, forward and inverse, windowed or not,
    shifted or not, and the bare kernel held to and timed beside
@@ -386,6 +393,12 @@ XE_BF_T = 1024
 FM_N, FM_FRAMES, FM_RETUNE_AT = 1 << 21, 8, 4
 # the oversampled channelizer: BENCH_TPU's 16-channel R=8 configuration
 OS_M, OS_R, OS_N, OS_FRAMES, OS_DEEP_N = 16, 8, 1 << 23, 4, 1 << 21
+# BENCH_TPU.md:177-179's 64-channel R=16 (192- and 1600-tap prototypes) and
+# 32-channel R=4 (96 taps) channelizers, and 128 channels R=16 on
+# firdes.low_pass(1, 128, 0.5, 0.25): (label, M, R, ntaps or None)
+OS_WIDE = [("64ch R=16 192 taps", 64, 16, 192),
+           ("64ch R=16 1600 taps", 64, 16, 1600),
+           ("32ch R=4 96 taps", 32, 4, 96), ("128ch R=16", 128, 16, None)]
 # the spectrum chain: README's source → Fft → MultiplyConst → ComplexToMag
 SP_N, SP_FFT, SP_FRAMES = 1 << 21, 2048, 8
 # carrier recovery: the reference's loop bandwidth, BENCH_TPU's frame
@@ -436,7 +449,8 @@ PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "fir_reg_kernel", "ofs_filter_kernel",
                 "qdemod_kernel",
-                "pfb_os_kernel", "pfb_os_reg_kernel", "fft_batched_kernel",
+                "pfb_os_kernel", "pfb_os_reg_kernel", "pfb_os_wide_kernel",
+                "fft_batched_kernel",
                 "costas_kernel", "costas_lanes_kernel",
                 "costas_sincos_probe_kernel")
 
@@ -1454,11 +1468,11 @@ def os_bounds(n: int, h: int, m: int, r: int, w: int) -> dict:
             "dense_operations_ms": (fir + nout * 8 * m * m) / FP32_OPS * 1e3}
 
 
-def os_first_body_times(torch, hk, args, want) -> dict:
+def os_first_body_times(torch, hk, args, want, label: str) -> dict:
     """The first body, ``pfb_os_kernel``, on the same call through the C
-    entry with body 0 (the body M ≥ 32 runs): held to the plain form, then
-    its device time (``torch.profiler``) and per-call time (CUDA events).
-    No wrapper counts these launches."""
+    entry with body 0: held to the plain form, then its device time
+    (``torch.profiler``) and per-call time (CUDA events).  No wrapper
+    counts these launches."""
     xr, xi, tr, ti, taps, m, r, ioff = args
     zr = torch.empty((xr.shape[-1] // r, m), device=xr.device)
     zi = torch.empty_like(zr)
@@ -1478,12 +1492,12 @@ def os_first_body_times(torch, hk, args, want) -> dict:
 
     call()
     torch.cuda.synchronize()
-    err = check(torch, f"pfb_oversampled 16ch R=8 [{xr.shape[-1]}] on "
+    err = check(torch, f"pfb_oversampled {label} [{xr.shape[-1]}] on "
                        f"pfb_os_kernel (the first body)", (zr, zi), want)
     events = time_ms(torch, call)
     busy = device_busy_ms(torch, call, 10)
     shown = "not measured" if busy is None else f"{busy:.4f} ms"
-    phase("time", f"pfb_os_kernel (the first body) 16ch R=8 "
+    phase("time", f"pfb_os_kernel (the first body) {label} "
                   f"[{xr.shape[-1]}]: device {shown}, per call (events) "
                   f"{events:.4f} ms")
     return {"ms": events if busy is None else busy, "events_ms": events,
@@ -1521,18 +1535,25 @@ def os_phase(torch, hk, gen, dev) -> dict:
         got = hk.pfb_oversampled_fused(*args)
         torch.cuda.synchronize()
         want = hk.pfb_oversampled_fused_plain(*args)
-        res["bodies"][label] = hk.os_body(m)
+        body = hk.os_body(m, r, taps.shape[0], dev)
+        res["bodies"][label] = body
         res["err"] = max(res["err"], check(
             torch, f"pfb_oversampled {label} [{n}], W={taps.shape[0]}, H={h} "
-                   f"on {hk.os_body(m)}", got, want))
+                   f"on {body}", got, want))
         if label == "16ch R=8":
             res["time"] = fm_times(
-                torch, f"pfb_oversampled {label} [{n}] ({hk.os_body(m)})",
+                torch, f"pfb_oversampled {label} [{n}] ({body})",
                 lambda: hk.pfb_oversampled_fused(*args),
                 lambda: hk.pfb_oversampled_fused_plain(*args))
             res["bounds"] = os_bounds(n, h, m, r, taps.shape[0])
-            res["first_body"] = os_first_body_times(torch, hk, args, want)
+            res["first_body"] = os_first_body_times(torch, hk, args, want,
+                                                    label)
         del x, t, got, want
+
+    # BENCH_TPU.md's 64- and 32-channel configurations and 128 channels at
+    # the path's frame, on both bodies
+    res["wide"] = {label: os_wide_times(torch, hk, gen, dev, label, m, r, nt)
+                   for label, m, r, nt in OS_WIDE}
 
     # a channel subset through the streaming form
     proto = os_proto(OS_M)
@@ -1584,7 +1605,113 @@ def os_phase(torch, hk, gen, dev) -> dict:
     res["path"] = path_times(torch, "oversampled channelizer",
                              lambda: r.step(feeds[0]), OS_N)
     res["launches"] = launches
+    del feeds, outs
+    res["wide_path"] = os_wide_path(torch, hk, gen, dev)
     return res
+
+
+def os_wide_times(torch, hk, gen, dev, label: str, m: int, r: int,
+                  ntaps: int | None) -> dict:
+    """One configuration of ``OS_WIDE`` at the path's frame (2^23 samples):
+    the call as the path makes it, on the rule's body
+    (``pfb_os_wide_kernel``, which it must be), held to the plain form and
+    timed beside it (``fm_times``), then ``pfb_os_kernel`` on the same
+    inputs through the C entry (``os_first_body_times``), beside the
+    call's ``os_bounds``."""
+    from clenabled_tpu_torch.dsp import channelizer as chan
+
+    taps_rm, nt = chan._pfb_constants(os_proto(m, ntaps), m, r)
+    h = hk.os_tail_len(m, r, nt)
+    x = torch.randn((2, OS_N), generator=gen, device=dev)
+    t = torch.randn((2, h), generator=gen, device=dev)
+    taps = torch.as_tensor(taps_rm, device=dev)
+    w = taps.shape[0]
+    args = (x[0], x[1], t[0], t[1], taps, m, r, 0)
+    body = hk.os_body(m, r, w, dev)
+    if body != "pfb_os_wide_kernel":
+        fail(f"pfb_oversampled {label}: the rule picks {body}, not "
+             f"pfb_os_wide_kernel")
+    got = hk.pfb_oversampled_fused(*args)
+    torch.cuda.synchronize()
+    want = hk.pfb_oversampled_fused_plain(*args)
+    err = check(torch, f"pfb_oversampled {label} [{OS_N}], W={w}, H={h} on "
+                       f"{body}", got, want)
+    del got
+    tm = fm_times(torch, f"pfb_oversampled {label} [{OS_N}] ({body})",
+                  lambda: hk.pfb_oversampled_fused(*args),
+                  lambda: hk.pfb_oversampled_fused_plain(*args))
+    first = os_first_body_times(torch, hk, args, want, label)
+    b = os_bounds(OS_N, h, m, r, w)
+    phase("time", f"pfb_oversampled {label} [{OS_N}]: {body} {tm[0]:.4f} ms "
+                  f"({b['bound'][0] / tm[0]:.0%} of its {b['bound'][0]:.4f} "
+                  f"ms bound, {b['bound'][1]}), pfb_os_kernel "
+                  f"{first['ms']:.4f} ms, plain {tm[1]:.4f} ms")
+    return {"body": body, "w": w, "h": h, "ms": tm[0],
+            "events_ms": tm[2], "plain_ms": tm[1],
+            "first_body_ms": first["ms"],
+            "first_body_events_ms": first["events_ms"],
+            "max_abs_err": max(err, first["max_abs_err"]),
+            "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
+            **{k: v for k, v in b.items() if k != "bound"}}
+
+
+def os_wide_path(torch, hk, gen, dev) -> dict:
+    """Counts reset, a ``Flowgraph`` of ``PolyphaseChannelizer`` at 64
+    channels, R = 16 with the 1600-tap prototype (``OS_WIDE``'s second
+    configuration) over ``OS_FRAMES`` chained frames of 2^23: one launch
+    a frame, ``pfb_os_wide_kernel`` by its kernel name in a profiled step,
+    every frame held to the plain chain, the tail bit-equal."""
+    from clenabled_tpu_torch import blocks
+    from clenabled_tpu_torch.dsp import channelizer as chan
+    from clenabled_tpu_torch.dsp import planar
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+    from clenabled_tpu_torch.streaming import Flowgraph
+
+    label, m, r, nt = OS_WIDE[1]
+    proto = os_proto(m, nt)
+    ch = blocks.PolyphaseChannelizer(proto, OS_N, m, r, list(range(m)),
+                                     planar=True, fused=True)
+    g = Flowgraph()
+    g.external_input(ch)
+    tap = g.tap(ch, name="channels")
+    run = g.compile(OS_N, device=dev)
+    feeds = [planar.PC(*torch.randn((2, OS_N), generator=gen, device=dev))
+             for _ in range(OS_FRAMES)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = [run.step(f)[tap] for f in feeds]
+    torch.cuda.synchronize()
+    launches = hk.pfb_oversampled_fused.launches
+    phase("os", f"Flowgraph PolyphaseChannelizer({len(proto)} taps, {OS_N}, "
+                f"{m}, {r}, fused), {OS_FRAMES} frames; launches {launches}")
+    if launches != OS_FRAMES:
+        fail(f"expected one pfb_oversampled launch per frame at {label}, got "
+             f"{launches}")
+    taps_rm, ntaps = chan._pfb_constants(proto, m, r)
+    h = hk.os_tail_len(m, r, ntaps)
+    tr = ti = torch.zeros(h, device=dev)
+    err = 0.0
+    for k, (f, o) in enumerate(zip(feeds, outs)):
+        wr, wi = hk.pfb_oversampled_fused_plain(f.re, f.im, tr, ti, taps_rm,
+                                                m, r)
+        err = max(err, check(
+            torch, f"channelizer {label} frame {k} [{OS_N // r}x{m}]",
+            list(o), [wr.reshape(-1), wi.reshape(-1)]))
+        tr, ti = f.re[-h:], f.im[-h:]
+        del wr, wi
+    st = run.states[0]
+    if not (torch.equal(st[0], tr) and torch.equal(st[1], ti)):
+        fail(f"the {label} channelizer's carried tail is not the last "
+             f"frame's input")
+    del outs
+    _, names = launched_kernels(lambda: run.step(feeds[0]))
+    if not any("pfb_os_wide_kernel" in n for n in names):
+        fail(f"the {label} flowgraph's step launched {names}, no "
+             f"pfb_os_wide_kernel")
+    phase("os", f"{label} step kernels: {sorted(set(names))}")
+    times = path_times(torch, f"oversampled channelizer {label}",
+                       lambda: run.step(feeds[0]), OS_N)
+    return {"launches": launches, "err": err, **times}
 
 
 def fft_bound(n: int, size: int, windowed: bool) -> tuple:
@@ -3075,7 +3202,6 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
     import tempfile
 
     import numpy as np
-    import torch.distributed as dist
 
     from clenabled_tpu_torch import entry, sharding as S
     from clenabled_tpu_torch.dsp import (channelizer, fft_filter, fir_filter,
@@ -3240,7 +3366,7 @@ def sharded_phase(torch, hk, P, gen, dev) -> dict:
                                                     mesh)
             out["chain"] = sharded_chain_checks(torch, S, gen, dev, mesh)
         finally:
-            dist.destroy_process_group()
+            S.shutdown_distributed()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = entry.dryrun_multichip(1, device="cuda")
@@ -4281,9 +4407,18 @@ def main() -> None:
                                 "gram_int8_quad_kernel"))
     for name, info in gram_ptxas.items():
         phase("ptxas", f"{name}: {info}")
-    os_ptxas = ptxas_summary(_build.last_build["log"], ("pfb_os_reg_kernel",))
+    os_ptxas = ptxas_summary(_build.last_build["log"],
+                             ("pfb_os_reg_kernel", "pfb_os_wide_kernel",
+                              "pfb_os_kernel"))
     for name, info in os_ptxas.items():
         phase("ptxas", f"{name}: {info}")
+    for m in hk.OS_WIDE_M:
+        for ell in hk.OS_WIDE_L:
+            reg = os_ptxas.get(f"pfb_os_wide_kernel<{m}, {ell}>", {})
+            if "registers" not in reg or reg.get("spill_stores") or reg.get(
+                    "spill_loads"):
+                fail(f"pfb_os_wide_kernel<{m}, {ell}>: ptxas reports "
+                     f"{reg or 'nothing'}")
     fir_ptxas = ptxas_summary(_build.last_build["log"],
                               ("fir_direct_kernel", "fir_reg_kernel"))
     for name, info in fir_ptxas.items():
@@ -4745,11 +4880,11 @@ def main() -> None:
         dict(entry("pfb_oversampled_fused", "pfb_oversampled.cu", 1587,
                    osr["launches"], osr["err"], *osr["time"][:2],
                    osr["bounds"]["bound"]),
-             body=hk.os_body(OS_M), bodies=osr["bodies"],
+             body=osr["bodies"]["16ch R=8"], bodies=osr["bodies"],
              first_body=osr["first_body"],
              **{k: v for k, v in osr["bounds"].items() if k != "bound"},
-             cuda_kernels=sorted(os_ptxas) + ["pfb_os_kernel"],
-             ptxas=os_ptxas),
+             wide=osr["wide"], wide_path_launches=osr["wide_path"]["launches"],
+             cuda_kernels=sorted(os_ptxas), ptxas=os_ptxas),
         dict(entry("fft_batched_fused", "fft_batched.cu", 505,
                    spr["launches"], spr["err"], *spr["time"][:2],
                    spr["bound"], spr["library_ms"]),
@@ -4816,7 +4951,10 @@ def main() -> None:
         "fm_path": {p: {k: fm[p][k] for k in ("err", "step_ms", "busy_ms",
                                                "wall_ms")} for p in fm},
         "fft_bare_ms": spr["bare_ms"],
-        "paths": {"oversampled": osr["path"], "spectrum": spr["path"],
+        "paths": {"oversampled": osr["path"],
+                  "oversampled_64ch_1600taps": {
+                      k: osr["wide_path"][k] for k in ("busy_ms", "wall_ms")},
+                  "spectrum": spr["path"],
                   "costas": cor["path"],
                   "costas_chunked": dict(
                       cob["chunked_path"], msps=cob["chunked_msps"],

@@ -15,8 +15,8 @@
 // rotation and DFT into banded matrices for its matrix unit; neither body
 // here does.
 //
-// Two bodies, chosen by M (hopper_kernels.os_body names the one a call
-// runs); L = M/R:
+// Three bodies (hopper_kernels.os_body names the one a call runs: a pure
+// rule on M, L = M/R and whether the block fits the card's shared memory):
 //
 // pfb_os_reg_kernel<M, L>, M in {2, 4, 8, 16}: 128 threads, a block owns
 // 2048/M output groups (2048 outputs a component) on U = 2048/(M L) window
@@ -46,12 +46,52 @@
 //          banks).  The results go back in place; after a barrier each warp
 //          writes 512 contiguous bytes a component a store (coalesced: from
 //          registers, at 64-byte strides, the stores took 27% longer).
-// pfb_os_kernel, M in {32, 64, 128} (the first design): each block stages
-//   the window v[i0*R, (i0+G-1)*R + W*M) of G groups one float at a time, one
-//   thread per (group, subfilter) forms the branch sums from shared memory,
-//   then one thread per (group, channel) the M-point DFT from the sums and
-//   a twiddle table (float64 cos/sin cast to float32); (j + s) k mod M is a
-//   mask.
+// pfb_os_wide_kernel<M, L>, M in {32, 64, 128}, L in {2, 4, 8, 16} (a
+// third __global__ body beside the other two, not a widening of
+// pfb_os_reg_kernel, whose DFT lanes hold whole groups): the same column
+// FIR and L-th-root twiddle, with each M = 16 Q point transform split over
+// Q lanes.  256 threads, three blocks an SM (at most 85 registers); a
+// chunk is 4096 outputs a component (4096/M groups on CU = 4096/(M L)
+// window rows), and a block runs kOsWideChunks = 2 chunks behind one
+// window (1 where three blocks of two chunks do not fit an SM's shared
+// memory: os_wide_chunks), so that the W + 1 halo rows, which the next
+// block stages again, are staged half as often and the second chunk's
+// staging lands while the first computes.
+//   stage  tail ++ frame, unpadded rows of M, in 4-sample groups: one
+//          16-byte cp.async each (zero-filled past the span) when the
+//          streams are 16-byte aligned, else sample by sample; chunk 0's
+//          rows in one commit group, the rest in a second that lands while
+//          chunk 0 computes.  Each quarter-warp store phase hits 32 banks.
+//   FIR    per chunk, lane = (strip of S = min(CU, 8) rows, phase p,
+//          branch j) over both components (2 S sums, 2 S window values),
+//          j fastest, so a warp reads 32 consecutive window words; one tap
+//          load (read-only cache) and two window loads per 2 S FMAs.  The
+//          complex sums go to float2 slots of each warp's tile (32 rows of
+//          16 slots, the banks of a half-warp 64-bit access): group g's
+//          point j = q + Q m at row m, column Q ((g mod GW) ^ (m mod GW)) +
+//          q (GW = 32/Q groups a tile), conflict free for the FIR's
+//          consecutive j and for pass 1's lanes (g, q).
+//   DFT    group g on Q lanes of one warp; lane q: the 16 points q + Q m,
+//          fftcore::dft<16> over m, times exp(+2 pi i q k1 / M) (a
+//          float64-built table of M entries, [k1][q]), back into the tile
+//          at row k1, column Q (g mod GW) + (q ^ (k1 mod Q)); __syncwarp;
+//          lane q' takes bins k1 = a Q + q' of every q (conflict free: the
+//          column's low bits q ^ q'), fftcore::dft<Q> over q gives X[k1 +
+//          16 k2] in registers, then the phase twiddle (swaps and signs at
+//          L <= 4, the table of L roots at L >= 8), and the outputs go to
+//          slot g M + (k ^ Q (g mod GW) ^ 2 (bit 4 of k)) of the tile.
+//          Each warp then copies its own tile out (GW M contiguous outputs)
+//          with two 16-byte loads and two 16-byte stores a lane per 4
+//          outputs; one block barrier a chunk after the FIR and one before
+//          the next chunk's FIR overwrites the sums.
+//   tests/test_torch_channelizer.py replays the three layouts, the staging
+//   and the transform in numpy and checks every warp access's banks.
+// pfb_os_kernel (the first design), every other (M, L, W): each block
+//   stages the window v[i0*R, (i0+G-1)*R + W*M) of G groups one float at a
+//   time, one thread per (group, subfilter) forms the branch sums from
+//   shared memory, then one thread per (group, channel) the M-point DFT
+//   from the sums and a twiddle table (float64 cos/sin cast to float32);
+//   (j + s) k mod M is a mask.
 //
 // Bound on the H100: per input sample 8 B read and, per output group, 8*M B
 // written (L = M/R times the input bytes): memory bound at the 16-channel,
@@ -60,7 +100,12 @@
 // and the M-point transforms a few hundred flops a group.
 // pfb_os_reg_kernel runs its stages one after another behind three block
 // barriers; up to 8 resident blocks an SM overlap one block's staging with
-// another's arithmetic (tools/os_ab.py splits its time by stage).
+// another's arithmetic (tools/os_ab.py splits its time by stage).  At M =
+// 64, R = 16 the output is 4x the input (2^23 samples: 256 MiB written,
+// about 100 us); the FIR's 2 W FMAs an output value (1600 taps: W = 25,
+// about 50 us of FP32 FMA on the card) and the two-pass transforms are
+// issue-bound instruction streams that pfb_os_wide_kernel overlaps across
+// three blocks an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -396,6 +441,311 @@ pfb_os_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// ---- pfb_os_wide_kernel ----------------------------------------------------
+
+constexpr int kOsWideThreads = 256;
+constexpr int kOsWideOuts = 16 * kOsWideThreads;  // outputs of each component a chunk
+constexpr int kOsWideChunks = 2;     // chunks a block (os_wide_chunks)
+constexpr int kOsWideStrip = 8;      // window rows a FIR lane sums over
+
+// window rows CU of a chunk's 4096/M output groups, and the FIR strip S
+__host__ __device__ constexpr int os_wide_rows(int m, int l) { return kOsWideOuts / (m * l); }
+__host__ __device__ constexpr int os_wide_strip(int m, int l) {
+  return os_wide_rows(m, l) < kOsWideStrip ? os_wide_rows(m, l) : kOsWideStrip;
+}
+
+// window floats of one component: U + W + 1 rows of M, U = chunks * CU
+__host__ __device__ inline long long os_wide_win(int m, int l, int w, int chunks) {
+  return ((long long)chunks * os_wide_rows(m, l) + w + 1) * m;
+}
+
+// the window, one chunk's complex sums and the two twiddle tables ([M]
+// and [16] float2)
+__host__ __device__ inline long long os_wide_smem_bytes(int m, int r, int w, int chunks) {
+  return 4LL * (2 * os_wide_win(m, m / r, w, chunks) + 2LL * kOsWideOuts) + 8LL * (m + 16);
+}
+
+// The sums are complex (float2) slots; each warp's GW = 32/Q groups own a
+// tile of 512 slots, 32 rows of 16 (the 16 slot banks of a half-warp
+// 64-bit access).  The slot of (chunk group g, branch j) as the FIR stores
+// it, and of (group g, pass-1 lane q, bin k1) as pass 1 leaves it:
+template <int Q>
+__device__ __forceinline__ int osw_fir_slot(int g, int j) {
+  constexpr int GW = 32 / Q;
+  const int m = j / Q;
+  return (g / GW) * 512 + m * 32 + Q * ((g % GW) ^ (m % GW)) + j % Q;
+}
+template <int Q>
+__device__ __forceinline__ int osw_pass1_slot(int g, int q, int k1) {
+  constexpr int GW = 32 / Q;
+  return (g / GW) * 512 + k1 * 32 + Q * (g % GW) + (q ^ (k1 % Q));
+}
+// the slot of output (g, k): group-major, k XORed with an even mask that
+// is one for each run of 4, so a copy-out thread reads its 4 outputs as
+// two 16-byte pairs
+template <int M>
+__device__ __forceinline__ int osw_out_slot(int g, int k) {
+  constexpr int Q = M / 16;
+  return g * M + (k ^ (Q * (g % (32 / Q))) ^ (((k >> 4) & 1) << 1));
+}
+
+__device__ __forceinline__ void osw_cp_async16(float* dst, const float* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// window samples [k0, min(k1, span)) of both components (4-sample
+// groups, a component's groups counted up to whole store phases): with
+// 16-byte aligned streams one cp.async a group (zero-filled past span),
+// else sample by sample from registers; one commit group a call, not
+// waited for here
+__device__ __forceinline__ void osw_stage(float* win, int wlen, const float* xr,
+                                          const float* xi, const float* tr,
+                                          const float* ti, long long base, int h,
+                                          int span, int k0, int k1, int vec) {
+  const int g0 = k0 / 4;
+  const int groups = max(0, (min(k1, span) - k0 + 3) / 4);
+  const int per_c = (groups + 7) / 8 * 8;
+  for (int e = threadIdx.x; e < 2 * per_c; e += kOsWideThreads) {
+    const int c = e >= per_c;
+    const int k = 4 * (g0 + e - c * per_c);
+    if (k >= span || k >= k1) continue;
+    const float* tp = c ? ti : tr;
+    const float* fp = c ? xi : xr;
+    const long long q = base + k;
+    const long long f = q - h;
+    float* dst = win + c * wlen + k;
+    if (vec) {
+      osw_cp_async16(dst, f < 0 ? tp + q : fp + f, 4 * min(4, span - k));
+    } else {
+      float v[4];
+      fftcore::static_for<4>([&](auto x) {
+        const long long qx = q + decltype(x)::value;
+        v[x] = k + decltype(x)::value < span ? (qx < h ? tp[qx] : fp[qx - h]) : 0.f;
+      });
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int M, int L>
+__global__ void __launch_bounds__(kOsWideThreads, 3)
+pfb_os_wide_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   const float* __restrict__ tr, const float* __restrict__ ti,
+                   const float* __restrict__ taps, float* __restrict__ zr,
+                   float* __restrict__ zi, int h, int w, int i_offset, int nout,
+                   int chunks, int vec) {
+  static_assert(M == 32 || M == 64 || M == 128, "M must be 32, 64 or 128");
+  static_assert(L >= 2 && L <= 16 && (L & (L - 1)) == 0, "L must be 2, 4, 8 or 16");
+  constexpr int T = kOsWideThreads;
+  constexpr int R = M / L;
+  constexpr int Q = M / 16;            // lanes a group's transform spans
+  constexpr int GW = 32 / Q;           // groups a warp transforms
+  constexpr int CU = os_wide_rows(M, L);
+  constexpr int GC = CU * L;           // output groups a chunk
+  constexpr int S = os_wide_strip(M, L);
+  constexpr int NQ = CU / S;           // FIR strips a chunk
+  extern __shared__ float smem[];
+  const int wlen = (int)os_wide_win(M, L, w, chunks);
+  float* win = smem;                                  // [2][wlen] window
+  float2* sums = reinterpret_cast<float2*>(smem + 2 * wlen);  // [4096]
+  float2* tw1 = sums + kOsWideOuts;                   // [16][Q]
+  float2* twl = tw1 + M;                              // [L]
+  for (int e = threadIdx.x; e < M; e += T) {
+    double sn, cs;                     // exp(+2 pi i q k1 / M), e = k1 Q + q
+    sincospi(2.0 * ((e / Q) * (e % Q)) / M, &sn, &cs);
+    tw1[e] = make_float2((float)cs, (float)sn);
+  }
+  if (L >= 8 && threadIdx.x < L) {
+    double sn, cs;
+    sincospi(-2.0 * threadIdx.x / L, &sn, &cs);
+    twl[threadIdx.x] = make_float2((float)cs, (float)sn);
+  }
+
+  const int U = chunks * CU;
+  const long long i0 = (long long)blockIdx.x * U * L;
+  const int gcount = (int)min((long long)U * L, (long long)nout - i0);
+  const int ucount = gcount / L;       // nout and i0 are multiples of L
+  const long long base = (long long)blockIdx.x * U * M;  // v index of sample 0
+  const int span = (ucount + w) * M - R;                 // samples needed
+
+  // stage: chunk 0's rows, then the rest in flight behind chunk 0
+  const int first = (CU + w) * M;
+  osw_stage(win, wlen, xr, xi, tr, ti, base, h, span, 0, first, vec);
+  osw_stage(win, wlen, xr, xi, tr, ti, base, h, span, first, span, vec);
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+  if constexpr (kOsStopAfter < 2) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int gl = lane / Q;             // the lane's group in its warp
+  const int q = lane % Q;
+  const int g = (t >> 5) * GW + gl;    // its chunk group
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int u0 = ch * CU;
+    if (u0 >= ucount) break;
+    if (ch > 0) __syncthreads();       // every warp is done with chunk ch-1's sums
+
+    // branch FIR of both components: job e = (strip s, phase p, branch
+    // j), j fastest (a warp: one (s, p), 32 consecutive columns x = p R +
+    // M-1-j < 2M); acc[a] = sum_d taps[(W-1-d) M + j] * (window sample
+    // (u0 + s S + a + d) M + x).  Strips past the valid rows skip.
+    {
+      constexpr int JOBS = NQ * L * M;
+      for (int e = t; e < JOBS; e += T) {
+        const int s0 = e / (L * M) * S;
+        const int p = e / M % L;
+        const int j = e % M;
+        if (u0 + s0 >= ucount) continue;
+        const float* wr = win + (u0 + s0) * M + p * R + M - 1 - j;
+        const float* wi = wr + wlen;
+        float vr[S], vi[S], ar[S], ai[S];
+        fftcore::static_for<S>([&](auto k) {
+          vr[k] = wr[decltype(k)::value * M];
+          vi[k] = wi[decltype(k)::value * M];
+          ar[k] = 0.f;
+          ai[k] = 0.f;
+        });
+        wr += S * M;
+        wi += S * M;
+        const float* tp = taps + (w - 1) * M + j;
+        int d0 = 0;
+        for (; d0 + S <= w; d0 += S) {
+          fftcore::static_for<S>([&](auto r) {
+            constexpr int rr = decltype(r)::value;
+            const float tap = __ldg(tp - rr * M);
+            fftcore::static_for<S>([&](auto s) {
+              ar[s] = fmaf(tap, vr[(decltype(s)::value + rr) % S], ar[s]);
+              ai[s] = fmaf(tap, vi[(decltype(s)::value + rr) % S], ai[s]);
+            });
+            vr[rr] = wr[rr * M];
+            vi[rr] = wi[rr * M];
+          });
+          wr += S * M;
+          wi += S * M;
+          tp -= S * M;
+        }
+        const int left = w - d0;
+        fftcore::static_for<S>([&](auto r) {
+          constexpr int rr = decltype(r)::value;
+          if (rr < left) {
+            const float tap = __ldg(tp - rr * M);
+            fftcore::static_for<S>([&](auto s) {
+              ar[s] = fmaf(tap, vr[(decltype(s)::value + rr) % S], ar[s]);
+              ai[s] = fmaf(tap, vi[(decltype(s)::value + rr) % S], ai[s]);
+            });
+            vr[rr] = wr[rr * M];
+            vi[rr] = wi[rr * M];
+          }
+        });
+        fftcore::static_for<S>([&](auto s) {
+          constexpr int ss = decltype(s)::value;
+          sums[osw_fir_slot<Q>(L * (s0 + ss) + p, j)] = make_float2(ar[ss], ai[ss]);
+        });
+      }
+    }
+    if (ch == 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();                   // the rest of the window too, after chunk 0
+    if constexpr (kOsStopAfter < 3) continue;
+
+    // the M = 16 Q point unscaled inverse DFT in two passes, each group on
+    // Q lanes of one warp: lane q takes points j = q + Q m, a 16-point DFT
+    // over m, then exp(+2 pi i q k1 / M); through the warp's tile, lane q'
+    // takes bins k1 = a Q + q' of every q, Q-point DFTs over q give
+    // X[k1 + 16 k2]; then the phase twiddle exp(-2 pi i ((g + i_offset) k
+    // mod L) / L), and the outputs in natural order; each warp then
+    // copies its own tile's groups out (GW M contiguous outputs)
+    {
+      float2 v[fftcore::kPts];
+      fftcore::static_for<16>([&](auto m) {
+        v[m] = sums[osw_fir_slot<Q>(g, q + Q * decltype(m)::value)];
+      });
+      __syncwarp();
+      fftcore::dft<16, 0, true>(v);
+      fftcore::static_for<15>([&](auto k) {
+        constexpr int k1 = decltype(k)::value + 1;
+        v[k1] = fftcore::cmul(v[k1], tw1[k1 * Q + q]);
+      });
+      fftcore::static_for<16>([&](auto k) {
+        sums[osw_pass1_slot<Q>(g, q, decltype(k)::value)] = v[k];
+      });
+      __syncwarp();
+      fftcore::static_for<16 / Q>([&](auto a) {
+        constexpr int aa = decltype(a)::value;
+        fftcore::static_for<Q>([&](auto b) {
+          v[aa * Q + b] = sums[osw_pass1_slot<Q>(g, decltype(b)::value, aa * Q + q)];
+        });
+      });
+      __syncwarp();
+      const int ph = (g + i_offset) & (L - 1);
+      fftcore::static_for<16 / Q>([&](auto a) {
+        constexpr int aa = decltype(a)::value;
+        fftcore::dft<Q, aa * Q, true>(v);
+        fftcore::static_for<Q>([&](auto b) {
+          constexpr int i = aa * Q + decltype(b)::value;
+          const int k = aa * Q + q + 16 * decltype(b)::value;
+          const int tq = (ph * k) & (L - 1);
+          if constexpr (L >= 8) {
+            v[i] = fftcore::cmul(v[i], twl[tq]);
+          } else {
+            v[i] = os_quarter_turns<L>(v[i], tq);
+          }
+          sums[osw_out_slot<M>(g, k)] = v[i];
+        });
+      });
+      __syncwarp();
+      const int gw0 = (t >> 5) * GW;   // the tile's first group
+      const int valid = min(GW, min(GC, gcount - u0 * L) - gw0) * M;
+      const long long z0 = (i0 + (long long)u0 * L + gw0) * M;
+      for (int a = 4 * lane; a < valid; a += 128) {
+        const int gg = gw0 + a / M, k = a % M;
+        const float4 p0 = *reinterpret_cast<const float4*>(sums + osw_out_slot<M>(gg, k));
+        const float4 p1 = *reinterpret_cast<const float4*>(sums + osw_out_slot<M>(gg, k + 2));
+        *reinterpret_cast<float4*>(zr + z0 + a) = make_float4(p0.x, p0.z, p1.x, p1.z);
+        *reinterpret_cast<float4*>(zi + z0 + a) = make_float4(p0.y, p0.w, p1.y, p1.w);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int M, int L>
+cudaError_t launch_os_wide(const float* xr, const float* xi, const float* tr,
+                           const float* ti, const float* taps, float* zr,
+                           float* zi, int n, int h, int w, int i_offset,
+                           int chunks, cudaStream_t stream) {
+  const long long bytes = os_wide_smem_bytes(M, M / L, w, chunks);
+  cudaError_t err = fftcore::set_smem(pfb_os_wide_kernel<M, L>, bytes);
+  if (err != cudaSuccess) return err;
+  const int nout = n / (M / L);
+  const int g = chunks * os_wide_rows(M, L) * L;    // output groups a block
+  const int vec = ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(xi) |
+                    reinterpret_cast<uintptr_t>(tr) | reinterpret_cast<uintptr_t>(ti)) & 15) == 0;
+  pfb_os_wide_kernel<M, L><<<(nout + g - 1) / g, kOsWideThreads, bytes, stream>>>(
+      xr, xi, tr, ti, taps, zr, zi, h, w, i_offset, nout, chunks, vec);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_os_wide_m(int l, const float* xr, const float* xi,
+                             const float* tr, const float* ti, const float* taps,
+                             float* zr, float* zi, int n, int h, int w,
+                             int i_offset, int chunks, cudaStream_t stream) {
+  switch (l) {
+    case 2: return launch_os_wide<M, 2>(xr, xi, tr, ti, taps, zr, zi, n, h, w, i_offset, chunks, stream);
+    case 4: return launch_os_wide<M, 4>(xr, xi, tr, ti, taps, zr, zi, n, h, w, i_offset, chunks, stream);
+    case 8: return launch_os_wide<M, 8>(xr, xi, tr, ti, taps, zr, zi, n, h, w, i_offset, chunks, stream);
+    case 16: return launch_os_wide<M, 16>(xr, xi, tr, ti, taps, zr, zi, n, h, w, i_offset, chunks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int M, int L>
 cudaError_t launch_os_reg(const float* xr, const float* xi, const float* tr,
                           const float* ti, const float* taps, float* zr,
@@ -439,18 +789,38 @@ cudaError_t smem_optin(int* optin) {
   return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
+// The chunks a pfb_os_wide_kernel block runs on the current card, in
+// *chunks: kOsWideChunks where three such blocks (each with the shared
+// memory the card reserves for a block) fit an SM, else 1.
+cudaError_t os_wide_chunks(int m, int r, int w, int* chunks) {
+  int dev = 0, sm = 0, reserved = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return err;
+  *chunks = 3 * (os_wide_smem_bytes(m, r, w, kOsWideChunks) + reserved) <= sm
+                ? kOsWideChunks : 1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Shared memory of one block of the given body (see clen_pfb_oversampled):
-// `groups` output groups of pfb_os_kernel, or pfb_os_reg_kernel's block.
+// `groups` output groups of pfb_os_kernel, pfb_os_reg_kernel's block, or
+// pfb_os_wide_kernel's block of `groups` chunks.  hopper_kernels.os_body
+// asks for the last with one chunk.
 extern "C" long long clen_os_smem_bytes(int m, int r, int w, int groups, int body) {
-  return body == 1 ? os_reg_smem_bytes(m, r, w) : os_smem_bytes(m, r, w, groups);
+  if (body == 1) return os_reg_smem_bytes(m, r, w);
+  if (body == 2) return os_wide_smem_bytes(m, r, w, groups);
+  return os_smem_bytes(m, r, w, groups);
 }
 
 // 1 when the body's smallest block (one output group for pfb_os_kernel,
-// its fixed block for pfb_os_reg_kernel) fits the current card's opt-in
-// shared memory, 0 when it does not; a negative cudaError_t when the card
-// cannot be asked.
+// its fixed block for pfb_os_reg_kernel, one chunk for pfb_os_wide_kernel)
+// fits the current card's opt-in shared memory, 0 when it does not; a
+// negative cudaError_t when the card cannot be asked.
 extern "C" int clen_os_fits(int m, int r, int w, int body) {
   int optin = 0;
   const cudaError_t err = smem_optin(&optin);
@@ -460,13 +830,15 @@ extern "C" int clen_os_fits(int m, int r, int w, int body) {
 
 // taps: [W*M] branch-major (taps[c*M + j]); tw: [2, M] cos and sin of
 // 2 pi q / M (pfb_os_kernel's table).  n: frame samples (a multiple of M);
-// h: tail samples, at least the reach W*M - R (a multiple of 4 for body 1);
-// i_offset in [0, M).  body 0: pfb_os_kernel, groups = output groups per
-// block, at most, halved until the block fits the card's opt-in shared
-// memory; body 1: pfb_os_reg_kernel (M in {2, 4, 8, 16}; groups unused),
-// 16-byte loads where all four streams are 16-byte aligned.  Returns a
-// cudaError_t; cudaErrorInvalidValue when the sizes are inconsistent or
-// the block does not fit.
+// h: tail samples, at least the reach W*M - R (a multiple of 4 for bodies
+// 1 and 2); i_offset in [0, M).  body 0: pfb_os_kernel, groups = output
+// groups per block, at most, halved until the block fits the card's opt-in
+// shared memory; body 1: pfb_os_reg_kernel (M in {2, 4, 8, 16}; groups
+// unused), 16-byte loads where all four streams are 16-byte aligned; body
+// 2: pfb_os_wide_kernel (M in {32, 64, 128}, L in {2, 4, 8, 16}; groups
+// unused, os_wide_chunks chunks a block), cp.async staging where all four
+// streams are 16-byte aligned.  Returns a cudaError_t; cudaErrorInvalidValue when the
+// sizes are inconsistent or the block does not fit.
 extern "C" int clen_pfb_oversampled(const void* xr, const void* xi,
                                     const void* tr, const void* ti,
                                     const void* taps, const void* tw, void* zr,
@@ -493,6 +865,19 @@ extern "C" int clen_pfb_oversampled(const void* xr, const void* xi,
       case 4: return launch_os_reg_m<4>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, st);
       case 8: return launch_os_reg_m<8>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, st);
       case 16: return launch_os_reg_m<16>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (body == 2) {
+    if (h % 4) return cudaErrorInvalidValue;
+    int chunks = 1;
+    const cudaError_t err = os_wide_chunks(m, r, w, &chunks);
+    if (err != cudaSuccess) return err;
+    const int l = m / r;
+    switch (m) {
+      case 32: return launch_os_wide_m<32>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, chunks, st);
+      case 64: return launch_os_wide_m<64>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, chunks, st);
+      case 128: return launch_os_wide_m<128>(l, fxr, fxi, ftr, fti, ftaps, fzr, fzi, n, h, w, i_offset, chunks, st);
       default: return cudaErrorInvalidValue;
     }
   }

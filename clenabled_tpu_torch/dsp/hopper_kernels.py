@@ -32,11 +32,14 @@ ported so far:
   carried sample.
 - ``pfb_oversampled_fused`` (``csrc/pfb_oversampled.cu``): the oversampled
   (R < M, R | M) PFB channelizer step — branch sums over the virtual stream
-  tail ++ frame, the output rotation and the unscaled inverse DFT.  Two
-  ``__global__`` bodies, chosen by M in ``os_body``:
+  tail ++ frame, the output rotation and the unscaled inverse DFT.  Three
+  ``__global__`` bodies, chosen in ``os_body``:
   ``pfb_os_reg_kernel`` (register-tiled phase FIR, in-register M-point
   DFTs, the rotation as an L-th-root twiddle) for M in {2, 4, 8, 16},
-  ``pfb_os_kernel`` otherwise.
+  ``pfb_os_wide_kernel`` (the same stages, M-point DFTs in two in-register
+  passes, chunks behind one staged window) for M in {32, 64, 128} at
+  L = M/R in {2, 4, 8, 16} where its block fits, ``pfb_os_kernel``
+  otherwise.
 - ``fft_batched_fused`` (``csrc/fft_batched.cu``): the batched unscaled FFT
   of the ``Fft`` block, windowed, in natural order.
 - ``costas_scalar`` (``csrc/costas.cu``): the exact sequential Costas loop,
@@ -1043,35 +1046,71 @@ qdemod_fused.launches = 0
 
 _OS_GROUPS = 2048    # pfb_os_kernel's outputs (groups × channels) a block, at most
 
-# the two __global__ bodies of csrc/pfb_oversampled.cu, by their C body code
-OS_BODIES = ("pfb_os_kernel", "pfb_os_reg_kernel")
+# the three __global__ bodies of csrc/pfb_oversampled.cu, by their C body code
+OS_BODIES = ("pfb_os_kernel", "pfb_os_reg_kernel", "pfb_os_wide_kernel")
 OS_REG_M = (2, 4, 8, 16)
+OS_WIDE_M = (32, 64, 128)
+OS_WIDE_L = (2, 4, 8, 16)
 
 
-def os_body(m: int) -> str:
-    """The kernel body an oversampled PFB call with ``m`` channels
-    launches: ``pfb_os_reg_kernel`` (register-tiled phase FIR, in-register
-    M-point DFTs, the rotation as an L-th-root twiddle) for m in {2, 4, 8,
-    16}, where 16 points a thread hold 16/m groups; ``pfb_os_kernel``
-    (shared-memory operands, a dense DFT) for every other m dividing
-    128."""
+def _pick_os_body(m: int, r: int, wide_smem: int, optin: int) -> str:
+    """``os_body``'s rule: ``pfb_os_reg_kernel`` for m in {2, 4, 8, 16};
+    ``pfb_os_wide_kernel`` for m in {32, 64, 128} at L = m/r in {2, 4, 8,
+    16} where its one-chunk block's ``wide_smem`` bytes of shared memory
+    fit the card's opt-in ``optin``; ``pfb_os_kernel`` otherwise."""
+    if m in OS_REG_M:
+        return OS_BODIES[1]
+    if (m in OS_WIDE_M and m % r == 0 and m // r in OS_WIDE_L
+            and wide_smem <= optin):
+        return OS_BODIES[2]
+    return OS_BODIES[0]
+
+
+def os_body(m: int, r: int, w: int, device) -> str:
+    """The kernel body an oversampled PFB call with ``m`` channels,
+    decimation ``r`` and ``w`` tap rows launches on the CUDA ``device``:
+    ``pfb_os_reg_kernel`` (register-tiled phase FIR, in-register M-point
+    DFTs, the rotation as an L-th-root twiddle) for m in {2, 4, 8, 16},
+    where 16 points a thread hold 16/m groups; ``pfb_os_wide_kernel`` (the
+    same stages, each M-point DFT in two in-register passes over M/16
+    lanes) for m in {32, 64, 128} at L = m/r in {2, 4, 8, 16} wherever its
+    one-chunk block (``clen_os_smem_bytes``) fits the card's opt-in shared
+    memory; ``pfb_os_kernel`` (shared-memory operands, a dense DFT) for
+    every other m dividing 128 and L.  A pure choice made before the
+    launch.  A CPU call runs the plain form, which has no body."""
     if m < 1 or LANES % m:
         raise ValueError(f"m must divide {LANES}; got {m}")
-    return OS_BODIES[1] if m in OS_REG_M else OS_BODIES[0]
+    if r < 1 or w < 1:
+        raise ValueError(f"need r >= 1 and w >= 1; got {r}, {w}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"os_body names a CUDA kernel body; got {device}")
+    return OS_BODIES[_os_body_code(m, r, w, device.index or 0)]
+
+
+@lru_cache(maxsize=None)
+def _os_body_code(m: int, r: int, w: int, index: int) -> int:
+    """``os_body``'s choice on card ``index``, as the C body code, made
+    once for each (m, r, w, card)."""
+    wide_smem = (_load().clen_os_smem_bytes(m, r, w, 1, OS_BODIES.index(
+        "pfb_os_wide_kernel")) if m in OS_WIDE_M else 0)
+    return OS_BODIES.index(_pick_os_body(m, r, wide_smem, _smem_optin(index)))
 
 
 def os_window_fits(m: int, r: int, w: int, device) -> bool:
     """Whether the oversampled kernel can run M=m, R=r with W=w tap rows on
-    ``device``: the smallest block of the body ``os_body(m)`` — one output
-    group's window, branch sums and twiddles for ``pfb_os_kernel``, the
-    fixed block of 2048/m groups for ``pfb_os_reg_kernel`` — must fit the
-    card's opt-in shared memory per block (``csrc/pfb_oversampled.cu``
-    sizes them).  The plain form on the CPU has no such limit."""
+    ``device``: the smallest block of the body ``os_body`` names — one
+    output group's window, branch sums and twiddles for ``pfb_os_kernel``,
+    the fixed block of 2048/m groups for ``pfb_os_reg_kernel``, one chunk
+    for ``pfb_os_wide_kernel`` — must fit the card's opt-in shared memory
+    per block (``csrc/pfb_oversampled.cu`` sizes them).  The plain form on
+    the CPU has no such limit."""
     device = torch.device(device)
     if device.type == "cpu":
         return True
     with torch.cuda.device(device):
-        fits = _load().clen_os_fits(m, r, w, OS_BODIES.index(os_body(m)))
+        fits = _load().clen_os_fits(m, r, w,
+                                    OS_BODIES.index(os_body(m, r, w, device)))
     if fits < 0:
         raise RuntimeError(f"cannot read {device}'s shared memory: CUDA "
                            f"error {-fits}")
@@ -1160,14 +1199,15 @@ def pfb_oversampled_fused(xr, xi, tail_r, tail_i, taps_rm, m: int, r: int,
         raise ValueError("the oversampled PFB kernel takes float32 streams")
     w, n, h = _check_os(xr, xi, tail_r, tail_i, taps, m, r)
     nout = n // r
-    body = OS_BODIES.index(os_body(m))
+    body = _os_body_code(m, r, w, dev.index or 0)
     lib = _load()
     zr = torch.empty((nout, m), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
     err = lib.clen_pfb_oversampled(
         xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
         taps.data_ptr(), tw.data_ptr(), zr.data_ptr(), zi.data_ptr(), n, h, m,
-        r, w, int(i_offset) % m, max(1, _OS_GROUPS // m), body, _stream(dev))
+        r, w, int(i_offset) % m, max(1, _OS_GROUPS // m), body,
+        _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"pfb_oversampled launch failed ({OS_BODIES[body]}): CUDA error "

@@ -18,5 +18,6 @@ from clenabled_tpu_torch.runtime.device import (  # noqa: F401
     get_device,
     mesh_device,
     require_hopper,
+    reset_context,
     set_default_mesh,
 )

@@ -107,6 +107,18 @@ def get_context() -> DeviceContext:
         return _context
 
 
+def reset_context() -> None:
+    """Drop the shared context and the default process group it was made
+    on.  The cached mesh and group are references to the process group: a
+    group destroyed while they live keeps its backend running (gloo's
+    device loop and worker threads) until the interpreter exits.
+    ``sharding.shutdown_distributed`` calls this before destroying the
+    group."""
+    global _context, _context_world
+    with _lock:
+        _context, _context_world = None, None
+
+
 def set_default_mesh(mesh) -> DeviceContext:
     """Install ``mesh`` (e.g. a 2-D ``{"host", "shard"}`` mesh from
     ``sharding.make_mesh``) as the shared context."""

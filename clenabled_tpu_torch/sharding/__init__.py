@@ -5,7 +5,8 @@ ranks of a ``DeviceMesh`` (one process a rank, NCCL on the cards or gloo on
 the CPU) and the reference's sequential carried state becomes
 communication:
 
-- ``mesh``: ``initialize_distributed`` and ``make_mesh``;
+- ``mesh``: ``initialize_distributed``, ``shutdown_distributed`` and
+  ``make_mesh``;
 - ``collectives``: ``ring_forward`` (JAX's ``ppermute`` on the forward
   ring), ``all_to_all`` (JAX's tiled ``all_to_all``), ``psum``,
   ``pmean``, ``broadcast``, ``axis_index``, ``axis_size``;
@@ -57,6 +58,7 @@ from clenabled_tpu_torch.sharding.planar_halo import (  # noqa: F401
 from clenabled_tpu_torch.sharding.mesh import (  # noqa: F401
     initialize_distributed,
     make_mesh,
+    shutdown_distributed,
 )
 from clenabled_tpu_torch.sharding.xcorr_sharded import (  # noqa: F401
     make_sharded_fd_xcorr,

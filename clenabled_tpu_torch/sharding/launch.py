@@ -10,7 +10,9 @@ rendezvous address.  Every rank joins one world through a TCP store on
 picked when the store was bound (port 0), so that concurrent runs never
 contend for a port.  Each rank brings up its group
 (``initialize_distributed``: NCCL on card ``rank`` for ``device="cuda"``,
-gloo for ``"cpu"``), calls ``fn(*args)``, tears its rank down, and hands
+gloo for ``"cpu"``), calls ``fn(*args)``, waits at a barrier for every
+rank to finish, tears its rank down (``shutdown_distributed``: the
+group's threads end before the process exits), and hands
 back what ``fn`` returned with every tensor as a numpy array (bfloat16 as
 float32, which holds it exactly).  ``fn`` is pickled by its import path:
 it must be a module-level function of a module that the children can
@@ -32,7 +34,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from clenabled_tpu_torch.sharding.mesh import BACKENDS, initialize_distributed
+from clenabled_tpu_torch.sharding.mesh import (BACKENDS, initialize_distributed,
+                                               shutdown_distributed)
 
 TIMEOUT_S = 300.0      # the bring-up and every collective of a spawned run
 HOST = "127.0.0.1"
@@ -62,8 +65,9 @@ def _rank_main(local: int, proc: int, ranks_per_proc: int, world: int,
                            store=store)
     try:
         out = _to_numpy(fn(*args))
+        dist.barrier()      # no rank tears down while a peer still uses a pair
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 

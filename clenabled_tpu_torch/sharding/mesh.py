@@ -61,6 +61,20 @@ def initialize_distributed(device: str, init_method: str | None = None,
                             rank=-1 if rank is None else rank, **kw)
 
 
+def shutdown_distributed() -> None:
+    """End this process's rank: drop the shared mesh context
+    (``runtime.device.reset_context``, whose mesh and cached group are
+    references to the process group), then ``destroy_process_group``, so
+    the backend's threads end here.  A group destroyed while the context
+    still held it lived on into interpreter exit, and a gloo rank whose
+    peer had closed its sockets then aborted there ("terminate called
+    without an active exception")."""
+    from clenabled_tpu_torch.runtime.device import reset_context
+
+    reset_context()
+    dist.destroy_process_group()
+
+
 def make_mesh(shape: dict[str, int] | None = None,
               device: str = "cuda") -> DeviceMesh:
     """A mesh over every rank of the initialised process group.  Default:

@@ -929,6 +929,38 @@ def world1():
             dist.destroy_process_group()
 
 
+def _gloo_threads() -> int:
+    """This process's gloo threads (device loops and process-group
+    workers), by their names under /proc."""
+    names = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                names.append(f.read().strip())
+        except OSError:
+            pass
+    return sum(n.startswith(("gloo", "pt_gloo")) for n in names)
+
+
+def test_shutdown_distributed_ends_the_gloo_threads():
+    """A rank's teardown (``S.shutdown_distributed``, as ``spawn``'s ranks
+    end) stops the group's gloo threads, though the shared context had
+    cached the mesh and the group: a destroyed group that the context
+    still held kept them running into interpreter exit, where a rank whose
+    peer had closed its sockets aborted."""
+    from clenabled_tpu_torch.runtime.device import get_context
+
+    before = _gloo_threads()
+    with tempfile.TemporaryDirectory() as workdir:
+        S.initialize_distributed("cpu", f"file://{workdir}/store", 1, 0)
+        try:
+            assert get_context().num_devices == 1
+            assert _gloo_threads() > before
+        finally:
+            S.shutdown_distributed()
+    assert _gloo_threads() == before
+
+
 def _seeded(dt: str, shape, seed: int, n: int = 2):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(_real(rng, dt, shape)).to(getattr(torch, dt))
