@@ -15,8 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    for each instantiation of the int8 Gram kernels, of the three
    oversampled-PFB bodies, of both direct-FIR bodies and of both
    packed-PFB bodies, its registers, stack frame and spill bytes; a spill
-   in ``fir_reg_kernel``, in any ``pfb_packed_reg_kernel<M>`` or in any
-   ``pfb_os_wide_kernel<M, L>`` fails.
+   in ``fir_reg_kernel``, in any ``pfb_packed_reg_kernel<M>``, in any
+   ``pfb_os_wide_kernel<M, L>`` or in any ``fx_wide_kernel<T, M>`` (also
+   printed, with both other FX bodies) fails.
 3. kernels — each kernel against its plain torch form on the card, TF32
    off, at the main paths' shapes, with kernel and plain times from CUDA
    events.  Tolerance 1e-4 × max|plain| for float32 sums in another order
@@ -30,7 +31,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``torch.bmm(w.mT, w, out_dtype=float32)`` on w =
    [zr | zi].  At M = 16 both FX entries run ``fx_reg_kernel`` (the body
    ``hopper_kernels.fx_body`` names; the kernels record gives it), timed
-   in f32, bf16 and int8 ingest.  The packed PFB (B.2) runs at the planar
+   in f32, bf16 and int8 ingest.  At M = 32, 64 and 128 (the step's own
+   25-tap-a-branch prototypes, 800, 1600 and 3200 taps), 4 × 2^23, in f32,
+   bf16 and int8 ingest, both FX entries (the v2 entry with the
+   ``fx_tail_len`` tail, the flat entry with a W·M − 1 history) run
+   ``fx_wide_kernel`` (which the rule must pick) and ``fx_tile_kernel``
+   (the first body, through the C entry with body 0, no wrapper counting
+   it), each held to the plain form and timed from ``torch.profiler``
+   beside its CUDA-event time, the plain form's and both bound counts
+   (``fx_bounds``); the new body must be the faster.  The packed PFB (B.2) runs at the planar
    step's shape ([8216, 128]: 4 antennas × 2^17, 16 channels, W = 25) and
    at the fused step's width ([524312, 128]: 4 × 2^23), then at M = 8, 4
    and 2, A = 1 and 3, W = 1 and 100, a ragged (8192 + 7 rows) and a short
@@ -50,7 +59,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    planar step must launch ``pfb_packed_reg_kernel`` once a step
    (``torch.profiler``'s kernel names); its device busy time and wall time
    a step over its 3 chained steps are printed, with the packed PFB
-   kernel's share of the busy time.
+   kernel's share of the busy time.  Then, counts reset, the fused step at
+   64 channels (the 1600-tap prototype, 4 × 2^23) for 3 chained steps in
+   f32 and int8; counts read: one launch a step, every step held to the
+   plain form, tails bit-equal, one ``fx_wide_kernel`` a step by the
+   profiler's kernel names, its device busy and wall time a step.
 5. ingest — ``HostIngest`` feeds 8 host frames through the fused step;
    device step time, kernel and plain times and end-to-end MSPS.
 6. flat FX path — counts reset, 3 chained frames of 4 × 2^23 through
@@ -396,6 +409,11 @@ OS_M, OS_R, OS_N, OS_FRAMES, OS_DEEP_N = 16, 8, 1 << 23, 4, 1 << 21
 # BENCH_TPU.md:177-179's 64-channel R=16 (192- and 1600-tap prototypes) and
 # 32-channel R=4 (96 taps) channelizers, and 128 channels R=16 on
 # firdes.low_pass(1, 128, 0.5, 0.25): (label, M, R, ntaps or None)
+# the fused FX step's wide body: 32, 64 and 128 channels on the step's own
+# 25-tap-a-branch prototypes (800, 1600 and 3200 taps), 4 x 2^23, each ingest
+# dtype, both entries; the 64-channel step (the 1600-tap prototype of
+# BENCH_TPU.md:177) as a counted path
+FX_WIDE_M, FX_PATH_M = (32, 64, 128), 64
 OS_WIDE = [("64ch R=16 192 taps", 64, 16, 192),
            ("64ch R=16 1600 taps", 64, 16, 1600),
            ("32ch R=4 96 taps", 32, 4, 96), ("128ch R=16", 128, 16, None)]
@@ -443,7 +461,8 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # (costas_kernel<order, halved gains> matches "costas_kernel",
 # costas_lanes_kernel<...> "costas_lanes_kernel"; the sin/cos probe is
 # counted by no wrapper and runs in no timed window)
-PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "pfb_packed_kernel",
+PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "fx_wide_kernel",
+                "pfb_packed_kernel",
                 "pfb_packed_reg_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
@@ -593,11 +612,16 @@ def gram_phase(torch, hk, gen, dev) -> dict:
     return res
 
 
+# mangled type arguments of the kernels' templates
+PTXAS_TYPES = {"f": "float", "a": "int8_t", "13__nv_bfloat16": "__nv_bfloat16"}
+
+
 def ptxas_summary(log: str, names) -> dict:
     """Registers, stack frame and spill bytes of each instantiation of the
     named kernels in an ``nvcc -Xptxas -v`` log, keyed ``name<true>`` /
     ``name<false>`` for a kernel templated on one bool, ``name<16, 2>`` for
-    one templated on ints, ``name<2, true>`` for ints then bools."""
+    one templated on ints, ``name<2, true>`` for ints then bools,
+    ``name<float, 64>`` for a type then ints."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -606,14 +630,16 @@ def ptxas_summary(log: str, names) -> dict:
             for name in names:
                 if name in m.group(1):
                     arg = re.search(name + r"ILb([01])E", m.group(1))
-                    ints = re.search(name + r"I((?:L[ib]\d+E)+)E",
-                                     m.group(1))
+                    ints = re.search(name + r"I(f|a|13__nv_bfloat16)?"
+                                     r"((?:L[ib]\d+E)+)E", m.group(1))
                     if arg:
                         cur = f"{name}<{('false', 'true')[int(arg.group(1))]}>"
                     elif ints:
                         vals = [v if t == "i" else ("false", "true")[int(v)]
                                 for t, v in re.findall(r"L([ib])(\d+)E",
-                                                       ints.group(1))]
+                                                       ints.group(2))]
+                        if ints.group(1):
+                            vals.insert(0, PTXAS_TYPES[ints.group(1)])
                         cur = f"{name}<{', '.join(vals)}>"
                     else:
                         cur = name
@@ -729,6 +755,162 @@ def flat_fx_phase(torch, hk, gen, dev, taps) -> tuple[int, float]:
         worst = max(worst, check(torch, f"flat step {k}", outs[k], want))
         hist = c[:, -hl:]
     return launches, worst
+
+
+def fx_ops(n: int, m: int, w: int, fft: bool = True) -> float:
+    """Operations of one fused FX step over A streams of n samples, M = m,
+    w tap rows, default pairs: the branch FIR (2·w a sample and component),
+    the stage-1 and lag M-point transforms as FFTs (5·M·log2 M real flops
+    each, as fx_reg_kernel and fx_wide_kernel run them) or as dense DFTs
+    (8·M², as fx_tile_kernel does), the lag products and magnitudes (10 a
+    bin) and the Gram products (8 a bin and baseline)."""
+    nfd, nb = A - 1, A * (A + 1) // 2
+    dft = 5 * m * math.log2(m) if fft else 8 * m * m
+    return (4 * A * n * w + A * (n // m) * dft
+            + nfd * (n // m) * (10 * m + dft) + nb * n * 8)
+
+
+def fx_bounds(n: int, h: int, m: int, w: int, elem: int) -> dict:
+    """The least time of one fused FX step: the frame and tail (``elem``
+    bytes a sample) and the taps read once, the sums written once, against
+    ``fx_ops`` with the transforms as FFTs (``bound``, and
+    ``operations_ms``) and as dense DFTs (``dense_bound_ms``)."""
+    nbytes = elem * 2 * A * (n + h) + 4 * w * m
+    return {"bound": bound(nbytes, fx_ops(n, m, w)),
+            "bytes_ms": nbytes / HBM_BPS * 1e3,
+            "operations_ms": fx_ops(n, m, w) / FP32_OPS * 1e3,
+            "dense_bound_ms": bound(nbytes, fx_ops(n, m, w, False))[0]}
+
+
+def fx_wide_times(torch, hk, P, gen, dev, m: int, dt) -> dict:
+    """One (M, dtype) of ``FX_WIDE_M`` at 4 × 2^23 on the step's own
+    prototype: the v2 entry (the ``fx_tail_len`` tail) and the flat entry
+    (a W·m − 1 history) on the rule's body, which must be fx_wide_kernel,
+    and on fx_tile_kernel through the C entry, each held to the plain form
+    and timed (``call_times``) beside the plain form's events and
+    ``fx_bounds``."""
+    taps_rm, ntaps = P._prototype(m, 100e6)
+    taps = torch.as_tensor(taps_rm, device=dev)
+    w = taps.shape[0]
+    body = hk.fx_body(m, A, w, dev)
+    if body != "fx_wide_kernel":
+        fail(f"fx_correlate at M = {m}: the rule picks {body}, not "
+             f"fx_wide_kernel")
+    name = str(dt).removeprefix("torch.")
+    elem = torch.tensor([], dtype=dt).element_size()
+    h = hk.fx_tail_len(dt, m, ntaps)
+    hl = w * m - 1
+    xr, xi = (frames(torch, gen, dt, (A, N_FULL), dev) for _ in range(2))
+    tr, ti = (frames(torch, gen, dt, (A, h), dev) for _ in range(2))
+    res = {"w": w, "h": h, "hist": hl, "err": 0.0}
+    flat_ins = (xr, xi, tr[:, -hl:].contiguous(), ti[:, -hl:].contiguous())
+    comps, hist = torch.cat([xr, xi]), torch.cat(flat_ins[2:])
+    entries = {
+        "v2": ((xr, xi, tr, ti),
+               lambda: hk.fx_correlate_streams_v2(xr, xi, tr, ti, taps, A, m)),
+        "flat": (flat_ins,
+                 lambda: hk.fx_correlate_streams(comps, hist, taps, A, m))}
+    for entry, (ins, wrapped) in entries.items():
+        label = f"fx_correlate {entry} M={m} {name} [{A}x{N_FULL}]"
+        want = hk.fx_correlate_streams_v2_plain(*ins, taps, A, m)
+        got = wrapped()
+        torch.cuda.synchronize()
+        err = check(torch, f"{label} on {body}", got, want)
+
+        def first():    # the first body through the C entry, uncounted
+            return hk._launch_fx(*ins, taps, A, m, None, None,
+                                 body="fx_tile_kernel")
+
+        err = max(err, check(torch, f"{label} on fx_tile_kernel (the first "
+                                    f"body)", first(), want))
+        new_t = call_times(torch, f"{label} {body}", wrapped)
+        first_t = call_times(torch, f"{label} fx_tile_kernel", first)
+        plain_ms = time_ms(torch, lambda: hk.fx_correlate_streams_v2_plain(
+            *ins, taps, A, m), reps=3, warmup=1)
+        b = fx_bounds(N_FULL, ins[2].shape[-1], m, w, elem)
+        phase("time", f"{label}: {body} {new_t['ms']:.4f} ms "
+                      f"({b['bound'][0] / new_t['ms']:.0%} of its "
+                      f"{b['bound'][0]:.4f} ms bound, {b['bound'][1]}; dense-"
+                      f"DFT count {b['dense_bound_ms']:.4f}), fx_tile_kernel "
+                      f"{first_t['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+        if not new_t["ms"] < first_t["ms"]:
+            fail(f"{label}: {body} is not faster than fx_tile_kernel")
+        res[entry] = {"ms": new_t["ms"], "device_ms": new_t["device_ms"],
+                      "events_ms": new_t["events_ms"],
+                      "first_body_ms": first_t["ms"],
+                      "first_body_events_ms": first_t["events_ms"],
+                      "plain_ms": plain_ms, "max_abs_err": err,
+                      "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
+                      **{k: v for k, v in b.items() if k != "bound"}}
+        res["err"] = max(res["err"], err)
+        del got, want
+    del xr, xi, tr, ti, flat_ins, comps, hist, entries
+    torch.cuda.empty_cache()
+    return res
+
+
+def fx_wide_path(torch, hk, P, gen, dev) -> dict:
+    """Counts reset, the fused step at 64 channels (the step's 1600-tap
+    prototype), 4 × 2^23, 3 chained steps in f32 and int8 ingest; counts
+    read: one launch a step, each step held to the plain form, the tails
+    bit-equal; then one step's kernels by name (``torch.profiler``: one
+    fx_wide_kernel) and the device busy and wall time a step."""
+    from clenabled_tpu_torch.runtime.device import launched_kernels
+
+    m = FX_PATH_M
+    cfg = P.FxPipelineConfig(num_antennas=A, num_channels=m,
+                             samples_per_step=N_FULL)
+    runs = {}
+    for label, dt in (("f32", torch.float32), ("int8", torch.int8)):
+        fn, (_, _, tr0, ti0) = P.make_fx_pipeline_fused(cfg, in_dtype=dt,
+                                                        device=dev)
+        runs[label] = (fn, [(frames(torch, gen, dt, (A, N_FULL), dev),
+                             frames(torch, gen, dt, (A, N_FULL), dev))
+                            for _ in range(STEPS)], tr0, ti0)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = {}
+    for label, (fn, fr, tr, ti) in runs.items():
+        outs[label] = []
+        for xr, xi in fr:
+            o = fn(xr, xi, tr, ti)
+            outs[label].append(o)
+            tr, ti = o[3], o[4]
+    torch.cuda.synchronize()
+    launches = hk.fx_correlate_streams_v2.launches
+    phase("main", f"fused step {A}x{N_FULL} at {m} channels "
+                  f"({runs['f32'][0].taps_rm.shape[0] * m} taps), f32 and "
+                  f"int8, {STEPS} steps each; launches {launches}")
+    if launches != 2 * STEPS:
+        fail(f"the {m}-channel fused step launched fx_correlate_streams_v2 "
+             f"{launches} times in {2 * STEPS} steps")
+    res = {"launches": launches, "err": 0.0}
+    for label, (fn, fr, tr, ti) in runs.items():
+        for k, (xr, xi) in enumerate(fr):
+            fd_sum, gram = hk.fx_correlate_streams_v2_plain(
+                xr, xi, tr, ti, fn.taps_rm, A, m)
+            want = (torch.roll(fd_sum / (N_FULL // m), m // 2, dims=-1),
+                    gram[:, :m].T[:, :, None], gram[:, m:].T[:, :, None])
+            got = outs[label][k]
+            res["err"] = max(res["err"], check(
+                torch, f"fused {label} {m}ch step {k}", got[:3], want))
+            h = fn.tail_len
+            if not (torch.equal(got[3], xr[:, -h:])
+                    and torch.equal(got[4], xi[:, -h:])):
+                fail(f"fused {label} {m}ch step {k}: carried tail is wrong")
+            tr, ti = got[3], got[4]
+    del outs
+    for label, (fn, fr, tr, ti) in runs.items():
+        xr, xi = fr[0]
+        _, names = launched_kernels(lambda: fn(xr, xi, tr, ti))
+        if sum("fx_wide_kernel" in n for n in names) != 1:
+            fail(f"the {m}-channel {label} step launched {names}, not one "
+                 f"fx_wide_kernel")
+        phase("main", f"{m}-channel {label} step kernels: "
+                      f"{sorted(set(short_name(n) for n in names))}")
+        res[label] = path_times(torch, f"fused step {m}ch {label}",
+                                lambda: fn(xr, xi, tr, ti), N_FULL)
+    return res
 
 
 def xengine_phase(torch, hk, gen, dev) -> dict:
@@ -990,9 +1172,10 @@ def pfb_on_body(torch, hk, y, hr, a: int, m: int, body: str):
     return call
 
 
-def pfb_times(torch, label: str, call) -> dict:
-    """A call's device time (``runtime.device.device_time_ms``: one kernel
-    a call, 10 calls) and its time on CUDA events around 10 back-to-back
+def call_times(torch, label: str, call) -> dict:
+    """A call's device time (``runtime.device.device_time_ms``: the kernels
+    of 10 calls, each call's own kernel and, for the FX step, its
+    fx_reduce_kernel) and its time on CUDA events around 10 back-to-back
     calls; ``ms`` is the device time, the events' where the profiler
     records none."""
     from clenabled_tpu_torch.runtime.device import device_time_ms
@@ -1042,9 +1225,9 @@ def pfb_packed_phase(torch, hk, gen, dev) -> dict:
             first_err = check(torch, f"pfb_packed {label} {shape} on "
                                      f"pfb_packed_kernel (the first body)",
                               [first()], [want])
-            new = pfb_times(torch, f"pfb_packed {label} {shape} ({body})",
+            new = call_times(torch, f"pfb_packed {label} {shape} ({body})",
                             lambda: hk.pfb_channelize_packed(y, hr, a, m))
-            old = pfb_times(torch, f"pfb_packed {label} {shape} "
+            old = call_times(torch, f"pfb_packed {label} {shape} "
                                    f"(pfb_packed_kernel, the first body)",
                             first)
             plain_ms = time_ms(torch, lambda: hk.pfb_channelize_packed_plain(
@@ -4448,6 +4631,18 @@ def main() -> None:
                 "spill_loads"):
             fail(f"pfb_packed_reg_kernel<{m}>: ptxas reports "
                  f"{reg or 'nothing'}")
+    fx_ptxas = ptxas_summary(_build.last_build["log"],
+                             ("fx_reg_kernel", "fx_wide_kernel",
+                              "fx_tile_kernel"))
+    for name, info in fx_ptxas.items():
+        phase("ptxas", f"{name}: {info}")
+    for m in hk.FX_WIDE_M:
+        for t in PTXAS_TYPES.values():
+            reg = fx_ptxas.get(f"fx_wide_kernel<{t}, {m}>", {})
+            if "registers" not in reg or reg.get("spill_stores") or reg.get(
+                    "spill_loads"):
+                fail(f"fx_wide_kernel<{t}, {m}>: ptxas reports "
+                     f"{reg or 'nothing'}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4514,6 +4709,11 @@ def main() -> None:
     phase("time", f"fx_correlate_streams: kernel {times['fx1'][0]:.3f} ms, "
                   f"plain {times['fx1'][1]:.3f} ms")
     del comps, hist, got
+    fx_wide = {f"{m}ch {str(dt).removeprefix('torch.')}":
+               fx_wide_times(torch, hk, P, gen, dev, m, dt)
+               for m in FX_WIDE_M
+               for dt in (torch.float32, torch.bfloat16, torch.int8)}
+    errs["fx"] = max([errs["fx"]] + [r["err"] for r in fx_wide.values()])
     gram_res = gram_phase(torch, hk, gen, dev)
 
     # 4. the main path, counted
@@ -4609,6 +4809,11 @@ def main() -> None:
     check(torch, "fused vs complex64 pipeline (2^14)",
           [got[0], torch.complex(got[1], got[2])], [fd_c, xm_c])
     del runs, outs, fr
+    torch.cuda.empty_cache()
+    # the fused step at 64 channels, counted on its own
+    fx_path = fx_wide_path(torch, hk, P, gen, dev)
+    errs["fx"] = max(errs["fx"], fx_path["err"])
+    torch.cuda.empty_cache()
 
     # 5. HostIngest at full width
     fn = fused["f32"][0]
@@ -4740,13 +4945,6 @@ def main() -> None:
     h32 = hk.fx_tail_len(torch.float32, M, ntaps)
     w = taps.shape[0]
 
-    def fx_ops(n, fft=True):
-        # the M-point transforms as FFTs (5·M·log2 M real flops each), as
-        # fx_reg_kernel runs them, or as dense DFTs (8·M² each)
-        dft = 5 * M * math.log2(M) if fft else 8 * M * M
-        return (4 * A * n * w + A * (n // M) * dft
-                + nfd * (n // M) * (10 * M + dft) + nb * n * 8)
-
     sp = XE_S * XE_P
 
     def gram_bound(f, t, width, elem, rate):
@@ -4768,9 +4966,10 @@ def main() -> None:
 
     k49, p49 = plan49.ntaps, plan49.fft_size
     bounds = {
-        "fx": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL)),
-        "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL)),
-        "fx dense": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL, False)),
+        "fx": bound(4 * 2 * A * (N_FULL + h32), fx_ops(N_FULL, M, w)),
+        "fx1": bound(4 * 2 * A * (N_FULL + w * M - 1), fx_ops(N_FULL, M, w)),
+        "fx dense": bound(4 * 2 * A * (N_FULL + h32),
+                          fx_ops(N_FULL, M, w, False)),
         "gram": gram_bound(XE_F, XE_T, sp, 1, INT8_OPS),
         "gram bf16": gram_bound(XE_F, XE_T, sp, 2, BF16_OPS),
         "gram k=4": gram_bound(16, XE_T, 512, 1, INT8_OPS),
@@ -4799,7 +4998,11 @@ def main() -> None:
                  "fx_correlate_streams_v2", 0),
              ms_plain_ms_by_dtype={k[3:]: times[k] for k in (
                  "fx f32", "fx bf16", "fx int8")},
-             dense_dft_bound_ms=bounds["fx dense"][0]),
+             dense_dft_bound_ms=bounds["fx dense"][0],
+             wide={k: dict(r["v2"], w=r["w"], h=r["h"])
+                   for k, r in fx_wide.items()},
+             wide_path=fx_path,
+             cuda_kernels=sorted(fx_ptxas), ptxas=fx_ptxas),
         dict(entry("pfb_channelize_packed", "pfb_packed.cu", 1678,
                    launches["pfb"], errs["pfb"], pk_entry["ms"],
                    pk_entry["plain_ms"], pk_entry["bounds"]["bound"]),
@@ -4820,7 +5023,9 @@ def main() -> None:
              cuda_kernels=sorted(pk_ptxas), ptxas=pk_ptxas),
         dict(entry("fx_correlate_streams", "fx_correlate.cu", 876,
                    flat_launches, max(errs["fx1"], errs["fx1 path"]),
-                   *times["fx1"], bounds["fx1"]), body=hk.fx_body(M)),
+                   *times["fx1"], bounds["fx1"]), body=hk.fx_body(M),
+             wide={k: dict(r["flat"], w=r["w"], h=r["hist"])
+                   for k, r in fx_wide.items()}),
         dict(entry("xengine_gram_stacked", "xengine_gram_int8.cu", 2142,
                    xe["launches"], 0.0, *gram_res["int8"], bounds["gram"]),
              sharded_launches=sharded["xengine"]["launches"]["int8"],

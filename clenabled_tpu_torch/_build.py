@@ -35,6 +35,7 @@ _SIGNATURES = {
     "clen_fx_correlate": ([_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "clen_fx_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "clen_fx_partial_width": ([_I, _I, _I, _I], _I),
     "clen_pfb_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "clen_pfb_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     "clen_xengine_gram": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),

@@ -13,17 +13,18 @@
 //   fd[f, l]   = sum_t | sum_k z_p[t,k] conj(z_q[t,k]) exp(+2*pi*i*k*l/m) |
 //   gram[b, k] = sum_t Re(z_s1 conj z_s2),  gram[b, m + k] = sum_t Im(...)
 //
-// Design.  Each block owns a tile of `tile` output vectors.  It stages its
-// window of v for all 2A components in shared memory (index arithmetic picks
-// the tail or the frame, so no host concat; int8/bf16 widen to f32 after the
-// load and int8 stays unscaled), computes the branch sums, the stage-1 DFT,
+// Design.  Each block owns a tile of `tile` output vectors.  It reads its
+// window of v for all 2A components (index arithmetic picks the tail or the
+// frame, so no host concat; int8/bf16 widen to f32 after the load and int8
+// stays unscaled), computes the branch sums, the stage-1 DFT,
 // the per-pair lag DFT and sqrtf, and reduces over its t in fixed order into
 // a per-block partial row.  A second launch sums the partial rows in fixed
 // block order, so the output is deterministic and no atomics are used.  (On
 // the TPU the sums ride a sequential grid in VMEM scratch; Hopper blocks run
 // in no order, hence the two passes.)
 //
-// Two bodies, chosen by M (hopper_kernels.fx_body names the one a call runs):
+// Three bodies (hopper_kernels.fx_body names the one a call runs: a pure
+// rule on M and whether the block fits the card's shared memory):
 //
 // fx_reg_kernel<T, M>, M in {2, 4, 8, 16}, tile = 1024/M, 256 threads, 4
 // blocks an SM (3 at M = 2, and for int8 at M = 4 and 8).  Every
@@ -49,15 +50,61 @@
 //   The FIR warp of component c overwrites the start of c's window row with
 //   its sums, which the DFT stage turns into z in place: logical x = t*M + k
 //   lives at x ^ (((x >> 5) & 15) << 1) (float2 accesses, half-warp phases).
-// fx_tile_kernel<T>, every other M (1, 32, 64, 128): the first design, each
-//   multiply-add reading its operands from shared memory.
+// fx_wide_kernel<T, M>, M in {32, 64, 128} (a third __global__ body, not
+// a widening of fx_reg_kernel, whose DFT lanes hold whole vectors): each
+// M = 16 Q point transform, stage 1 and the lag, split over Q lanes in two
+// in-register passes (widedft::transform, wide_dft.cuh, as in
+// pfb_oversampled.cu's pfb_os_wide_kernel).  256 threads, two blocks an SM
+// (at most 128 registers).  A block owns 4096 samples a component (4096/M
+// vectors) in kWideChunks = 2 chunks of CU = 2048/M vectors; per chunk:
+//   FIR    from device memory, no staging: lane = (antenna, strip of 16
+//          vectors, branch j) over both components, j fastest, so a warp
+//          reads 32 consecutive words of one row of M (a 128-byte line for
+//          f32); 16 sums and a 16-row window of each component in
+//          registers, the slots rotating with the tap step: one tap load
+//          and two window loads per 32 FMAs.  A strip reads 16 + W rows for
+//          16 vectors (2.6x at W = 25, through L1 and L2; once from DRAM);
+//          a strip wholly in the frame reads it by pointer, others (the
+//          tail/frame seam, the frame's end) pick tail or frame a sample.
+//          The complex sums go to float2 slots of the chunk's z area
+//          (widedft::fir_slot; group g = antenna CU + vector, warp tile
+//          g / GW, GW = 32/Q vectors a tile).
+//   DFT    each warp transforms its tiles in place (fir_slot in, out_slot
+//          out): z of all antennas for the chunk's vectors stays in shared
+//          memory.
+//   jobs   job j on warp j mod 8, the same in every chunk.  Lag jobs (FD
+//          pair f, half of the chunk's vectors): lane (gl, q) takes vector
+//          GW r + gl of each round r, z_p conj(z_q) at bins q + Q m (loaded
+//          from out_slot, conflict free), the same two-pass transform
+//          through the warp's exchange tile, |.| of its 16 bins added over
+//          its vectors in registers; then a halving fold over the tile's GW
+//          group lanes (log2 GW shuffle steps a chunk) leaves each lag bin on
+//          one lane.  Gram jobs (baseline b): lane takes bins lane + 32 i (i
+//          < M/32) of every vector, 2 M/32 sums in registers.  Each job's
+//          sums go to its own words of the block's partial row (stored in
+//          chunk 0, added to in chunk 1), the two halves of a pair's lag as
+//          two runs that fx_reduce_kernel adds in fixed order.
+//   Shared memory: a * 2048 float2 (the chunk's sums / z), 8 x 512 float2
+//   (the lag exchange tiles), M float2 (the pass-1 table): 8 (2048 a +
+//   4096 + M) bytes, 98,816 at a = 4, M = 64; two blocks fit an H100 SM
+//   up to a = 5, one up to a = 12 (the opt-in 227 KB); past that the rule
+//   keeps fx_tile_kernel.  The partial rows are (2 nfd + 2 nb) M floats a
+//   block: 13.6 MB at 4 x 2^23, M = 64 (fx_tile_kernel's 96 MB).
+//   tests/test_torch_kernels.py replays the FIR schedule, the reads, the
+//   transforms, the fold and the jobs in numpy against the plain form, and
+//   checks every warp access's banks.
+// fx_tile_kernel<T>, every other M (1, and 32-128 where the wide block does
+//   not fit): the first design, each multiply-add reading its operands from
+//   shared memory.
 //
 // Bound on the H100: 256 MiB read for f32 ingest at 4 x 2^23 against about
-// 5.5 GFLOP when the M-point transforms are counted as FFTs: level, about
-// 0.08 ms each (chip_smoke.py reports the bound it counts).  fx_reg_kernel
-// is neither: it runs its stages one after another behind block barriers,
-// and only the other resident blocks overlap one block's staging with
-// arithmetic (tools/fx_ab.py splits its time by stage).
+// 5.5 GFLOP when the M-point transforms are counted as FFTs at M = 16
+// (6.0 at 64): level, about 0.08-0.09 ms each (chip_smoke.py reports the
+// bound it counts).  fx_reg_kernel is neither: it runs its stages one after
+// another behind block barriers, and only the other resident blocks overlap
+// one block's staging with arithmetic (tools/fx_ab.py splits its time by
+// stage); fx_wide_kernel too, three barriers a chunk, its FIR's loads
+// overlapped by its own FMAs and the other block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,6 +113,7 @@
 #include <type_traits>
 
 #include "fft_core.cuh"
+#include "wide_dft.cuh"
 
 namespace {
 
@@ -223,24 +271,49 @@ __global__ void fx_tile_kernel(const T* __restrict__ xr, const T* __restrict__ x
   }
 }
 
-// out[o] = sum over blocks of partial[blk][o], in a fixed order: thread i
-// sums blocks i, i + 256, ... and a fixed tree folds the 256 threads.
-constexpr int kReduceThreads = 256;
+// out[o] = sum over blocks of partial[blk][o], in a fixed order: a block of
+// 8 x 32 threads takes 8 consecutive outputs, thread (x, y) sums rows y +
+// 32 i of output x into four sums by i mod 4 (a warp reads 32-byte runs of
+// 4 rows; four loads in flight), adds them in a fixed order, then a fixed
+// tree folds the 32 threads of each output.  A partial row holds each FD
+// pair's lag sums as ls consecutive runs of m (fx_wide_kernel's lag jobs,
+// one run each, added in run order) and then the Gram sums; ls = 1 for the
+// other bodies.  lag = nfd * m; nout = lag + 2 nb m outputs.
+constexpr int kReduceCols = 8;
+constexpr int kReduceRows = 32;
 
-__global__ void fx_reduce_kernel(const float* __restrict__ partial, int nblk,
-                                 int width, float* __restrict__ out) {
-  __shared__ float red[kReduceThreads];
-  const int o = blockIdx.x;
+__global__ void __launch_bounds__(kReduceCols * kReduceRows)
+fx_reduce_kernel(const float* __restrict__ partial, int nblk, int width, int lag,
+                 int m, int ls, int nout, float* __restrict__ out) {
+  __shared__ float red[kReduceRows][kReduceCols];
+  const int x = threadIdx.x % kReduceCols;
+  const int y = threadIdx.x / kReduceCols;
+  const int o = blockIdx.x * kReduceCols + x;
   float s = 0.f;
-  for (int b = threadIdx.x; b < nblk; b += kReduceThreads)
-    s += partial[(long long)b * width + o];
-  red[threadIdx.x] = s;
+  if (o < nout) {
+    const bool in_lag = o < lag;
+    const int col = in_lag ? o / m * ls * m + o % m : o + lag * (ls - 1);
+    const int runs = in_lag ? ls : 1;
+    for (int r = 0; r < runs; ++r) {
+      const float* p = partial + col + r * m;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int b = y;
+      for (; b + 3 * kReduceRows < nblk; b += 4 * kReduceRows) {
+        fftcore::static_for<4>([&](auto i) {
+          acc[i] += p[(long long)(b + decltype(i)::value * kReduceRows) * width];
+        });
+      }
+      for (int i = 0; b < nblk; b += kReduceRows, ++i) acc[i] += p[(long long)b * width];
+      s += (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    }
+  }
+  red[y][x] = s;
   __syncthreads();
-  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
+  for (int stride = kReduceRows / 2; stride > 0; stride >>= 1) {
+    if (y < stride) red[y][x] += red[y + stride][x];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[o] = red[0];
+  if (y == 0 && o < nout) out[o] = red[0][x];
 }
 
 // ---- fx_reg_kernel ---------------------------------------------------------
@@ -629,6 +702,276 @@ fx_reg_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
+// ---- fx_wide_kernel --------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideChunk = 2048;        // samples a component a chunk: CU = 2048 / M vectors
+constexpr int kWideChunks = 2;          // chunks a block: 4096 samples a component
+constexpr int kWideStrip = 16;          // output vectors a FIR lane sums
+constexpr int kWideTile = 512;          // float2 slots of a warp's tile (wide_dft.cuh)
+constexpr int kWideLagSplits = 2;       // lag jobs a pair a chunk, each half its vectors
+
+// shared-memory bytes of a block: a chunk's sums / z of all a antennas
+// (a * 2048 float2), the warps' lag exchange tiles and the pass-1 table
+__host__ __device__ inline long long fx_wide_smem_bytes(int a, int m) {
+  return 8LL * ((long long)a * kWideChunk + kWideWarps * kWideTile + m);
+}
+
+// fold s[0 .. CNT) over the lanes that differ in lane bits MASK, MASK / 2,
+// ... STOP by halving steps (a lane keeps the upper half where its bit is
+// set): with MASK = 16 and STOP = Q, lane (gl, q) ends holding in s[v] the
+// warp's sum over gl of entry gl * CNT Q / 32 + v, v < CNT Q / 32
+template <int CNT, int MASK, int STOP, int N>
+__device__ __forceinline__ void halve_fold(float (&s)[N], int lane) {
+  if constexpr (MASK >= STOP) {
+    constexpr int H = CNT / 2;
+    const bool up = lane & MASK;
+    fftcore::static_for<H>([&](auto i) {
+      const float send = up ? s[i] : s[i + H];
+      const float keep = up ? s[i + H] : s[i];
+      s[i] = keep + __shfl_xor_sync(0xffffffffu, send, MASK);
+    });
+    halve_fold<H, MASK / 2, STOP>(s, lane);
+  }
+}
+
+// tap step d of a FIR strip (RR = d mod S): the S sums of both components
+// take tap * window row d + s, whose value sits in slot (s + RR) mod S;
+// then row d + S goes into the slot row d leaves
+template <int RR, int S, class Load>
+__device__ __forceinline__ void fir_tap(float (&vr)[S], float (&vi)[S], float (&ar)[S],
+                                        float (&ai)[S], float tap, const Load& ld, int d) {
+  fftcore::static_for<S>([&](auto s) {
+    ar[s] = fmaf(tap, vr[(decltype(s)::value + RR) % S], ar[s]);
+    ai[s] = fmaf(tap, vi[(decltype(s)::value + RR) % S], ai[s]);
+  });
+  const float2 x = ld(d + S);
+  vr[RR] = x.x;
+  vi[RR] = x.y;
+}
+
+// one FIR strip: ar[s] + i ai[s] = sum_{d < w} tp[-d M] * ld(s + d), both
+// components, from 0.f in ascending d; ld(r) gives window row r of the
+// strip's column (rows 0 .. S + w - 1 are read), tp points at the branch's
+// tap in row W - 1
+template <int S, int M, class Load>
+__device__ __forceinline__ void fir_strip(float (&ar)[S], float (&ai)[S],
+                                          const float* tp, int w, const Load& ld) {
+  float vr[S], vi[S];
+  fftcore::static_for<S>([&](auto k) {
+    const float2 x = ld(decltype(k)::value);
+    vr[k] = x.x;
+    vi[k] = x.y;
+    ar[k] = 0.f;
+    ai[k] = 0.f;
+  });
+  int d0 = 0;
+  for (; d0 + S <= w; d0 += S) {
+    fftcore::static_for<S>([&](auto r) {
+      constexpr int rr = decltype(r)::value;
+      fir_tap<rr>(vr, vi, ar, ai, __ldg(tp - (d0 + rr) * M), ld, d0 + rr);
+    });
+  }
+  const int left = w - d0;
+  fftcore::static_for<S>([&](auto r) {
+    constexpr int rr = decltype(r)::value;
+    if (rr < left) fir_tap<rr>(vr, vi, ar, ai, __ldg(tp - (d0 + rr) * M), ld, d0 + rr);
+  });
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kWideThreads, 2)
+fx_wide_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+               const T* __restrict__ tr, const T* __restrict__ ti,
+               const float* __restrict__ taps,
+               const int* __restrict__ fd_pairs, int nfd,
+               const int* __restrict__ xe_pairs, int nb,
+               int a, int w, int n, int h, float* __restrict__ partial) {
+  static_assert(M == 32 || M == 64 || M == 128, "M must be 32, 64 or 128");
+  constexpr int Q = M / 16;                // lanes a group's transform spans
+  constexpr int GW = 32 / Q;               // groups a warp tile holds
+  constexpr int CU = kWideChunk / M;       // output vectors a chunk
+  constexpr int S = kWideStrip;
+  constexpr int NQ = CU / S;               // FIR strips a chunk
+  constexpr int RPJ = CU / GW / kWideLagSplits;  // lag rounds a job
+  constexpr int KL = M / 32;               // Gram bins a lane
+  constexpr int V = 16 / GW;               // lag sums a lane keeps after the fold
+  constexpr int LS = kWideLagSplits;
+  extern __shared__ float smem[];
+  // [a * CU groups][M] float2: a chunk's FIR sums (fir_slot), then z
+  // (out_slot); group g = antenna * CU + vector, tile g / GW
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* scratch = z + (long long)a * kWideChunk;   // [warps][512] lag exchange
+  float2* tw1 = scratch + kWideWarps * kWideTile;    // [M] pass-1 twiddles
+  widedft::twiddles<M>(tw1, threadIdx.x, kWideThreads);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gl = lane / Q;                 // the lane's group in its tile
+  const int q = lane % Q;
+  const int nout = n / M;
+  const long long t0 = (long long)blockIdx.x * (kWideChunks * CU);
+  const int tvalid = (int)min((long long)(kWideChunks * CU), nout - t0);
+  const int jobs = nfd * LS + nb;
+  const int width = (nfd * LS + 2 * nb) * M;
+  float* out = partial + (long long)blockIdx.x * width;
+
+  for (int ch = 0; ch < kWideChunks; ++ch) {
+    const int tc = ch * CU;                // the chunk's first vector in the block
+    if (tc >= tvalid) break;
+    if (ch > 0) __syncthreads();           // every warp is done with chunk ch-1's z
+
+    // branch FIR of both components of an antenna from device memory: job e
+    // = (antenna, strip of S vectors, branch j), j fastest (a warp: 32
+    // consecutive columns M-1-j of one row, one 128-byte line for f32);
+    // acc[s] = sum_d taps[(W-1-d) M + j] * v[(t + s + d) M + M-1-j], t the
+    // strip's first vector.  S sums and an S-row window of each component
+    // in registers, the slots rotating with the tap step; one tap load and
+    // two window loads per 2 S FMAs.  A strip whose rows (through row S +
+    // W - 1, the last refill's) all lie in the frame reads it by pointer;
+    // any other (the tail/frame seam, the frame's end) picks tail or frame
+    // a sample, 0 past the frame.  Strips past the valid vectors skip.
+    if constexpr (kStopAfter >= 2) {
+      for (int e = threadIdx.x; e < a * NQ * M; e += kWideThreads) {
+        const int j = e % M;
+        const int s0 = e / M % NQ * S;
+        const int ant = e / (NQ * M);
+        if (tc + s0 >= tvalid) continue;
+        const long long rb = (t0 + tc + s0) * M;   // v index of the strip's row 0
+        const int col = M - 1 - j;
+        const T* fr = xr + (long long)ant * n;
+        const T* fi = xi + (long long)ant * n;
+        const T* hr = tr + (long long)ant * h;
+        const T* hi = ti + (long long)ant * h;
+        const float* tp = taps + (w - 1) * M + j;
+        float ar[S], ai[S];
+        if (rb >= h && rb + (long long)(S + w) * M <= (long long)h + n) {
+          const T* pr = fr + (rb - h) + col;
+          const T* pi = fi + (rb - h) + col;
+          fir_strip<S, M>(ar, ai, tp, w, [&](int d) {
+            return make_float2(widen(pr[(long long)d * M]), widen(pi[(long long)d * M]));
+          });
+        } else {
+          fir_strip<S, M>(ar, ai, tp, w, [&](int d) {
+            const long long x = rb + (long long)d * M + col;
+            float re = 0.f, im = 0.f;
+            if (x < h) {
+              re = widen(hr[x]);
+              im = widen(hi[x]);
+            } else if (x - h < n) {
+              re = widen(fr[x - h]);
+              im = widen(fi[x - h]);
+            }
+            return make_float2(re, im);
+          });
+        }
+        fftcore::static_for<S>([&](auto s) {
+          constexpr int ss = decltype(s)::value;
+          z[widedft::fir_slot<Q>(ant * CU + s0 + ss, j)] = make_float2(ar[ss], ai[ss]);
+        });
+      }
+    }
+    __syncthreads();
+    if constexpr (kStopAfter < 3) continue;
+
+    // stage-1 unscaled inverse DFT of every (antenna, vector) group, in
+    // place: warp tiles in turn, each group on Q lanes (widedft::transform)
+    for (int tile = warp; tile < a * CU / GW; tile += kWideWarps) {
+      const int g = tile * GW + gl;
+      float2 v[fftcore::kPts];
+      fftcore::static_for<16>([&](auto m) {
+        v[m] = z[widedft::fir_slot<Q>(g, q + Q * decltype(m)::value)];
+      });
+      widedft::transform<Q>(v, z, tw1, g, q);
+      const int zo = widedft::out_slot<M>(g, 0) ^ q;
+      fftcore::static_for<16>([&](auto i) {
+        z[zo ^ widedft::kswz(widedft::bin<Q>(decltype(i)::value, 0))] = v[i];
+      });
+    }
+    __syncthreads();
+    if constexpr (kStopAfter < 4) continue;
+
+    // the chunk's jobs, job j on warp j mod 8, the same in every chunk:
+    // lag jobs (pair f, half h of the chunk's vectors) first, then Gram jobs
+    // (baseline b).  Each job's sums go to its own words of the block's
+    // partial row (stored by chunk 0, added to after), so no two warps
+    // write one word and the order of every sum is fixed.
+    for (int job = warp; job < jobs; job += kWideWarps) {
+      if (job < nfd * LS) {
+        // lane (gl, q) takes vector t = GW rd + gl of each round rd:
+        // z_p conj(z_q) at bins q + Q m, the same transform through the
+        // warp's exchange tile, |.| of its 16 bins added over its vectors
+        // in registers; then one fold over the tile's groups
+        const int f = job / LS, part = job % LS;
+        const int p = fd_pairs[2 * f], pq = fd_pairs[2 * f + 1];
+        float2* tile = scratch + warp * kWideTile;
+        float sums[16];
+        fftcore::static_for<16>([&](auto i) { sums[i] = 0.f; });
+        for (int rd = part * RPJ; rd < (part + 1) * RPJ; ++rd) {
+          const int t = rd * GW + gl;
+          const int zp = widedft::out_slot<M>(p * CU + t, 0) ^ q;
+          const int zq = widedft::out_slot<M>(pq * CU + t, 0) ^ q;
+          float2 v[fftcore::kPts];
+          fftcore::static_for<16>([&](auto m) {
+            constexpr int kc = widedft::kswz(Q * decltype(m)::value);
+            v[m] = fftcore::cmulc(z[zp ^ kc], z[zq ^ kc]);
+          });
+          widedft::transform<Q>(v, tile, tw1, gl, q);
+          if (tc + t < tvalid) {
+            fftcore::static_for<16>([&](auto i) { sums[i] += mag(v[i]); });
+          }
+        }
+        halve_fold<16, 16, Q>(sums, lane);
+        float* dst = out + (f * LS + part) * M;
+        fftcore::static_for<V>([&](auto u) {
+          const int k = widedft::bin<Q>(gl * V + decltype(u)::value, q);
+          dst[k] = ch == 0 ? sums[u] : dst[k] + sums[u];
+        });
+      } else {
+        // lane takes bins k = lane + 32 i of every valid vector
+        const int b = job - nfd * LS;
+        const int s1 = xe_pairs[2 * b], s2 = xe_pairs[2 * b + 1];
+        const int tn = min(CU, tvalid - tc);
+        float gr[KL], gi[KL];
+        fftcore::static_for<KL>([&](auto i) { gr[i] = 0.f; gi[i] = 0.f; });
+        const int kl = widedft::kswz(lane);
+        for (int t = 0; t < tn; ++t) {
+          const int z1 = widedft::out_slot<M>(s1 * CU + t, 0) ^ kl;
+          const int z2 = widedft::out_slot<M>(s2 * CU + t, 0) ^ kl;
+          fftcore::static_for<KL>([&](auto i) {
+            const float2 u = z[z1 ^ (32 * decltype(i)::value)];
+            const float2 y = z[z2 ^ (32 * decltype(i)::value)];
+            gr[i] += u.x * y.x + u.y * y.y;
+            gi[i] += u.y * y.x - u.x * y.y;
+          });
+        }
+        float* dst = out + nfd * LS * M + 2 * b * M;
+        fftcore::static_for<KL>([&](auto i) {
+          const int k = lane + 32 * decltype(i)::value;
+          dst[k] = ch == 0 ? gr[i] : dst[k] + gr[i];
+          dst[M + k] = ch == 0 ? gi[i] : dst[M + k] + gi[i];
+        });
+      }
+    }
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_wide(const void* xr, const void* xi, const void* tr,
+                        const void* ti, const float* taps, const int* fd_pairs,
+                        int nfd, const int* xe_pairs, int nb, int a, int w, int n,
+                        int h, float* partial, int nblk, cudaStream_t stream) {
+  const long long bytes = fx_wide_smem_bytes(a, M);
+  cudaError_t err = fftcore::set_smem(fx_wide_kernel<T, M>, bytes);
+  if (err != cudaSuccess) return err;
+  fx_wide_kernel<T, M><<<nblk, kWideThreads, bytes, stream>>>(
+      static_cast<const T*>(xr), static_cast<const T*>(xi),
+      static_cast<const T*>(tr), static_cast<const T*>(ti), taps, fd_pairs, nfd,
+      xe_pairs, nb, a, w, n, h, partial);
+  return cudaGetLastError();
+}
+
 template <typename T, int M>
 cudaError_t launch_reg(const void* xr, const void* xi, const void* tr,
                        const void* ti, const float* taps, const int* fd_pairs,
@@ -645,8 +988,12 @@ cudaError_t launch_reg(const void* xr, const void* xi, const void* tr,
   return cudaGetLastError();
 }
 
+// lag runs a pair of a partial row of the body (fx_reduce_kernel's ls)
+inline int lag_runs(int body) { return body == 2 ? kWideLagSplits : 1; }
+
 // body 0: fx_tile_kernel (any M dividing 128); body 1: fx_reg_kernel (M in
-// {2, 4, 8, 16}, tile = 512 / M)
+// {2, 4, 8, 16}, tile = 1024 / M); body 2: fx_wide_kernel (M in {32, 64,
+// 128}, tile = 4096 / M)
 template <typename T>
 cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
                       const void* ti, const float* taps, const float* tw,
@@ -656,7 +1003,19 @@ cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
   const int nout = n / m;
   const int nblk = (nout + tile - 1) / tile;
   cudaError_t err = cudaSuccess;
-  if (body == 1) {
+  if (body == 2) {
+    if (tile * m != kWideChunks * kWideChunk) return cudaErrorInvalidValue;
+    switch (m) {
+      case 32: err = launch_wide<T, 32>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                        nb, a, w, n, h, partial, nblk, stream); break;
+      case 64: err = launch_wide<T, 64>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
+                                        nb, a, w, n, h, partial, nblk, stream); break;
+      case 128: err = launch_wide<T, 128>(xr, xi, tr, ti, taps, fd_pairs, nfd,
+                                          xe_pairs, nb, a, w, n, h, partial, nblk,
+                                          stream); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else if (body == 1) {
     if (tile * m != kTileSamples) return cudaErrorInvalidValue;
     switch (m) {
       case 2: err = launch_reg<T, 2>(xr, xi, tr, ti, taps, fd_pairs, nfd, xe_pairs,
@@ -684,7 +1043,10 @@ cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
   if (err != cudaSuccess) return err;
   const int width = nfd * m + 2 * nb * m;
   if (width > 0) {
-    fx_reduce_kernel<<<width, kReduceThreads, 0, stream>>>(partial, nblk, width, out);
+    const int ls = lag_runs(body);
+    fx_reduce_kernel<<<(width + kReduceCols - 1) / kReduceCols,
+                       kReduceCols * kReduceRows, 0, stream>>>(
+        partial, nblk, width + nfd * m * (ls - 1), nfd * m, m, ls, width, out);
   }
   return cudaGetLastError();
 }
@@ -692,7 +1054,8 @@ cudaError_t launch_fx(const void* xr, const void* xi, const void* tr,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8; body: 0 = fx_tile_kernel,
-// 1 = fx_reg_kernel.  Returns a cudaError_t.
+// 1 = fx_reg_kernel, 2 = fx_wide_kernel.  partial: ceil((n / m) / tile)
+// rows of clen_fx_partial_width floats.  Returns a cudaError_t.
 extern "C" int clen_fx_correlate(const void* xr, const void* xi, const void* tr,
                                  const void* ti, int dtype, const void* taps,
                                  const void* tw, const void* fd_pairs, int nfd,
@@ -721,9 +1084,17 @@ extern "C" int clen_fx_correlate(const void* xr, const void* xi, const void* tr,
   }
 }
 
-// shared-memory bytes per block of the given body (see launch_fx)
+// shared-memory bytes per block of the given body (see launch_fx); w and
+// tile do not enter fx_wide_kernel's
 extern "C" long long clen_fx_smem_bytes(int a, int m, int w, int tile, int body) {
+  if (body == 2) return fx_wide_smem_bytes(a, m);
   const long long floats =
       body == 1 ? fx_reg_smem_floats(a, m, w, tile) : fx_smem_floats(a, m, w, tile);
   return floats * (long long)sizeof(float);
+}
+
+// floats a block writes to its partial row: each FD pair's lag sums
+// (lag_runs runs of m) and each baseline's 2 m Gram sums
+extern "C" int clen_fx_partial_width(int m, int nfd, int nb, int body) {
+  return (nfd * lag_runs(body) + 2 * nb) * m;
 }

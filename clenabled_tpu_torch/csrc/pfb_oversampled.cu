@@ -71,7 +71,8 @@
 //          point j = q + Q m at row m, column Q ((g mod GW) ^ (m mod GW)) +
 //          q (GW = 32/Q groups a tile), conflict free for the FIR's
 //          consecutive j and for pass 1's lanes (g, q).
-//   DFT    group g on Q lanes of one warp; lane q: the 16 points q + Q m,
+//   DFT    (widedft::transform, wide_dft.cuh, shared with fx_correlate.cu)
+//          group g on Q lanes of one warp; lane q: the 16 points q + Q m,
 //          fftcore::dft<16> over m, times exp(+2 pi i q k1 / M) (a
 //          float64-built table of M entries, [k1][q]), back into the tile
 //          at row k1, column Q (g mod GW) + (q ^ (k1 mod Q)); __syncwarp;
@@ -111,6 +112,7 @@
 #include <stdint.h>
 
 #include "fft_core.cuh"
+#include "wide_dft.cuh"
 
 namespace {
 
@@ -465,29 +467,9 @@ __host__ __device__ inline long long os_wide_smem_bytes(int m, int r, int w, int
   return 4LL * (2 * os_wide_win(m, m / r, w, chunks) + 2LL * kOsWideOuts) + 8LL * (m + 16);
 }
 
-// The sums are complex (float2) slots; each warp's GW = 32/Q groups own a
-// tile of 512 slots, 32 rows of 16 (the 16 slot banks of a half-warp
-// 64-bit access).  The slot of (chunk group g, branch j) as the FIR stores
-// it, and of (group g, pass-1 lane q, bin k1) as pass 1 leaves it:
-template <int Q>
-__device__ __forceinline__ int osw_fir_slot(int g, int j) {
-  constexpr int GW = 32 / Q;
-  const int m = j / Q;
-  return (g / GW) * 512 + m * 32 + Q * ((g % GW) ^ (m % GW)) + j % Q;
-}
-template <int Q>
-__device__ __forceinline__ int osw_pass1_slot(int g, int q, int k1) {
-  constexpr int GW = 32 / Q;
-  return (g / GW) * 512 + k1 * 32 + Q * (g % GW) + (q ^ (k1 % Q));
-}
-// the slot of output (g, k): group-major, k XORed with an even mask that
-// is one for each run of 4, so a copy-out thread reads its 4 outputs as
-// two 16-byte pairs
-template <int M>
-__device__ __forceinline__ int osw_out_slot(int g, int k) {
-  constexpr int Q = M / 16;
-  return g * M + (k ^ (Q * (g % (32 / Q))) ^ (((k >> 4) & 1) << 1));
-}
+// The sums are complex (float2) slots in each warp's tile of 512, in the
+// layouts of wide_dft.cuh: widedft::fir_slot as the FIR stores them,
+// widedft::out_slot for the outputs.
 
 __device__ __forceinline__ void osw_cp_async16(float* dst, const float* src, int bytes) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
@@ -553,11 +535,7 @@ pfb_os_wide_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float2* sums = reinterpret_cast<float2*>(smem + 2 * wlen);  // [4096]
   float2* tw1 = sums + kOsWideOuts;                   // [16][Q]
   float2* twl = tw1 + M;                              // [L]
-  for (int e = threadIdx.x; e < M; e += T) {
-    double sn, cs;                     // exp(+2 pi i q k1 / M), e = k1 Q + q
-    sincospi(2.0 * ((e / Q) * (e % Q)) / M, &sn, &cs);
-    tw1[e] = make_float2((float)cs, (float)sn);
-  }
+  widedft::twiddles<M>(tw1, threadIdx.x, T);
   if (L >= 8 && threadIdx.x < L) {
     double sn, cs;
     sincospi(-2.0 * threadIdx.x / L, &sn, &cs);
@@ -646,7 +624,7 @@ pfb_os_wide_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         });
         fftcore::static_for<S>([&](auto s) {
           constexpr int ss = decltype(s)::value;
-          sums[osw_fir_slot<Q>(L * (s0 + ss) + p, j)] = make_float2(ar[ss], ai[ss]);
+          sums[widedft::fir_slot<Q>(L * (s0 + ss) + p, j)] = make_float2(ar[ss], ai[ss]);
         });
       }
     }
@@ -664,40 +642,20 @@ pfb_os_wide_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     {
       float2 v[fftcore::kPts];
       fftcore::static_for<16>([&](auto m) {
-        v[m] = sums[osw_fir_slot<Q>(g, q + Q * decltype(m)::value)];
+        v[m] = sums[widedft::fir_slot<Q>(g, q + Q * decltype(m)::value)];
       });
-      __syncwarp();
-      fftcore::dft<16, 0, true>(v);
-      fftcore::static_for<15>([&](auto k) {
-        constexpr int k1 = decltype(k)::value + 1;
-        v[k1] = fftcore::cmul(v[k1], tw1[k1 * Q + q]);
-      });
-      fftcore::static_for<16>([&](auto k) {
-        sums[osw_pass1_slot<Q>(g, q, decltype(k)::value)] = v[k];
-      });
-      __syncwarp();
-      fftcore::static_for<16 / Q>([&](auto a) {
-        constexpr int aa = decltype(a)::value;
-        fftcore::static_for<Q>([&](auto b) {
-          v[aa * Q + b] = sums[osw_pass1_slot<Q>(g, decltype(b)::value, aa * Q + q)];
-        });
-      });
-      __syncwarp();
+      widedft::transform<Q>(v, sums, tw1, g, q);
       const int ph = (g + i_offset) & (L - 1);
-      fftcore::static_for<16 / Q>([&](auto a) {
-        constexpr int aa = decltype(a)::value;
-        fftcore::dft<Q, aa * Q, true>(v);
-        fftcore::static_for<Q>([&](auto b) {
-          constexpr int i = aa * Q + decltype(b)::value;
-          const int k = aa * Q + q + 16 * decltype(b)::value;
-          const int tq = (ph * k) & (L - 1);
-          if constexpr (L >= 8) {
-            v[i] = fftcore::cmul(v[i], twl[tq]);
-          } else {
-            v[i] = os_quarter_turns<L>(v[i], tq);
-          }
-          sums[osw_out_slot<M>(g, k)] = v[i];
-        });
+      fftcore::static_for<16>([&](auto i) {
+        constexpr int ii = decltype(i)::value;
+        const int k = widedft::bin<Q>(ii, q);
+        const int tq = (ph * k) & (L - 1);
+        if constexpr (L >= 8) {
+          v[ii] = fftcore::cmul(v[ii], twl[tq]);
+        } else {
+          v[ii] = os_quarter_turns<L>(v[ii], tq);
+        }
+        sums[widedft::out_slot<M>(g, k)] = v[ii];
       });
       __syncwarp();
       const int gw0 = (t >> 5) * GW;   // the tile's first group
@@ -705,8 +663,8 @@ pfb_os_wide_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const long long z0 = (i0 + (long long)u0 * L + gw0) * M;
       for (int a = 4 * lane; a < valid; a += 128) {
         const int gg = gw0 + a / M, k = a % M;
-        const float4 p0 = *reinterpret_cast<const float4*>(sums + osw_out_slot<M>(gg, k));
-        const float4 p1 = *reinterpret_cast<const float4*>(sums + osw_out_slot<M>(gg, k + 2));
+        const float4 p0 = *reinterpret_cast<const float4*>(sums + widedft::out_slot<M>(gg, k));
+        const float4 p1 = *reinterpret_cast<const float4*>(sums + widedft::out_slot<M>(gg, k + 2));
         *reinterpret_cast<float4*>(zr + z0 + a) = make_float4(p0.x, p0.z, p1.x, p1.z);
         *reinterpret_cast<float4*>(zi + z0 + a) = make_float4(p0.y, p0.w, p1.y, p1.w);
       }

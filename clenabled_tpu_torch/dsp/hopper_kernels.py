@@ -7,9 +7,11 @@ ported so far:
   critically sampled PFB, M-point inverse DFT, FD cross-correlation
   magnitude sums and X-Engine Gram sums, reading each input sample once.
   ``fx_correlate_streams`` is the same kernel fed the JAX function's
-  history-concatenated flat layout.  Two ``__global__`` bodies, chosen by
-  M in ``fx_body``: ``fx_reg_kernel`` (register-tiled FIR, in-register
-  M-point DFTs) for M in {2, 4, 8, 16}, ``fx_tile_kernel`` otherwise.
+  history-concatenated flat layout.  Three ``__global__`` bodies, chosen
+  in ``fx_body``: ``fx_reg_kernel`` (register-tiled FIR, in-register
+  M-point DFTs) for M in {2, 4, 8, 16}, ``fx_wide_kernel`` (a register FIR
+  from device memory, M-point DFTs in two in-register passes) for M in
+  {32, 64, 128} where its block fits, ``fx_tile_kernel`` otherwise.
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
   branch sums plus per-group inverse DFT of the planar pipeline.  Two
   ``__global__`` bodies, chosen in ``pfb_packed_body``:
@@ -227,31 +229,75 @@ def _check_fx(xr, xi, tail_r, tail_i, taps, a: int, m: int):
     return w, n, h
 
 
-# the two __global__ bodies of csrc/fx_correlate.cu, by their C body code
-FX_BODIES = ("fx_tile_kernel", "fx_reg_kernel")
+# the three __global__ bodies of csrc/fx_correlate.cu, by their C body code
+FX_BODIES = ("fx_tile_kernel", "fx_reg_kernel", "fx_wide_kernel")
 FX_REG_M = (2, 4, 8, 16)
+FX_WIDE_M = (32, 64, 128)
+# samples a component a block of each body (the C entry checks tile·m)
+_FX_BLOCK_SAMPLES = {"fx_tile_kernel": 512, "fx_reg_kernel": 1024,
+                     "fx_wide_kernel": 4096}
 
 
-def fx_body(m: int) -> str:
-    """The kernel body an FX call with ``m`` channels launches:
-    ``fx_reg_kernel`` (register-tiled FIR, in-register M-point DFTs) for
-    m in {2, 4, 8, 16}, where 16 points a thread hold 16/m vectors;
-    ``fx_tile_kernel`` (shared-memory operands) for every other m dividing
-    128."""
+def _pick_fx_body(m: int, wide_smem: int, optin: int) -> str:
+    """``fx_body``'s rule: ``fx_reg_kernel`` for m in {2, 4, 8, 16};
+    ``fx_wide_kernel`` for m in {32, 64, 128} where its block's
+    ``wide_smem`` bytes of shared memory fit the card's opt-in ``optin``;
+    ``fx_tile_kernel`` otherwise."""
+    if m in FX_REG_M:
+        return FX_BODIES[1]
+    if m in FX_WIDE_M and wide_smem <= optin:
+        return FX_BODIES[2]
+    return FX_BODIES[0]
+
+
+def fx_body(m: int, num_antennas: int = 4, w: int = 25, device=None) -> str:
+    """The kernel body an FX call with ``m`` channels, ``num_antennas``
+    streams and ``w`` tap rows launches on the CUDA ``device`` (the
+    current card when None): ``fx_reg_kernel`` (register-tiled FIR,
+    in-register M-point DFTs) for m in {2, 4, 8, 16}, where 16 points a
+    thread hold 16/m vectors; ``fx_wide_kernel`` (a register FIR from
+    device memory, each M-point DFT in two in-register passes over m/16
+    lanes) for m in {32, 64, 128} wherever its block
+    (``clen_fx_smem_bytes``, body 2) fits the card's opt-in shared memory;
+    ``fx_tile_kernel`` (shared-memory operands, dense DFTs) for every other
+    m dividing 128.  A pure choice made before the launch; only the wide
+    m ask the card, once for each (antennas, m, w, card).  A CPU call runs
+    the plain form, which has no body."""
     if m < 1 or LANES % m:
         raise ValueError(f"m must divide {LANES}; got {m}")
-    return FX_BODIES[1] if m in FX_REG_M else FX_BODIES[0]
+    if m not in FX_WIDE_M:
+        return _pick_fx_body(m, 0, 0)
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError(f"fx_body names a CUDA kernel body; got {device}")
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return FX_BODIES[_fx_body_code(num_antennas, m, w, index)]
 
 
-def fx_tile(m: int) -> int:
-    """Output vectors per block of the body ``fx_body(m)`` launches: 1024
-    samples a component for ``fx_reg_kernel``, 512 for ``fx_tile_kernel``."""
-    return max(1, (1024 if fx_body(m) == FX_BODIES[1] else 512) // m)
+@lru_cache(maxsize=None)
+def _fx_body_code(a: int, m: int, w: int, index: int) -> int:
+    """``fx_body``'s choice on card ``index`` at m in {32, 64, 128}, as the
+    C body code, made once for each (a, m, w, card)."""
+    wide = FX_BODIES[2]
+    wide_smem = _load().clen_fx_smem_bytes(
+        a, m, w, _FX_BLOCK_SAMPLES[wide] // m, FX_BODIES.index(wide))
+    return FX_BODIES.index(_pick_fx_body(m, wide_smem, _smem_optin(index)))
+
+
+def fx_tile(m: int, body: str | None = None) -> int:
+    """Output vectors per block of ``body`` (default: the one
+    ``fx_body(m)`` names): 512 samples a component for
+    ``fx_tile_kernel``, 1024 for ``fx_reg_kernel``, 4096 for
+    ``fx_wide_kernel``."""
+    return max(1, _FX_BLOCK_SAMPLES[body or fx_body(m)] // m)
 
 
 def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
-               xe_pairs):
-    """Launch ``csrc/fx_correlate.cu`` on CUDA tensors; (fd_sum, gram)."""
+               xe_pairs, body: str | None = None):
+    """Launch ``csrc/fx_correlate.cu`` on CUDA tensors on ``body`` (default:
+    the one ``fx_body`` names; tests and ``chip_smoke.py`` name another to
+    hold the bodies to each other); (fd_sum, gram)."""
     dev = xr.device
     taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
     taps = taps.contiguous()
@@ -261,21 +307,22 @@ def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
     nfd, nb = len(fd), len(xe)
     fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
     xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
-    tile = fx_tile(m)                   # output vectors per block
-    body = FX_BODIES.index(fx_body(m))
+    name = body or fx_body(m, a, w, dev)
+    tile = fx_tile(m, name)             # output vectors per block
+    code = FX_BODIES.index(name)
     nblk = -(-(n // m) // tile)
-    width = nfd * m + 2 * nb * m
-    partial = torch.empty((nblk, width), dtype=torch.float32, device=dev)
-    out = torch.empty(width, dtype=torch.float32, device=dev)
     lib = _load()
+    partial = torch.empty((nblk, lib.clen_fx_partial_width(m, nfd, nb, code)),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty(nfd * m + 2 * nb * m, dtype=torch.float32, device=dev)
     err = lib.clen_fx_correlate(
         xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
         _DTYPE_CODE[xr.dtype], taps.data_ptr(), _twiddles(m, dev).data_ptr(),
-        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile, body,
+        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile, code,
         partial.data_ptr(), out.data_ptr(), _stream(dev))
     if err != 0:
-        smem = lib.clen_fx_smem_bytes(a, m, w, tile, body)
-        raise RuntimeError(f"fx_correlate launch failed ({FX_BODIES[body]}): "
+        smem = lib.clen_fx_smem_bytes(a, m, w, tile, code)
+        raise RuntimeError(f"fx_correlate launch failed ({name}): "
                            f"CUDA error {err} ({smem} B of shared memory "
                            f"per block)")
     return out[: nfd * m].view(nfd, m), out[nfd * m:].view(nb, 2 * m)

@@ -337,15 +337,18 @@ def make_sharded_fx_pipeline_fused(mesh, axis: str = "shard",
     """The fused step time-sharded over ``axis`` of ``mesh``, the
     hand-written kernel (``hopper_kernels.fx_correlate_streams_v2``) on
     every rank's block: the carried tail rides the ring (rank i's is rank
-    i-1's last ``fx_tail_len(in_dtype)`` samples; rank 0's the previous
-    step's), the FD and Gram sums are summed over the axis, and the next
-    tails are the last rank's, broadcast.  Collectives a step: one ring
-    hop, one all-reduce and one broadcast.
+    i-1's last ``fx_tail_len(in_dtype, M, ntaps)`` samples; rank 0's the
+    previous step's), the FD and Gram sums are summed over the axis, and
+    the next tails are the last rank's, broadcast.  Collectives a step: one
+    ring hop, one all-reduce and one broadcast.
 
     ``cfg.samples_per_step`` is the block L a rank: at least the tail, a
-    multiple of M.  The tail is ``fx_tail_len(in_dtype)`` as JAX's
-    sharded step takes it (1024/2048/4096 samples for float32/bfloat16/
-    int8; the default 400-tap prototype fits in each).  JAX's ``tile_rows``
+    multiple of M.  The tail is the unsharded step's,
+    ``fx_tail_len(in_dtype, M, ntaps)``: at 16 channels (400 taps) the
+    1024/2048/4096 samples for float32/bfloat16/int8 that JAX's sharded
+    step takes (``fx_tail_len(in_dtype)``, which the prototype fits in);
+    at 64 channels (1600 taps) 2048/2048/4096, where JAX's would be
+    shorter than the tap reach.  JAX's ``tile_rows``
     rule, which also asks L / 128 for a power-of-two factor of at least
     tail / 128 rows, tiles the TPU kernel only and is dropped.  Returns
     (fn, example_args): fn an ``nn.Module`` on this rank's device, the
@@ -354,7 +357,7 @@ def make_sharded_fx_pipeline_fused(mesh, axis: str = "shard",
     a, m, n_local = cfg.num_antennas, cfg.num_channels, cfg.samples_per_step
     dtype = _IN_DTYPES[hopper_kernels._dtype_name(in_dtype)]
     taps_rm, ntaps = _prototype(m, samp_rate)
-    tail_len = hopper_kernels.fx_tail_len(dtype)
+    tail_len = hopper_kernels.fx_tail_len(dtype, m, ntaps)
     if n_local < tail_len:
         raise ValueError(f"per-shard block ({n_local}) must be >= the "
                          f"carried tail ({tail_len} samples)")

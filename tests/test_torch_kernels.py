@@ -11,6 +11,8 @@ one) each kernel is held to its plain form on the same device at
 schedule and the bank of every warp-wide shared-memory access.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -78,6 +80,9 @@ FX_CASES = [
     ("f32_m4", 4, "float32", 2048, None, None, None, 4),
     ("f32_m8", 3, "float32", 2048, None, None, None, 8),
     ("f32_m32", 4, "float32", 4096, None, None, None, 32),
+    ("f32_m64", 4, "float32", 4096, None, None, None, 64),
+    ("int8_m64", 4, "int8", 4096, None, None, None, 64),
+    ("f32_m128", 4, "float32", 4096, None, None, None, 128),
 ]
 
 
@@ -203,6 +208,47 @@ def test_fx_kernel_ragged_tile_and_contiguity(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m", [32, 64, 128])
+def test_fx_wide_matches_plain_and_first_body_on_card(card, m, dt):
+    """fx_wide_kernel at the step's 25 tap rows, 4 antennas, on a frame
+    whose last block is ragged (2^16 + 37 m samples): the v2 entry (the
+    pipeline's tail) and the flat entry (a W·m − 1 history, odd) against
+    their plain forms, and the C entry's body 2 against body 0
+    (fx_tile_kernel) on the same inputs, within 1e-4 × max|plain|; also
+    with pairs of the caller's."""
+    case = (f"m{m}", 4, dt, (1 << 16) + 37 * m, None, None, None, m)
+    arrs, taps_rm, a, _, _, _, _ = _fx_inputs(case, seed=40 + m)
+    args = [_torch(x, dt, card) for x in arrs]
+    taps = torch.from_numpy(taps_rm).to(card)
+    assert hk.fx_body(m, a, taps.shape[0], card) == "fx_wide_kernel"
+    want = hk.fx_correlate_streams_v2_plain(*args, taps, a, m)
+    for g, w in zip(hk.fx_correlate_streams_v2(*args, taps, a, m), want):
+        close(g, w, REL_CARD)
+    new = hk._launch_fx(*args, taps, a, m, None, None, body="fx_wide_kernel")
+    first = hk._launch_fx(*args, taps, a, m, None, None, body="fx_tile_kernel")
+    torch.cuda.synchronize()
+    for g, f, w in zip(new, first, want):
+        close(g, w, REL_CARD)
+        close(f, w, REL_CARD)
+        close(g, f, REL_CARD)
+    fdp, xep = [(3, 1), (2, 2)], [(1, 0), (3, 3), (2, 1), (0, 2)]
+    got = hk.fx_correlate_streams_v2(*args, taps, a, m, fd_pairs=fdp,
+                                     xe_pairs=xep)
+    for g, w in zip(got, hk.fx_correlate_streams_v2_plain(
+            *args, taps, a, m, fd_pairs=fdp, xe_pairs=xep)):
+        close(g, w, REL_CARD)
+    hl = taps.shape[0] * m - 1
+    c = torch.cat([args[0], args[1]])[:, : (1 << 16) + 128]
+    hi = torch.cat([args[2][:, :hl], args[3][:, :hl]]).contiguous()
+    c = c.contiguous()
+    got = hk.fx_correlate_streams(c, hi, taps, a, m, tile_rows=1)
+    for g, w in zip(got, hk.fx_correlate_streams_plain(c, hi, taps, a, m,
+                                                       tile_rows=1)):
+        close(g, w, REL_CARD)
+
+
+@pytest.mark.cuda
 def test_pfb_packed_kernel_matches_plain_on_card(card):
     y, hr, a, m = _packed_inputs(8192, seed=6)
     y, hr = torch.from_numpy(y).to(card), torch.from_numpy(hr).to(card)
@@ -312,9 +358,12 @@ def test_pfb_packed_launches_its_body_on_card(card, a, m, ntaps0):
     close(got, hk.pfb_channelize_packed_plain(y, hr, a, m), REL_CARD)
 
 
-# (id, fd_pairs, xe_pairs) for the flat-layout entry (B.1b)
-FLAT_CASES = [("default", None, None),
-              ("pairs", [(0, 3)], [(0, 1), (2, 3), (1, 1)])]
+# (id, fd_pairs, xe_pairs, channels) for the flat-layout entry (B.1b); JAX's
+# flat entry carries an 8-row halo, so it takes M = 32 (hist 799) but not
+# the W = 25 prototypes at M = 64 and 128
+FLAT_CASES = [("default", None, None, 16),
+              ("pairs", [(0, 3)], [(0, 1), (2, 3), (1, 1)], 16),
+              ("m32", None, None, 32)]
 
 
 def _flat_inputs(n, seed, a=4, m=16):
@@ -330,8 +379,8 @@ def test_fx_flat_entry_matches_jax(ref, case):
     """fx_correlate_streams: the JAX kernel in interpret mode against the
     port's wrapper on the CPU, which is the v2 plain form fed the row
     halves of the flat layout."""
-    _, fdp, xep = case
-    comps, hist, taps_rm, a, m = _flat_inputs(512 * 16, seed=7)
+    _, fdp, xep, m = case
+    comps, hist, taps_rm, a, m = _flat_inputs(512 * 16, seed=7, m=m)
     want = j_pk.fx_correlate_streams(comps, hist, taps_rm, a, m, tile_rows=8,
                                      interpret=True, fd_pairs=fdp,
                                      xe_pairs=xep)
@@ -362,8 +411,8 @@ def test_fx_flat_entry_checks():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLAT_CASES, ids=[c[0] for c in FLAT_CASES])
 def test_fx_flat_entry_kernel_matches_plain_on_card(card, case):
-    _, fdp, xep = case
-    comps, hist, taps_rm, a, m = _flat_inputs(1 << 16, seed=9)
+    _, fdp, xep, m = case
+    comps, hist, taps_rm, a, m = _flat_inputs(1 << 16, seed=9, m=m)
     c, h = torch.from_numpy(comps).to(card), torch.from_numpy(hist).to(card)
     taps = torch.from_numpy(taps_rm).to(card)
     before = hk.fx_correlate_streams.launches
@@ -595,12 +644,76 @@ def test_fx_reg_shared_memory_banks(m):
             assert _banks_ok(_zswz((lane + 32 * s) * m + 2 * k), width=2)
 
 
+class _WideLib:
+    """A stand-in for the kernel library's clen_fx_smem_bytes (body 2:
+    fx_wide_kernel's block, _wide_smem_bytes), recording each call."""
+
+    def __init__(self):
+        self.asked = []
+
+    def clen_fx_smem_bytes(self, a, m, w, tile, body):
+        self.asked.append((a, m, w, tile, body))
+        assert body == 2 and tile * m == WIDE_CHUNKS * WIDE_CHUNK
+        return _wide_smem_bytes(a, m)
+
+
+@pytest.fixture
+def h100_rule(monkeypatch):
+    """fx_body on an H100 without one: the library stand-in and the card's
+    opt-in shared memory, the rule's cache cleared around the test."""
+    lib = _WideLib()
+    monkeypatch.setattr(hk, "_load", lambda: lib)
+    monkeypatch.setattr(hk, "_smem_optin", lambda index: H100_OPTIN)
+    hk._fx_body_code.cache_clear()
+    yield lib
+    hk._fx_body_code.cache_clear()
+
+
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
-def test_fx_body_by_m(m):
-    want = "fx_reg_kernel" if m in (2, 4, 8, 16) else "fx_tile_kernel"
-    assert hk.fx_body(m) == want
+def test_fx_body_by_m(h100_rule, m):
+    """At 4 antennas and the step's 25 tap rows on an H100: fx_reg_kernel
+    at M <= 16, fx_wide_kernel at 32-128, fx_tile_kernel at M = 1; each
+    body's tile is its samples a component a block over M."""
+    want = ("fx_reg_kernel" if m in (2, 4, 8, 16) else "fx_wide_kernel"
+            if m >= 32 else "fx_tile_kernel")
+    assert hk.fx_body(m, 4, 25, "cuda:0") == want
     assert want in hk.FX_BODIES
-    assert hk.fx_tile(m) == max(1, (1024 if m in (2, 4, 8, 16) else 512) // m)
+    samples = {"fx_tile_kernel": 512, "fx_reg_kernel": 1024,
+               "fx_wide_kernel": 4096}[want]
+    assert hk.fx_tile(m, want) == max(1, samples // m)
+    if m < 32:       # no card needed
+        assert hk.fx_body(m) == want and hk.fx_tile(m) == hk.fx_tile(m, want)
+
+
+def test_pick_fx_body_rule():
+    """The pure rule: the register body at M <= 16 whatever the shared
+    memory; the wide body at 32-128 only where its block fits the opt-in;
+    the first body at M = 1 and where the wide block does not fit."""
+    for m in hk.FX_REG_M:
+        assert hk._pick_fx_body(m, 10 ** 9, 0) == "fx_reg_kernel"
+    for m in hk.FX_WIDE_M:
+        assert hk._pick_fx_body(m, H100_OPTIN, H100_OPTIN) == "fx_wide_kernel"
+        assert hk._pick_fx_body(m, H100_OPTIN + 1, H100_OPTIN) == \
+            "fx_tile_kernel"
+    assert hk._pick_fx_body(1, 0, H100_OPTIN) == "fx_tile_kernel"
+    # two blocks an SM up to 5 antennas, one up to 12, none past
+    assert 2 * (_wide_smem_bytes(5, 128) + 1024) <= 233472 < 2 * (
+        _wide_smem_bytes(6, 32) + 1024)
+    assert _wide_smem_bytes(12, 128) <= H100_OPTIN < _wide_smem_bytes(13, 32)
+
+
+def test_fx_body_asks_the_card_once(h100_rule):
+    """fx_body takes fx_wide_kernel's block size from the C library and the
+    card's opt-in shared memory once for each (antennas, m, w, card); 13
+    antennas' block does not fit and keeps fx_tile_kernel; the CPU has no
+    body to name."""
+    for _ in range(3):
+        assert hk.fx_body(64, 4, 25, "cuda:0") == "fx_wide_kernel"
+    assert hk.fx_body(32, 13, 25, "cuda:0") == "fx_tile_kernel"
+    assert hk.fx_body(16, 13, 25, "cuda:0") == "fx_reg_kernel"
+    assert h100_rule.asked == [(4, 64, 25, 64, 2), (13, 32, 25, 128, 2)]
+    with pytest.raises(ValueError, match="CUDA kernel body"):
+        hk.fx_body(64, device="cpu")
 
 
 def test_fx_body_refuses_m_not_dividing_128():
@@ -628,8 +741,9 @@ def test_fx_ab_cli_arguments():
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_fx_entries_launch_their_body_on_card(card, m):
     """Both FX entries at every m dividing 128: each call launches the body
-    that fx_body(m) names (torch.profiler's kernel names) and nothing of
-    the other, and agrees with its plain form."""
+    that fx_body(m) names (torch.profiler's kernel names: fx_wide_kernel at
+    32-128 on an H100) and nothing of the others, and agrees with its plain
+    form."""
     from clenabled_tpu_torch.runtime.device import launched_kernels
 
     case = (f"m{m}", 4, "float32", 1 << 15, None, None, None, m)
@@ -638,13 +752,16 @@ def test_fx_entries_launch_their_body_on_card(card, m):
     taps = torch.from_numpy(taps_rm).to(card)
     comps, hist, _, _, _ = _flat_inputs(1 << 15, seed=13, a=a, m=m)
     c, hi = torch.from_numpy(comps).to(card), torch.from_numpy(hist).to(card)
-    body = hk.fx_body(m)
-    other, = set(hk.FX_BODIES) - {body}
+    body = hk.fx_body(m, a, taps.shape[0], card)
+    assert body == hk.fx_body(m)
+    if m >= 32:
+        assert body == "fx_wide_kernel"
+    others = set(hk.FX_BODIES) - {body}
     (got, got1), events = launched_kernels(
         lambda: (hk.fx_correlate_streams_v2(*args, taps, a, m),
                  hk.fx_correlate_streams(c, hi, taps, a, m)), least=2)
     assert sum(body in e for e in events) == 2
-    assert not any(other in e for e in events)
+    assert not any(o in e for e in events for o in others)
     for g, w in zip(got, hk.fx_correlate_streams_v2_plain(*args, taps, a, m)):
         close(g, w, REL_CARD)
     for g, w in zip(got1, hk.fx_correlate_streams_plain(c, hi, taps, a, m)):
@@ -677,6 +794,377 @@ def test_fx_reg_staging_reads_stay_inside(m, ntaps0, n, h_kind):
         base, span_valid = blk * tile * m, tvalid * m + w * m - 1
         want = list(range(base, base + span_valid))
         assert sorted(rec["staged"]) == sorted(want + want)   # 2 components
+
+
+# --------------------------------------------------------------------------
+# fx_wide_kernel (csrc/fx_correlate.cu, M in {32, 64, 128}) modelled in
+# numpy: a block of WIDE_CHUNKS chunks of WIDE_CHUNK samples a component,
+# its FIR strips of 16 vectors read straight from the tail and the frame,
+# each chunk's complex sums and z in the float2 slots of warp tiles
+# (csrc/wide_dft.cuh's layouts), the lag jobs (two a pair a chunk) with
+# their fold, the Gram jobs, the partial rows and fx_reduce_kernel's sum;
+# every warp-wide shared-memory access recorded in lane order as word
+# addresses (2 a float2 slot)
+# --------------------------------------------------------------------------
+
+WIDE_CHUNK, WIDE_CHUNKS, WIDE_STRIP, WIDE_LS, WIDE_WARPS = 2048, 2, 16, 2, 8
+H100_OPTIN = 232448            # an H100's opt-in shared memory a block
+
+
+def _wide_smem_bytes(a, m):
+    """clen_fx_smem_bytes(a, m, ., ., 2): a chunk's sums / z of every
+    antenna, the warps' lag exchange tiles and the pass-1 table, float2."""
+    return 8 * (a * WIDE_CHUNK + WIDE_WARPS * 512 + m)
+
+
+def _wq(m):
+    """(Q lanes a transform, GW groups a warp tile, CU vectors a chunk)."""
+    return m // 16, 32 // (m // 16), WIDE_CHUNK // m
+
+
+def _w_fir_slot(g, j, m):
+    q_, gw, _ = _wq(m)
+    row = j // q_
+    return (g // gw) * 512 + row * 32 + q_ * ((g % gw) ^ (row % gw)) + j % q_
+
+
+def _w_pass1_slot(g, q, k1, m):
+    q_, gw, _ = _wq(m)
+    return (g // gw) * 512 + k1 * 32 + q_ * (g % gw) + (q ^ (k1 % q_))
+
+
+def _w_out_slot(g, k, m):
+    q_, gw, _ = _wq(m)
+    return g * m + (k ^ (q_ * (g % gw)) ^ (((k >> 4) & 1) << 1))
+
+
+def _w_kswz(k):
+    return k ^ (((k >> 4) & 1) << 1)
+
+
+def _w_bin(i, q, m):
+    """The bin lane q holds in v[i] after the two passes."""
+    q_ = m // 16
+    return (i // q_) * q_ + q + 16 * (i % q_)
+
+
+def _w_lanes(m):
+    lane = np.arange(32)
+    gl, q = np.divmod(lane, m // 16)
+    return lane, gl, q
+
+
+def _w_transform(v, tile, g, q, m, words, kind):
+    """widedft::transform on one warp: v [32, 16] holds lane (gl, q)'s
+    points q + Q·mm of group g; pass 1 (16-point unscaled inverse DFT,
+    float64 here, times the float32 table entry exp(+2πi·q·k1/M)) into the
+    tile's pass-1 slots, pass 2 (Q-point DFTs) from them.  Returns [32, 16],
+    entry i = bin _w_bin(i, q)."""
+    q_ = m // 16
+    y = np.fft.ifft(v, axis=1) * 16
+    tw1 = np.exp(2j * np.pi * np.arange(16)[None, :] * q[:, None] / m)
+    y = y * tw1.astype(np.complex64)
+    words[kind + " table"] += [2 * (k1 * q_ + q) for k1 in range(1, 16)]
+    for k1 in range(16):
+        slot = _w_pass1_slot(g, q, k1, m)
+        words[kind + " pass1 store"].append(2 * slot)
+        tile[slot] = y[:, k1]
+    out = np.zeros((32, 16), np.complex128)
+    for aa in range(16 // q_):
+        for b in range(q_):
+            slot = _w_pass1_slot(g, b, aa * q_ + q, m)
+            words[kind + " pass2 load"].append(2 * slot)
+            out[:, aa * q_ + b] = tile[slot]
+    for aa in range(16 // q_):
+        sl = slice(aa * q_, (aa + 1) * q_)
+        out[:, sl] = np.fft.ifft(out[:, sl], axis=1) * q_
+    return out
+
+
+def _w_fold(sums, q_):
+    """halve_fold<16, 16, Q> over the warp: halving steps on lane bits 16,
+    8, .. Q (a lane keeps the upper half where its bit is set)."""
+    lane = np.arange(32)
+    s, cnt, mask = sums.copy(), sums.shape[1], 16
+    while mask >= q_:
+        h = cnt // 2
+        up = ((lane & mask) != 0)[:, None]
+        send = np.where(up, s[:, :h], s[:, h:cnt])
+        keep = np.where(up, s[:, h:cnt], s[:, :h])
+        s[:, :h] = (keep + send[lane ^ mask]).astype(np.float32)
+        cnt, mask = h, mask // 2
+    return s[:, :cnt]
+
+
+def _w_fir(ins, blk, ch, taps_rm, m, z, words, reads):
+    """Chunk ``ch``'s FIR jobs of block ``blk``, thread-ordered (a warp takes
+    32 consecutive jobs): job (antenna, strip s0 of 16 vectors, branch j), j
+    fastest, both components; 16 sums and a 16-row window of column M-1-j
+    of each, rotating with the tap step (the last refill reads row 16 + W -
+    1), rows from the tail or the frame by v index, 0 past the frame; a
+    strip wholly in the frame must read nothing else.  The complex sums go
+    to z at _w_fir_slot(antenna·CU + vector, j); strips past the valid
+    vectors skip.  Reads (component, v index) go to ``reads``."""
+    xr, xi, tr, ti = ins
+    a, n = xr.shape
+    h = tr.shape[1]
+    w = taps_rm.shape[0]
+    s = WIDE_STRIP
+    _, _, cu = _wq(m)
+    nq = cu // s
+    t0 = blk * WIDE_CHUNKS * cu
+    tvalid = min(WIDE_CHUNKS * cu, n // m - t0)
+    tc = ch * cu
+    e = np.arange(a * nq * m)
+    j = e % m
+    s0 = e // m % nq * s
+    ant = e // (nq * m)
+    live = tc + s0 < tvalid
+    rb = (t0 + tc + s0) * m
+    fast = (rb >= h) & (rb + (s + w) * m <= h + n)
+    col = m - 1 - j
+
+    def load(d):
+        x = rb + d * m + col
+        in_t = live & (x < h)
+        in_f = live & (x >= h) & (x - h < n)
+        assert not (live & fast & ~in_f).any()
+        re, im = np.zeros(len(e), np.float32), np.zeros(len(e), np.float32)
+        re[in_t], im[in_t] = tr[ant[in_t], x[in_t]], ti[ant[in_t], x[in_t]]
+        fx = x[in_f] - h
+        re[in_f], im[in_f] = xr[ant[in_f], fx], xi[ant[in_f], fx]
+        read = in_t | in_f
+        reads.append((ant[read], x[read]))
+        return re, im
+
+    win = [load(k) for k in range(s)]
+    vr, vi = [v[0] for v in win], [v[1] for v in win]
+    ar = [np.zeros(len(e), np.float32) for _ in range(s)]
+    ai = [np.zeros(len(e), np.float32) for _ in range(s)]
+    tapr = taps_rm[::-1]
+    for d0 in range(0, w, s):
+        for rr in range(min(s, w - d0)):
+            tap = tapr[d0 + rr, j]
+            for ss in range(s):
+                ar[ss] = (tap * vr[(ss + rr) % s] + ar[ss]).astype(np.float32)
+                ai[ss] = (tap * vi[(ss + rr) % s] + ai[ss]).astype(np.float32)
+            vr[rr], vi[rr] = load(d0 + rr + s)
+    for ss in range(s):
+        slot = _w_fir_slot(ant * cu + s0 + ss, j, m)
+        z[slot[live]] = ar[ss][live] + 1j * ai[ss][live].astype(np.float64)
+        words["fir store"].append(2 * slot)
+
+
+def _w_dft(z, a, m, words):
+    """The stage-1 transform of a chunk, in place, tile by tile."""
+    _, gw, cu = _wq(m)
+    _, gl, q = _w_lanes(m)
+    for tile in range(a * cu // gw):
+        g = tile * gw + gl
+        slots = [_w_fir_slot(g, q + (m // 16) * mm, m) for mm in range(16)]
+        words["dft load"] += [2 * sl for sl in slots]
+        v = np.stack([z[sl] for sl in slots], 1)
+        out = _w_transform(v, z, g, q, m, words, "dft")
+        for i in range(16):
+            slot = _w_out_slot(g, _w_bin(i, q, m), m)
+            words["dft store"].append(2 * slot)
+            z[slot] = out[:, i]
+
+
+def _w_jobs(z, m, fdp, xep, tc, tvalid, words):
+    """The chunk's lag jobs (pair f, half of its vectors) and Gram jobs
+    (baseline b) on z; returns the chunk's partial-row words: lag runs
+    [nfd, LS, M] and Gram sums [nb, 2M]."""
+    q_, gw, cu = _wq(m)
+    lane, gl, q = _w_lanes(m)
+    rpj = cu // gw // WIDE_LS
+    v_keep = 16 // gw
+    lag = np.full((len(fdp), WIDE_LS, m), np.nan, np.float32)
+    for f, (p, pq) in enumerate(fdp):
+        for part in range(WIDE_LS):
+            tile = np.zeros(512, np.complex128)
+            sums = np.zeros((32, 16), np.float32)
+            for rd in range(part * rpj, (part + 1) * rpj):
+                t = rd * gw + gl
+                v = np.zeros((32, 16), np.complex128)
+                for mm in range(16):
+                    k = q + q_ * mm
+                    sp, sq = _w_out_slot(p * cu + t, k, m), _w_out_slot(
+                        pq * cu + t, k, m)
+                    words["lag load"] += [2 * sp, 2 * sq]
+                    v[:, mm] = z[sp] * np.conj(z[sq])
+                y = _w_transform(v, tile, gl, q, m, words, "lag")
+                ok = tc + t < tvalid
+                sums[ok] = (sums[ok] + np.abs(y[ok])).astype(np.float32)
+            folded = _w_fold(sums, q_)
+            for u in range(v_keep):
+                k = _w_bin(gl * v_keep + u, q, m)
+                assert np.isnan(lag[f, part, k]).all()    # one owner a word
+                lag[f, part, k] = folded[:, u]
+    gram = np.zeros((len(xep), 2 * m), np.float32)
+    for b, (s1, s2) in enumerate(xep):
+        for i in range(m // 32):
+            k = lane + 32 * i
+            for t in range(min(cu, tvalid - tc)):
+                u1 = z[_w_out_slot(s1 * cu + t, k, m)]
+                u2 = z[_w_out_slot(s2 * cu + t, k, m)]
+                if t < 2:
+                    words["gram load"] += [2 * _w_out_slot(s1 * cu + t, k, m),
+                                           2 * _w_out_slot(s2 * cu + t, k, m)]
+                prod = u1 * np.conj(u2)
+                gram[b, k] += prod.real.astype(np.float32)
+                gram[b, m + k] += prod.imag.astype(np.float32)
+    assert not np.isnan(lag).any()
+    return lag, gram
+
+
+def _w_block(ins, blk, taps_rm, m, fdp, xep, words=None):
+    """Block ``blk`` of fx_wide_kernel replayed: its partial row (lag runs,
+    then Gram sums) and every (antenna, v index) its FIR read."""
+    xr = ins[0]
+    a, n = xr.shape
+    _, _, cu = _wq(m)
+    words = collections.defaultdict(list) if words is None else words
+    tvalid = min(WIDE_CHUNKS * cu, n // m - blk * WIDE_CHUNKS * cu)
+    z = np.zeros(a * WIDE_CHUNK, np.complex128)
+    reads = []
+    lag = gram = None
+    for ch in range(WIDE_CHUNKS):
+        tc = ch * cu
+        if tc >= tvalid:
+            break
+        _w_fir(ins, blk, ch, taps_rm, m, z, words, reads)
+        _w_dft(z, a, m, words)
+        lg, gr = _w_jobs(z, m, fdp, xep, tc, tvalid, words)
+        lag = lg if lag is None else (lag + lg).astype(np.float32)
+        gram = gr if gram is None else (gram + gr).astype(np.float32)
+    return np.concatenate([lag.reshape(-1), gram.reshape(-1)]), reads, words
+
+
+def _w_reduce(rows, m, nfd, nb):
+    """fx_reduce_kernel over the blocks' partial rows, its index arithmetic
+    replayed: output o of the lag sums (o < nfd·M) adds its pair's LS runs
+    of every row, each Gram output its one word (shifted past the extra
+    runs)."""
+    rows = np.asarray(rows, np.float64)
+    width, lag = rows.shape[1], nfd * m
+    assert width == (nfd * WIDE_LS + 2 * nb) * m
+    out = np.zeros(lag + 2 * nb * m)
+    for o in range(len(out)):
+        in_lag = o < lag
+        col = o // m * WIDE_LS * m + o % m if in_lag else o + lag * (WIDE_LS - 1)
+        for r in range(WIDE_LS if in_lag else 1):
+            assert col + r * m < width
+            out[o] += rows[:, col + r * m].sum()
+    return out[:lag].reshape(nfd, m), out[lag:].reshape(nb, 2 * m)
+
+
+def _w_case(m, a, n, h_kind, seed, dt="float32"):
+    taps_rm, ntaps = _taps(m)
+    w = taps_rm.shape[0]
+    h = {"tail_len": hk.fx_tail_len(dt, m, ntaps), "flat": w * m - 1,
+         "long": 4096 + 7 * m + 3}[h_kind]
+    rng = np.random.default_rng(seed)
+    if dt == "int8":
+        mk = lambda s: rng.integers(-127, 128, s).astype(np.float32)
+    else:
+        mk = lambda s: rng.standard_normal(s).astype(np.float32)
+    return (mk((a, n)), mk((a, n)), mk((a, h)), mk((a, h))), taps_rm
+
+
+# (M, antennas, frame, tail kind, fd_pairs, xe_pairs): every case with a
+# ragged last block; the pipeline's tail (the seam in block 0), the flat
+# entry's W·M − 1 history (odd: every frame read off alignment) and a tail
+# longer than a block (the seam in block 1)
+WIDE_REPLAY = [
+    (32, 2, 2 * 4096 + 32 * 40, "tail_len", None, None),
+    (64, 4, 2 * 4096 + 64 * 5, "tail_len", None, None),
+    (64, 3, 4096 + 64 * 37, "flat", [(0, 2), (1, 1)], [(2, 0), (1, 1)]),
+    (128, 2, 2 * 4096 + 128 * 17, "long", None, None),
+    (128, 4, 4096 + 128 * 3, "flat", None, None)]
+WIDE_REPLAY_IDS = ["m32_a2", "m64_a4_ragged5", "m64_a3_flat_pairs",
+                   "m128_a2_long_tail", "m128_a4_flat"]
+
+
+@pytest.mark.parametrize("m,a,n,h_kind,fdp,xep", WIDE_REPLAY,
+                         ids=WIDE_REPLAY_IDS)
+def test_fx_wide_schedule_matches_plain(m, a, n, h_kind, fdp, xep):
+    """A replay of fx_wide_kernel on every block (its FIR read from the tail
+    and the frame, the stage-1 transforms through the warp tiles, the lag
+    jobs' transforms, |.| sums and fold, the Gram jobs, the partial rows
+    added over two chunks) and of fx_reduce_kernel's sum over blocks and
+    lag runs gives fx_correlate_streams_v2_plain's sums; every read lies in
+    the tail or the frame, and every sample the outputs need is read."""
+    ins, taps_rm = _w_case(m, a, n, h_kind, seed=m + a)
+    h = ins[2].shape[1]
+    w = taps_rm.shape[0]
+    fd, xe = hk._default_pairs(fdp, xep, a)
+    tile = WIDE_CHUNKS * WIDE_CHUNK // m
+    nblk = -(-(n // m) // tile)
+    rows, seen = [], [set() for _ in range(a)]
+    for blk in range(nblk):
+        row, reads, _ = _w_block(ins, blk, taps_rm, m, fd.tolist(),
+                                 xe.tolist())
+        rows.append(row)
+        for ant, x in reads:
+            assert ((x >= 0) & (x < h + n)).all()
+            for c in range(a):
+                seen[c].update(x[ant == c].tolist())
+    need = set(range(n + (w - 1) * m))
+    assert all(need <= s_ for s_ in seen)
+    got_fd, got_g = _w_reduce(rows, m, len(fd), len(xe))
+    want_fd, want_g = hk.fx_correlate_streams_v2_plain(
+        *[torch.from_numpy(x) for x in ins], taps_rm, a, m,
+        fd_pairs=fdp, xe_pairs=xep)
+    close(got_fd, want_fd, REL_CPU)
+    close(got_g, want_g, REL_CPU)
+
+
+@pytest.mark.parametrize("m", hk.FX_WIDE_M)
+def test_fx_wide_shared_memory_banks(m):
+    """Every warp-wide shared-memory access of fx_wide_kernel is on 32
+    distinct banks (float2: half-warp phases): the FIR's sums' stores, the
+    stage-1 transform's loads, exchange and stores, the lag jobs' z loads
+    and their exchange through the warp's tile, the Gram jobs' z loads; the
+    pass-1 table's entries broadcast.  The three layouts are bijective on
+    a chunk, and the fold leaves every lag bin on exactly one lane."""
+    a = 4
+    ins, taps_rm = _w_case(m, a, 2 * 4096, "tail_len", seed=1)
+    _, _, words = _w_block(ins, 1, taps_rm, m, [(0, 1), (0, 3)],
+                           [(0, 1), (2, 2), (3, 1)])
+    kinds = {"fir store", "dft load", "dft pass1 store", "dft pass2 load",
+             "dft store", "dft table", "lag load", "lag pass1 store",
+             "lag pass2 load", "lag table", "gram load"}
+    assert set(words) == kinds
+    for kind, addrs in words.items():
+        assert _banks_ok(addrs, width=2), kind
+    x = np.arange(a * WIDE_CHUNK)
+    g, j = np.divmod(x, m)
+    assert sorted(_w_fir_slot(g, j, m)) == list(x)
+    assert sorted(_w_out_slot(g, j, m)) == list(x)
+    # the kernel's addressing: a lane-dependent base XOR a constant
+    assert (_w_out_slot(g, j, m) == _w_out_slot(g, 0, m) ^ _w_kswz(j)).all()
+    q_ = m // 16
+    c = np.arange(0, m, q_)
+    for qq in range(q_):
+        assert (_w_kswz(qq | c) == qq ^ _w_kswz(c)).all()
+    lanes = np.arange(32)
+    for i in range(m // 32):
+        assert (_w_kswz(lanes + 32 * i) == _w_kswz(lanes) ^ (32 * i)).all()
+    g, rest = np.divmod(x, m)
+    q, k1 = np.divmod(rest, 16)
+    assert sorted(_w_pass1_slot(g, q, k1, m)) == list(x)
+    lane, gl, q = _w_lanes(m)
+    keep = 16 // (32 // q_)
+    bins = np.stack([_w_bin(gl * keep + u, q, m) for u in range(keep)])
+    assert sorted(bins.reshape(-1)) == list(range(m))
+    sums = np.random.default_rng(2).standard_normal((32, 16)).astype(
+        np.float32)
+    folded = _w_fold(sums, q_)
+    for u in range(keep):
+        i = gl * keep + u
+        want = np.array([sums[q == qq][:, ii].sum() for qq, ii in zip(q, i)])
+        np.testing.assert_allclose(folded[:, u], want, rtol=1e-6, atol=1e-6)
 
 
 # --------------------------------------------------------------------------

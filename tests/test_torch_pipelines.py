@@ -112,9 +112,9 @@ FUSED = [
 ]
 
 
-def _run_jax_fused(dt, fdp, xep, frames, tails=None):
+def _run_jax_fused(dt, fdp, xep, frames, tails=None, cfg=CFG):
     jfn, (_, _, jtr, jti) = J.make_fx_pipeline_fused(
-        CFG, in_dtype=getattr(jnp, dt), interpret=True, mxu_dtype=jnp.float32,
+        cfg, in_dtype=getattr(jnp, dt), interpret=True, mxu_dtype=jnp.float32,
         fd_pairs=fdp, xe_pairs=xep)
     if tails is not None:
         jtr, jti = tails
@@ -127,14 +127,26 @@ def _run_jax_fused(dt, fdp, xep, frames, tails=None):
     return outs
 
 
-@pytest.mark.parametrize("case", FUSED, ids=[c[0] for c in FUSED])
-def test_fused_pipeline_matches_jax(ref, case):
+# the fused step at 16 channels (400 taps) and at 64 (the 1600-tap
+# prototype, fx_wide_kernel's on a card), each case's id kept at 16
+FUSED_M = [(c, 16) for c in FUSED] + [(c, 64) for c in FUSED]
+FUSED_M_IDS = [c[0] for c in FUSED] + [c[0] + "_m64" for c in FUSED]
+
+
+@pytest.mark.parametrize("case,channels", FUSED_M, ids=FUSED_M_IDS)
+def test_fused_pipeline_matches_jax(ref, case, channels):
     _, dt, fdp, xep = case
+    cfg = CFG._replace(num_channels=channels)
     frames = _real_frames(dt, 3)
-    jouts = _run_jax_fused(dt, fdp, xep, frames)
+    jouts = _run_jax_fused(dt, fdp, xep, frames, cfg=cfg)
     tfn, (_, _, ttr, tti) = P.make_fx_pipeline_fused(
-        CFG, in_dtype=getattr(torch, dt), fd_pairs=fdp, xe_pairs=xep,
+        cfg, in_dtype=getattr(torch, dt), fd_pairs=fdp, xe_pairs=xep,
         device="cpu")
+    # the tails fx_tail_len sizes: 8/32 rows of 128 at 400 taps, 16/32 at
+    # 1600 (f32/int8)
+    assert ttr.shape[-1] == {(16, "float32"): 1024, (16, "int8"): 4096,
+                             (64, "float32"): 2048, (64, "int8"): 4096}[
+                                 channels, dt]
     for (xr, xi), jo in zip(frames, jouts):
         to = tfn(_t(xr, dt), _t(xi, dt), ttr, tti)
         for g, w in zip(to[:3], jo[:3]):
@@ -192,13 +204,19 @@ def test_reference_state_defaults_to_the_card(monkeypatch, helper):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", ["float32", "int8"])
-def test_fused_pipeline_on_card_matches_cpu(card, dt):
+@pytest.mark.parametrize("dt,channels", [("float32", 16), ("int8", 16),
+                                         ("float32", 64), ("int8", 64)],
+                         ids=["float32", "int8", "float32_m64", "int8_m64"])
+def test_fused_pipeline_on_card_matches_cpu(card, dt, channels):
+    """The fused step on the card (fx_reg_kernel at 16 channels,
+    fx_wide_kernel at 64) against its plain form on the CPU over 3 chained
+    steps, tails equal."""
+    cfg = CFG._replace(num_channels=channels)
     frames = _real_frames(dt, 5)
     gfn, (_, _, gtr, gti) = P.make_fx_pipeline_fused(
-        CFG, in_dtype=getattr(torch, dt), device=card)
+        cfg, in_dtype=getattr(torch, dt), device=card)
     cfn, (_, _, ctr, cti) = P.make_fx_pipeline_fused(
-        CFG, in_dtype=getattr(torch, dt), device="cpu")
+        cfg, in_dtype=getattr(torch, dt), device="cpu")
     for xr, xi in frames:
         go = gfn(_t(xr, dt, card), _t(xi, dt, card), gtr, gti)
         co = cfn(_t(xr, dt), _t(xi, dt), ctr, cti)

@@ -967,16 +967,25 @@ def _seeded(dt: str, shape, seed: int, n: int = 2):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16", "int8"])
-def test_world1_fused_equals_unsharded(world1, dt):
-    n = FUSED_N[dt]
-    cfg = P.FxPipelineConfig(num_antennas=2, num_channels=16,
+@pytest.mark.parametrize("dt,channels", [
+    ("float32", 16), ("bfloat16", 16), ("int8", 16), ("float32", 64),
+    ("int8", 64)], ids=["float32", "bfloat16", "int8", "float32_m64",
+                        "int8_m64"])
+def test_world1_fused_equals_unsharded(world1, dt, channels):
+    """One rank's sharded fused step equals the unsharded step bit for bit
+    over two chained steps, its tail the unsharded one's: fx_tail_len
+    with the prototype, 2048 and 4096 samples at 64 channels (1600 taps,
+    fx_wide_kernel's on a card)."""
+    n = FUSED_N[dt] if channels == 16 else max(FUSED_N[dt], 2048)
+    cfg = P.FxPipelineConfig(num_antennas=2, num_channels=channels,
                              samples_per_step=n)
     sfn, (_, _, str_, sti) = P.make_sharded_fx_pipeline_fused(
         world1, cfg=cfg, in_dtype=getattr(torch, dt))
     ufn, (_, _, utr, uti) = P.make_fx_pipeline_fused(
         cfg, in_dtype=getattr(torch, dt), device="cpu")
     assert str_.shape == utr.shape and str_.dtype == utr.dtype
+    if channels == 64:
+        assert str_.shape[-1] == {"float32": 2048, "int8": 4096}[dt]
     for step in range(2):
         xr, xi = _seeded(dt, (2, n), 60 + step)
         so = sfn(xr, xi, str_, sti)
