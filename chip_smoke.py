@@ -13,9 +13,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build  — compile ``clenabled_tpu_torch/csrc/*.cu`` from this checkout,
    one ``nvcc`` per source, all started together; print ptxas's lines and,
    for each instantiation of the int8 Gram kernels, of the three
-   oversampled-PFB bodies, of both direct-FIR bodies and of both
+   oversampled-PFB bodies, of both direct-FIR bodies and of the three
    packed-PFB bodies, its registers, stack frame and spill bytes; a spill
-   in ``fir_reg_kernel``, in any ``pfb_packed_reg_kernel<M>``, in any
+   in ``fir_reg_kernel``, in any ``pfb_packed_reg_kernel<M>`` or
+   ``pfb_packed_wide_kernel<M>``, in any
    ``pfb_os_wide_kernel<M, L>`` or in any ``fx_wide_kernel<T, M>`` (also
    printed, with both other FX bodies) fails.
 3. kernels — each kernel against its plain torch form on the card, TF32
@@ -43,13 +44,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    step's shape ([8216, 128]: 4 antennas × 2^17, 16 channels, W = 25) and
    at the fused step's width ([524312, 128]: 4 × 2^23), then at M = 8, 4
    and 2, A = 1 and 3, W = 1 and 100, a ragged (8192 + 7 rows) and a short
-   (20 rows, fewer than a block) last block, and M = 32, each case
-   printing the body ``hopper_kernels.pfb_packed_body`` ran
-   (``pfb_packed_reg_kernel`` at M ≤ 16, ``pfb_packed_kernel`` at 32); at
-   both main shapes the first body, ``pfb_packed_kernel``, also runs
-   through the C entry (body 0, no wrapper counting it), held to the plain
-   form, and both bodies are timed from ``torch.profiler``
-   (``runtime.device.device_time_ms``) beside their CUDA-event times.
+   (20 rows, fewer than a block) last block, M = 32 at 2^17, and M = 32,
+   64 and 128 at 4 × 2^23 (the step's own 25-tap-a-branch prototypes),
+   each case printing the body ``hopper_kernels.pfb_packed_body`` ran
+   (``pfb_packed_reg_kernel`` at M ≤ 16, ``pfb_packed_wide_kernel`` at 32,
+   64 and 128, which the rule must pick at 4 × 2^23); at both main shapes
+   and at the three wide ones the first body, ``pfb_packed_kernel``, also
+   runs through the C entry (body 0, no wrapper counting it), held to the
+   plain form, and both bodies are timed from ``torch.profiler``
+   (``runtime.device.device_time_ms``) beside their CUDA-event times and
+   ``pfb_bounds``; at M ≥ 32 the new body must be the faster.
 4. main path — launch counts reset, then the fused step at full width
    (4 antennas × 2^23 samples, 16 channels, 400 taps) for 3 chained steps
    in f32 and int8 ingest, and the planar step at the entry shape (2^17);
@@ -63,7 +67,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    64 channels (the 1600-tap prototype, 4 × 2^23) for 3 chained steps in
    f32 and int8; counts read: one launch a step, every step held to the
    plain form, tails bit-equal, one ``fx_wide_kernel`` a step by the
-   profiler's kernel names, its device busy and wall time a step.
+   profiler's kernel names, its device busy and wall time a step.  Then,
+   counts reset, the planar step at 64 channels (the 1600-tap prototype,
+   4 × 2^23) for 3 chained steps; counts read: one launch a step, every
+   step held to the plain form, tails bit-equal, one
+   ``pfb_packed_wide_kernel`` a step by name, its device busy and wall
+   time a step and the packed PFB kernel's share of the busy time.
 5. ingest — ``HostIngest`` feeds 8 host frames through the fused step;
    device step time, kernel and plain times and end-to-end MSPS.
 6. flat FX path — counts reset, 3 chained frames of 4 × 2^23 through
@@ -414,6 +423,11 @@ OS_M, OS_R, OS_N, OS_FRAMES, OS_DEEP_N = 16, 8, 1 << 23, 4, 1 << 21
 # dtype, both entries; the 64-channel step (the 1600-tap prototype of
 # BENCH_TPU.md:177) as a counted path
 FX_WIDE_M, FX_PATH_M = (32, 64, 128), 64
+# the packed PFB's wide body (hopper_kernels.PFB_WIDE_M: 32, 64 and 128
+# channels) runs at the planar step's full width (4 x 2^23, the step's own
+# 25-tap-a-branch prototypes) on both bodies; the 64-channel planar step
+# (1600 taps) as a counted path
+PFB_PATH_M = 64
 OS_WIDE = [("64ch R=16 192 taps", 64, 16, 192),
            ("64ch R=16 1600 taps", 64, 16, 1600),
            ("32ch R=4 96 taps", 32, 4, 96), ("128ch R=16", 128, 16, None)]
@@ -463,7 +477,7 @@ HBM_BPS, FP32_OPS, INT8_OPS, BF16_OPS = 3.35e12, 67e12, 1979e12, 989e12
 # counted by no wrapper and runs in no timed window)
 PORT_KERNELS = ("fx_tile_kernel", "fx_reg_kernel", "fx_wide_kernel",
                 "pfb_packed_kernel",
-                "pfb_packed_reg_kernel",
+                "pfb_packed_reg_kernel", "pfb_packed_wide_kernel",
                 "gram_int8_diag_kernel", "gram_int8_quad_kernel",
                 "gram_bf16_diag_kernel", "gram_bf16_quad_kernel",
                 "fir_direct_kernel", "fir_reg_kernel", "ofs_filter_kernel",
@@ -1194,7 +1208,10 @@ def pfb_packed_phase(torch, hk, gen, dev) -> dict:
     2^17, 16 channels, W = 25) and the fused step's width (4 × 2^23), each
     also on the first body through the C entry and timed beside it; then
     M = 8, 4, 2, A = 1 and 3, W = 1 and 100, a ragged and a short last
-    block, and M = 32 (the first body), each printing the body it ran."""
+    block, and M = 32 at 2^17; then ``hk.PFB_WIDE_M`` at 4 × 2^23 on the
+    step's own prototypes, where the rule must pick pfb_packed_wide_kernel,
+    timed beside the first body, which it must beat; each case printing
+    the body it ran."""
     res = {"err": 0.0, "bodies": {}, "shapes": {}}
     cases = [("entry", A, M, N_ENTRY // M, None),
              ("full width", A, M, N_FULL // M, None),
@@ -1208,6 +1225,10 @@ def pfb_packed_phase(torch, hk, gen, dev) -> dict:
              ("ragged 8192+7", A, M, 8192 + 7, None),
              ("nout 20 < rows", A, M, 20, None),
              ("M=32", A, 32, N_ENTRY // 32, None)]
+    cases += [(f"M={m} full width", A, m, N_FULL // m, None)
+              for m in hk.PFB_WIDE_M]
+    timed = ["entry", "full width"] + [f"M={m} full width"
+                                       for m in hk.PFB_WIDE_M]
     for label, a, m, nout, ntaps in cases:
         y, hr = pfb_inputs(torch, gen, dev, a, m, nout, ntaps)
         w = hr.shape[0]
@@ -1220,7 +1241,11 @@ def pfb_packed_phase(torch, hk, gen, dev) -> dict:
         res["err"] = max(res["err"], check(
             torch, f"pfb_packed {label} {shape}, A={a}, M={m}, W={w} on "
                    f"{body}", [got], [want]))
-        if label in ("entry", "full width"):
+        if m in hk.PFB_WIDE_M and label in timed \
+                and body != "pfb_packed_wide_kernel":
+            fail(f"pfb_packed {label}: the rule picks {body}, not "
+                 f"pfb_packed_wide_kernel")
+        if label in timed:
             first = pfb_on_body(torch, hk, y, hr, a, m, "pfb_packed_kernel")
             first_err = check(torch, f"pfb_packed {label} {shape} on "
                                      f"pfb_packed_kernel (the first body)",
@@ -1232,12 +1257,18 @@ def pfb_packed_phase(torch, hk, gen, dev) -> dict:
                             first)
             plain_ms = time_ms(torch, lambda: hk.pfb_channelize_packed_plain(
                 y, hr, a, m), reps=3, warmup=1)
-            phase("time", f"pfb_packed {label} {shape}: plain {plain_ms:.4f}"
-                          f" ms")
+            bounds = pfb_bounds(nout, w, a, m)
+            phase("time", f"pfb_packed {label} {shape}: {body} "
+                          f"{new['ms']:.4f} ms ({bounds['bound'][0] / new['ms']:.0%}"
+                          f" of its {bounds['bound'][0]:.4f} ms bound, "
+                          f"{bounds['bound'][1]}), pfb_packed_kernel "
+                          f"{old['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+            if m in hk.PFB_WIDE_M and not new["ms"] < old["ms"]:
+                fail(f"pfb_packed {label}: {body} is not faster than "
+                     f"pfb_packed_kernel")
             res["shapes"][label] = dict(
                 new, shape=shape, body=body, plain_ms=plain_ms,
-                first_body=dict(old, max_abs_err=first_err),
-                bounds=pfb_bounds(nout, w, a, m))
+                first_body=dict(old, max_abs_err=first_err), bounds=bounds)
         del y, hr, got, want
     torch.cuda.empty_cache()
     return res
@@ -2966,11 +2997,11 @@ def typed_fir_phase(torch, dev) -> dict:
     return res
 
 
-def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms) -> dict:
+def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms,
+                      body: str) -> dict:
     """The planar step's device busy time (``torch.profiler``) and wall
     time a step over its chained frames, with the packed PFB kernel's share
-    of the busy time; fails unless each step launched
-    ``pfb_packed_reg_kernel``."""
+    of the busy time; fails unless each step launched ``body``."""
     from clenabled_tpu_torch.runtime.device import launched_kernels
 
     def chain():
@@ -2988,17 +3019,74 @@ def planar_step_times(torch, step, frames, hr0, hi0, kernel_ms) -> dict:
     busy = device_busy_ms(torch, chain, steps=1)
     busy_ms = None if busy is None else busy / len(frames)
     _, names = launched_kernels(chain, least=len(frames))
-    if sum("pfb_packed_reg_kernel" in n for n in names) != len(frames):
-        fail(f"the planar step did not launch pfb_packed_reg_kernel once a "
-             f"step: {names}")
+    if sum(body in n for n in names) != len(frames):
+        fail(f"the planar step did not launch {body} once a step: {names}")
     share = None if busy_ms is None else kernel_ms / busy_ms
     shown = "not measured" if busy_ms is None else (
         f"{busy_ms:.4f} ms ({busy_ms / wall_ms:.0%} of the wall time; the "
         f"packed PFB kernel {share:.0%} of it)")
-    phase("main", f"planar step {A}x{N_ENTRY} on pfb_packed_reg_kernel, per "
+    phase("main", f"planar step {A}x{frames[0][0].shape[-1]} on {body}, per "
                   f"step over {len(frames)} chained steps: device busy "
                   f"{shown}, wall {wall_ms:.4f} ms")
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kernel_share": share}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "kernel_share": share,
+            "kernels": sorted(set(short_name(n) for n in names))}
+
+
+def planar_wide_path(torch, hk, P, gen, dev, kernel_ms) -> dict:
+    """Counts reset, the planar step at 64 channels (the step's 1600-tap
+    prototype), 4 × 2^23, 3 chained steps; counts read: one launch a step,
+    each step held to the plain form on the same module, the tails
+    bit-equal to the plain run's and to the frames' ends; then one
+    pfb_packed_wide_kernel a step by name, the device busy and wall time a
+    step with the kernel's share (``planar_step_times``), and one step's
+    device time by kernel name."""
+    m = PFB_PATH_M
+    cfg = P.FxPipelineConfig(num_antennas=A, num_channels=m,
+                             samples_per_step=N_FULL)
+    fn, (_, _, hr0, hi0) = P.make_fx_pipeline_planar(cfg, device=dev)
+    steps = [(torch.randn((A, N_FULL), generator=gen, device=dev),
+              torch.randn((A, N_FULL), generator=gen, device=dev))
+             for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs = []
+    hr, hi = hr0, hi0
+    for xr, xi in steps:
+        o = fn(xr, xi, hr, hi)
+        outs.append(o)
+        hr, hi = o[3], o[4]
+    torch.cuda.synchronize()
+    launches = hk.pfb_channelize_packed.launches
+    ntaps = fn.taps_rm.shape[0] * m
+    phase("main", f"planar step {A}x{N_FULL} at {m} channels ({ntaps} "
+                  f"taps), {STEPS} steps; launches {launches}")
+    if launches != STEPS:
+        fail(f"the {m}-channel planar step launched pfb_channelize_packed "
+             f"{launches} times in {STEPS} steps")
+    res = {"launches": launches, "err": 0.0, "ntaps": ntaps}
+    fn.use_kernel = False
+    hr, hi = hr0, hi0
+    for k, (xr, xi) in enumerate(steps):
+        want = fn(xr, xi, hr, hi)
+        got = outs[k]
+        res["err"] = max(res["err"], check(
+            torch, f"planar {m}ch step {k}", got[:3], want[:3]))
+        h = ntaps - 1
+        if not (torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+                and torch.equal(got[3], xr[:, -h:])
+                and torch.equal(got[4], xi[:, -h:])):
+            fail(f"planar {m}ch step {k}: carried tail is wrong")
+        hr, hi = want[3], want[4]
+    fn.use_kernel = None
+    del outs
+    res.update(planar_step_times(torch, fn, steps, hr0, hi0, kernel_ms,
+                                 "pfb_packed_wide_kernel"))
+    # where a step's device time goes, by kernel name (one step)
+    by_name, _ = step_events(torch, lambda: fn(*steps[0], hr0, hi0))
+    res["by_kernel_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    phase("main", f"planar {m}ch step, device ms by kernel: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res["by_kernel_ms"].items()))
+    return res
 
 
 def short_name(name: str) -> str:
@@ -4622,15 +4710,16 @@ def main() -> None:
                 fail(f"costas_lanes_kernel<{o}, {h}>: ptxas reports "
                      f"{reg or 'nothing'}")
     pk_ptxas = ptxas_summary(_build.last_build["log"],
-                             ("pfb_packed_kernel", "pfb_packed_reg_kernel"))
+                             ("pfb_packed_kernel", "pfb_packed_reg_kernel",
+                              "pfb_packed_wide_kernel"))
     for name, info in pk_ptxas.items():
         phase("ptxas", f"{name}: {info}")
-    for m in hk.PFB_REG_M:
-        reg = pk_ptxas.get(f"pfb_packed_reg_kernel<{m}>", {})
+    for name in ([f"pfb_packed_reg_kernel<{m}>" for m in hk.PFB_REG_M]
+                 + [f"pfb_packed_wide_kernel<{m}>" for m in hk.PFB_WIDE_M]):
+        reg = pk_ptxas.get(name, {})
         if "registers" not in reg or reg.get("spill_stores") or reg.get(
                 "spill_loads"):
-            fail(f"pfb_packed_reg_kernel<{m}>: ptxas reports "
-                 f"{reg or 'nothing'}")
+            fail(f"{name}: ptxas reports {reg or 'nothing'}")
     fx_ptxas = ptxas_summary(_build.last_build["log"],
                              ("fx_reg_kernel", "fx_wide_kernel",
                               "fx_tile_kernel"))
@@ -4757,7 +4846,8 @@ def main() -> None:
     if launches["fx"] < 1 or launches["pfb"] < 1:
         fail(f"a kernel of the main path was not launched: {launches}")
     planar = planar_step_times(torch, planar_fn, planar_frames, ph0, pi0,
-                               pk["shapes"]["entry"]["ms"])
+                               pk["shapes"]["entry"]["ms"],
+                               "pfb_packed_reg_kernel")
 
     for label, (fr, tr, ti) in runs.items():
         fn = fused[label][0]
@@ -4813,6 +4903,10 @@ def main() -> None:
     # the fused step at 64 channels, counted on its own
     fx_path = fx_wide_path(torch, hk, P, gen, dev)
     errs["fx"] = max(errs["fx"], fx_path["err"])
+    torch.cuda.empty_cache()
+    # the planar step at 64 channels, counted on its own
+    pk_path = planar_wide_path(
+        torch, hk, P, gen, dev, pk["shapes"][f"M={PFB_PATH_M} full width"]["ms"])
     torch.cuda.empty_cache()
 
     # 5. HostIngest at full width
@@ -5020,6 +5114,15 @@ def main() -> None:
                  "first_body": r["first_body"]}
                  for r in pk["shapes"].values()},
              **{k: v for k, v in pk_entry["bounds"].items() if k != "bound"},
+             wide={m: {"body": r["body"], "shape": r["shape"], "ms": r["ms"],
+                       "device_ms": r["device_ms"],
+                       "events_ms": r["events_ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bounds"]["bound"][0],
+                       "bound_by": r["bounds"]["bound"][1],
+                       "first_body_ms": r["first_body"]["ms"]}
+                   for m in hk.PFB_WIDE_M
+                   for r in [pk["shapes"][f"M={m} full width"]]},
+             wide_path_launches=pk_path["launches"], wide_path=pk_path,
              cuda_kernels=sorted(pk_ptxas), ptxas=pk_ptxas),
         dict(entry("fx_correlate_streams", "fx_correlate.cu", 876,
                    flat_launches, max(errs["fx1"], errs["fx1 path"]),
@@ -5167,6 +5270,7 @@ def main() -> None:
                   "costas_streams": cob["streams_path"],
                   "costas_chunked_2p23": cob["chunked_big"],
                   "planar_step": planar,
+                  "planar_step_64ch": pk_path,
                   "sharded": sharded, "correlators": correlators,
                   "gr_tools": gr_tools, "examples": examples,
                   "vectorised": vectorised}}

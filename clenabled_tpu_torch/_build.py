@@ -38,6 +38,7 @@ _SIGNATURES = {
     "clen_fx_partial_width": ([_I, _I, _I, _I], _I),
     "clen_pfb_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "clen_pfb_smem_bytes": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "clen_pfb_block_rows": ([_I, _I], _I),
     "clen_xengine_gram": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "clen_gram_int8_smem_bytes": ([], ctypes.c_longlong),
     "clen_gram_bf16_smem_bytes": ([], ctypes.c_longlong),

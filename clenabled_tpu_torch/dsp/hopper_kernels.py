@@ -13,11 +13,13 @@ ported so far:
   from device memory, M-point DFTs in two in-register passes) for M in
   {32, 64, 128} where its block fits, ``fx_tile_kernel`` otherwise.
 - ``pfb_channelize_packed`` (``csrc/pfb_packed.cu``): the lane-packed PFB
-  branch sums plus per-group inverse DFT of the planar pipeline.  Two
+  branch sums plus per-group inverse DFT of the planar pipeline.  Three
   ``__global__`` bodies, chosen in ``pfb_packed_body``:
   ``pfb_packed_reg_kernel`` (register-tiled column FIR, in-register M-point
   DFTs) for M in {2, 4, 8, 16} where its block fits,
-  ``pfb_packed_kernel`` otherwise.
+  ``pfb_packed_wide_kernel`` (the same column FIR over both components a
+  lane, M-point DFTs in two in-register passes) for M in {32, 64, 128}
+  where its block fits, ``pfb_packed_kernel`` otherwise.
 - ``xengine_gram_stacked`` with its ``_blocks`` and ``_tri`` forms
   (``csrc/xengine_gram.cu``'s entry, on the tensor cores in
   ``csrc/xengine_gram_int8.cu`` for int8 and ``csrc/xengine_gram_bf16.cu``
@@ -458,37 +460,52 @@ def _check_packed(y_packed, hr, a: int, m: int):
     return w, nout, gm
 
 
-# the two __global__ bodies of csrc/pfb_packed.cu, by their C body code
-PFB_PACKED_BODIES = ("pfb_packed_kernel", "pfb_packed_reg_kernel")
+# the three __global__ bodies of csrc/pfb_packed.cu, by their C body code
+PFB_PACKED_BODIES = ("pfb_packed_kernel", "pfb_packed_reg_kernel",
+                     "pfb_packed_wide_kernel")
 PFB_REG_M = (2, 4, 8, 16)
+PFB_WIDE_M = (32, 64, 128)
 PFB_REG_ROWS = 32       # pfb_packed_reg_kernel's kPkRows: its C entry
                         # refuses any other rows a block
+PFB_WIDE_OUTS = 4096    # pfb_packed_wide_kernel's outputs of a component a
+                        # block: 4096 / m rows, the only rows its C entry takes
 
 
 def pfb_packed_tile(a: int, m: int, body: int) -> int:
     """Output rows a block of the body with C code ``body``:
     ``PFB_REG_ROWS`` for ``pfb_packed_reg_kernel`` (one 128-column chunk
-    of min(a, 64/m) antennas), 4096 / (2·a·m) for ``pfb_packed_kernel``
-    (all lanes)."""
-    return PFB_REG_ROWS if body == 1 else max(1, 4096 // (2 * a * m))
+    of min(a, 64/m) antennas), 4096 / m for ``pfb_packed_wide_kernel``
+    (the 2·m columns of one antenna), 4096 / (2·a·m) for
+    ``pfb_packed_kernel`` (all lanes)."""
+    if body == 1:
+        return PFB_REG_ROWS
+    if body == 2:
+        return PFB_WIDE_OUTS // m
+    return max(1, 4096 // (2 * a * m))
 
 
-def _pick_pfb_body(m: int, reg_smem: int, optin: int) -> str:
-    """``pfb_packed_reg_kernel`` for m in {2, 4, 8, 16} where its block's
-    ``reg_smem`` bytes of shared memory fit the card's opt-in ``optin``,
-    ``pfb_packed_kernel`` otherwise."""
-    return (PFB_PACKED_BODIES[1] if m in PFB_REG_M and reg_smem <= optin
-            else PFB_PACKED_BODIES[0])
+def _pick_pfb_body(m: int, smem: int, optin: int) -> str:
+    """``pfb_packed_reg_kernel`` for m in {2, 4, 8, 16} and
+    ``pfb_packed_wide_kernel`` for m in {32, 64, 128}, each where its
+    block's ``smem`` bytes of shared memory fit the card's opt-in
+    ``optin``; ``pfb_packed_kernel`` otherwise."""
+    if m in PFB_REG_M and smem <= optin:
+        return PFB_PACKED_BODIES[1]
+    if m in PFB_WIDE_M and smem <= optin:
+        return PFB_PACKED_BODIES[2]
+    return PFB_PACKED_BODIES[0]
 
 
 def pfb_packed_body(m: int, w: int, device) -> str:
     """The kernel body a ``pfb_channelize_packed`` call with ``m`` channels
     and ``w`` tap rows launches on the CUDA ``device``:
     ``pfb_packed_reg_kernel`` (register-tiled column FIR, in-register
-    M-point DFTs) for m in {2, 4, 8, 16} wherever its block fits the card's
-    opt-in shared memory, ``pfb_packed_kernel`` otherwise.  A pure choice
-    made before the launch.  A CPU call runs the plain form, which has no
-    body."""
+    M-point DFTs) for m in {2, 4, 8, 16} and ``pfb_packed_wide_kernel``
+    (the column FIR over both components a lane, each M-point DFT in two
+    in-register passes) for m in {32, 64, 128}, each wherever its block
+    fits the card's opt-in shared memory, ``pfb_packed_kernel`` otherwise.
+    A pure choice made before the launch.  A CPU call runs the plain form,
+    which has no body."""
     if m < 1 or w < 1:
         raise ValueError(f"need m >= 1 and w >= 1; got {m}, {w}")
     device = torch.device(device)
@@ -502,10 +519,15 @@ def pfb_packed_body(m: int, w: int, device) -> str:
 def _pfb_body_code(m: int, w: int, index: int) -> int:
     """``pfb_packed_body``'s choice on card ``index``, as the C body code,
     made once for each (m, w, card)."""
-    if m not in PFB_REG_M:
+    if m in PFB_REG_M:
+        body = 1
+    elif m in PFB_WIDE_M:
+        body = 2
+    else:
         return 0
-    reg_smem = _load().clen_pfb_smem_bytes(1, m, w, PFB_REG_ROWS, 1)
-    return PFB_PACKED_BODIES.index(_pick_pfb_body(m, reg_smem,
+    smem = _load().clen_pfb_smem_bytes(1, m, w, pfb_packed_tile(1, m, body),
+                                       body)
+    return PFB_PACKED_BODIES.index(_pick_pfb_body(m, smem,
                                                   _smem_optin(index)))
 
 

@@ -13,20 +13,22 @@ extracted with ``git show <commit>:clenabled_tpu_torch/csrc/pfb_packed.cu
 own on ``pfb_packed_kernel``, body 0 of the C entry) or the package's own
 with extra ``nvcc`` flags (a value starting with ``-D``).  By default:
 ``tree``, ``first_body`` and two stage probes of the tree, built with
-``-DPFB_STOP_AFTER=1`` and ``2``, whose ``pfb_packed_reg_kernel`` blocks
-stop after the staging and after the FIR (its sums stored to shared
-memory), so that the differences between their times split the body's
-time into staging, FIR and the DFT with the copy-out.  Each distinct
+``-DPFB_STOP_AFTER=1`` and ``2``, whose register-tiled blocks
+(``pfb_packed_reg_kernel`` at M <= 16, ``pfb_packed_wide_kernel`` at M =
+32, 64 and 128) stop after the staging and after the FIR (its sums stored
+to shared memory), so that the differences between their times split the
+body's time into staging, FIR and the DFT with the copy-out.  Each distinct
 source and flag set is compiled by its own ``nvcc`` (all started together,
 ``-Xptxas -v``) into a library of its own and called as
 ``hopper_kernels.pfb_channelize_packed`` calls it, on the planar step's
 packed stream: ``--a`` antennas of ``--samples`` samples each (one
 shape per value; by default the planar step's 2^17 and the fused step's
-2^23), ``--m`` channels, the step's prototype (400 taps at M = 16, W =
-25).  A source from before the body argument (no ``int body`` in its C
-entry) is called with the older C signature, and so runs
-``pfb_packed_kernel``.  Times are CUDA events around ``--calls``
-back-to-back calls, the variants in turn (forward, then backward) for
+2^23), ``--m`` channels, the step's prototype (400, 800, 1600 and 3200
+taps at M = 16, 32, 64 and 128: W = 25).  A source from before the body
+argument (no ``int body`` in its C entry) is called with the older C
+signature, and so runs ``pfb_packed_kernel``.  Times are CUDA events
+around ``--calls`` back-to-back calls, the variants in turn (forward, then
+backward) for
 ``--rounds`` rounds (``tools/variant_ab.py``); the table gives the least,
 the median and the largest per-call time, beside each variant's device
 time per call from ``torch.profiler`` over ``--calls`` calls (the events'

@@ -159,11 +159,13 @@ def test_pfb_packed_plain_matches_jax(ref):
     assert hk.pfb_channelize_packed.launches == 0
 
 
-@pytest.mark.parametrize("m", [2, 4, 8, 16])
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("a", [1, 4])
 def test_pfb_packed_plain_matches_jax_by_shape(ref, m, a):
     """The plain form against the Pallas kernel in interpret mode at every
-    M the register-tiled body serves, one antenna and four."""
+    M the register-tiled bodies serve (pfb_packed_reg_kernel at M <= 16,
+    pfb_packed_wide_kernel at 32, 64 and 128, on the step's prototypes of
+    25 taps a branch), one antenna and four."""
     y, hr, a, m = _packed_inputs(128, seed=7 + m + a, a=a, m=m)
     want = j_pk.pfb_channelize_packed(y, hr, a, m, tile=64, interpret=True)
     got = hk.pfb_channelize_packed_plain(torch.from_numpy(y),
@@ -270,7 +272,14 @@ PK_CARD_CASES = [
     ("w100", 4, 16, 1600, 8192, False),
     ("ragged", 4, 16, None, 8192 + 7, False),
     ("short", 4, 16, None, 20, False), ("m32", 4, 32, None, 4096, False),
-    ("unaligned", 4, 16, None, 8192 + 7, True)]
+    ("unaligned", 4, 16, None, 8192 + 7, True),
+    ("m64", 4, 64, None, 4096, False), ("m128", 4, 128, None, 2048, False),
+    ("m64_a1", 1, 64, None, 4096, False), ("m64_a3", 3, 64, None, 4096, False),
+    ("m64_w1", 4, 64, 64, 4096, False),
+    ("m64_ragged", 4, 64, None, 4096 + 7, False),
+    ("m64_short", 4, 64, None, 20, False),
+    ("m64_unaligned", 3, 64, None, 4096 + 7, True),
+    ("m128_w100_a1", 1, 128, 12800, 1024, False)]
 
 
 def _packed_on_card(card, case, seed):
@@ -289,10 +298,13 @@ def _packed_on_card(card, case, seed):
 @pytest.mark.parametrize("case", PK_CARD_CASES, ids=[c[0] for c in PK_CARD_CASES])
 def test_pfb_packed_kernel_edge_cases_on_card(card, case):
     """The wrapper at the shapes it accepts beside the step's: every M the
-    register-tiled body serves, A = 1, 3 and 5 (part-filled and second
+    register-tiled bodies serve, A = 1, 3 and 5 (part-filled and second
     chunks), the word-by-word staging (M = 2 at odd A, and y 4 bytes off
-    alignment), W = 1 and 100, ragged and short last blocks, and M = 32 (the
-    first body), each held to the plain form."""
+    alignment), W = 1 and 100, ragged and short last blocks; at M = 64
+    (pfb_packed_wide_kernel) A = 1 and 3, W = 1, ragged, short and
+    unaligned; and M = 128 at W = 100 on one antenna, where the wide block
+    does not fit and the first body's does, each held to the plain
+    form."""
     y, hr, a, m = _packed_on_card(card, case, seed=31)
     before = hk.pfb_channelize_packed.launches
     got = hk.pfb_channelize_packed(y, hr, a, m)
@@ -332,29 +344,62 @@ def test_pfb_packed_reg_matches_first_body_on_card(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in PK_CARD_CASES
+                                  if c[2] in hk.PFB_WIDE_M
+                                  and c[0] != "m128_w100_a1"],
+                         ids=[c[0] for c in PK_CARD_CASES
+                              if c[2] in hk.PFB_WIDE_M
+                              and c[0] != "m128_w100_a1"])
+def test_pfb_packed_wide_matches_first_body_on_card(card, case):
+    """pfb_packed_wide_kernel and pfb_packed_kernel through the C entry on
+    the same inputs agree within 1e-4 × max|plain| at M = 32, 64 and 128
+    and at M = 64's edge cases (the branch sums are the same fmaf chains;
+    the DFTs sum in other orders), each within it of the plain form."""
+    y, hr, a, m = _packed_on_card(card, case, seed=34)
+    new = _packed_on_body(y, hr, a, m, "pfb_packed_wide_kernel")
+    first = _packed_on_body(y, hr, a, m, "pfb_packed_kernel")
+    want = hk.pfb_channelize_packed_plain(y, hr, a, m)
+    close(new, first, REL_CARD)
+    close(new, want, REL_CARD)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("a,m,ntaps0", [(4, 16, None), (3, 2, None),
-                                        (4, 32, None), (4, 16, 4800)],
-                         ids=["m16", "m2_a3", "m32", "m16_w300"])
+                                        (4, 32, None), (4, 16, 4800),
+                                        (4, 64, None), (3, 128, None),
+                                        (1, 128, 12800)],
+                         ids=["m16", "m2_a3", "m32", "m16_w300", "m64",
+                              "m128_a3", "m128_w100_a1"])
 def test_pfb_packed_launches_its_body_on_card(card, a, m, ntaps0):
     """A call launches the body pfb_packed_body names (torch.profiler's
-    kernel names), once, and nothing of the other: pfb_packed_reg_kernel
-    at M <= 16, pfb_packed_kernel at M = 32 and at W = 300, whose
-    register-tiled block (4 · 128 · (64 + 2 W) B) would not fit the card's
-    opt-in shared memory (the first body's, 4 · 128 · (63 + W) B, does)."""
+    kernel names), once, and nothing of the others: pfb_packed_reg_kernel
+    at M <= 16, pfb_packed_wide_kernel at M = 32, 64 and 128,
+    pfb_packed_kernel at W = 300 for M = 16 and W = 100 for M = 128 (one
+    antenna), whose register-tiled blocks (4 · 128 · (64 + 2 W) B, and
+    8 · 128 · (32 + 2 W + 1) B) would not fit the card's opt-in shared
+    memory (the first body's does).  The library's block sizes and rows a block are the
+    ones the tests model."""
     from clenabled_tpu_torch.runtime.device import launched_kernels
 
     y, hr, a, m = _packed_on_card(card, ("", a, m, ntaps0, 1000, False), 33)
     w = hr.shape[0]
     body = hk.pfb_packed_body(m, w, card)
     assert body == ("pfb_packed_reg_kernel" if m <= 16 and w <= 195
-                    else "pfb_packed_kernel")
-    assert hk._load().clen_pfb_smem_bytes(a, m, w, hk.PFB_REG_ROWS, 1) == \
+                    else "pfb_packed_wide_kernel"
+                    if m >= 32 and w <= PK_MAX_W[m] else "pfb_packed_kernel")
+    lib = hk._load()
+    assert lib.clen_pfb_smem_bytes(a, m, w, hk.PFB_REG_ROWS, 1) == \
         _pk_reg_smem_bytes(w)
-    other, = set(hk.PFB_PACKED_BODIES) - {body}
+    assert lib.clen_pfb_block_rows(m, 1) == (PK_ROWS if m <= 16 else 0)
+    if m >= 32:
+        assert lib.clen_pfb_smem_bytes(a, m, w, _pw_rows(m), 2) == \
+            _pw_smem_bytes(m, w)
+        assert lib.clen_pfb_block_rows(m, 2) == _pw_rows(m)
+    others = set(hk.PFB_PACKED_BODIES) - {body}
     got, events = launched_kernels(
         lambda: hk.pfb_channelize_packed(y, hr, a, m))
     assert sum(body in e for e in events) == 1
-    assert not any(other in e for e in events)
+    assert not any(o in e for o in others for e in events)
     close(got, hk.pfb_channelize_packed_plain(y, hr, a, m), REL_CARD)
 
 
@@ -1495,6 +1540,250 @@ def test_pfb_packed_reg_shared_memory_banks(m, a):
     assert (_pk_swz(16 * t + k) == _pk_swz(16 * t) ^ k).all()
 
 
+# --------------------------------------------------------------------------
+# pfb_packed_wide_kernel (csrc/pfb_packed.cu, M in {32, 64, 128}) modelled in
+# numpy: its block of PW_OUTS / M output rows of one antenna's 2M window
+# columns (M re lanes, then M im lanes), its FIR strip and its 256 threads,
+# one FIR job a thread; shared-memory accesses recorded in thread order
+# --------------------------------------------------------------------------
+
+PW_OUTS, PW_STRIP, PW_THREADS = 4096, 16, 256
+
+
+def _pw_rows(m):
+    return PW_OUTS // m
+
+
+def _pw_stage(src, u0, nrows, valid, m, off, vec=True):
+    """Rows [0, nrows) of the block's 2M columns of ``src`` from its row
+    ``u0`` (re lanes at column off[0], im lanes at off[1]) into [nrows][2M],
+    rows at or past ``valid`` zero and not read.  Returns them, src's flat
+    indices read and the stores' record (item words, width)."""
+    gm = src.shape[1]
+    vw = 4 if vec else 1
+    word = np.arange(nrows * 2 * m // vw) * vw
+    u, col = np.divmod(word, 2 * m)
+    c = np.where(col < m, off[0] + col, off[1] + col - m)
+    inside = u < valid
+    dst = np.zeros((nrows, 2 * m), np.float32)
+    idx = ((u0 + u) * gm + c)[:, None] + np.arange(vw)
+    words = word[:, None] + np.arange(vw)
+    dst.reshape(-1)[words[inside].reshape(-1)] = src.reshape(-1)[
+        idx[inside].reshape(-1)]
+    return dst, idx[inside].reshape(-1), (word, vw)
+
+
+def _pw_fir(win, tsm, m, words):
+    """The FIR jobs on a staged window and taps: job e = (strip e / M of
+    PW_STRIP rows, column j = e mod M) on thread e, both components; per
+    lane 16 complex sums and a 16-slot window rotating with the tap step
+    (ascending taps, each step an fmaf), the last refill reading row 16 +
+    W - 1 of the strip.  Returns the sums [rows, M] of each component."""
+    w = tsm.shape[0]
+    s = PW_STRIP
+    e = np.arange(PW_OUTS // s)
+    j = e % m
+    s0 = e // m * s
+    flat, tflat = win.reshape(-1), tsm.reshape(-1)
+
+    def load(row):
+        assert row.max() < win.shape[0]
+        wd = row * 2 * m + j
+        words["window"] += [wd, wd + m]
+        return flat[wd], flat[wd + m]
+
+    ring = [load(s0 + k) for k in range(s)]
+    vr, vi = [v[0] for v in ring], [v[1] for v in ring]
+    ar = [np.zeros(len(e), np.float32) for _ in range(s)]
+    ai = [np.zeros(len(e), np.float32) for _ in range(s)]
+    for d in range(w):
+        rr = d % s
+        wd = d * 2 * m + j
+        words["taps"] += [wd, wd + m]
+        tr, ti = tflat[wd], tflat[wd + m]
+        for ss in range(s):
+            ar[ss] = _fma32(tr, vr[(ss + rr) % s], ar[ss])
+            ai[ss] = _fma32(ti, vi[(ss + rr) % s], ai[ss])
+        vr[rr], vi[rr] = load(s0 + s + d)
+    rows = _pw_rows(m)
+    sr = np.zeros((rows, m), np.float32)
+    si = np.zeros((rows, m), np.float32)
+    for ss in range(s):
+        sr[s0 + ss, j], si[s0 + ss, j] = ar[ss], ai[ss]
+    return sr, si
+
+
+def _pw_block(y, hr, blk, ant, a, m, vec=True, words=None):
+    """Block (blk, ant) of pfb_packed_wide_kernel replayed: staging, FIR,
+    the sums at their fir_slot (overlaying the window), the two-pass
+    transform of each warp's tile, the bins at their out_slot and the
+    copy-out.  Returns the FIR sums, the out words written and their
+    values, and y's and hr's flat indices read."""
+    w, gm = hr.shape
+    nout = y.shape[0] - (w - 1)
+    rb = _pw_rows(m)
+    q_, gw, _ = _wq(m)
+    words = collections.defaultdict(list) if words is None else words
+    off = (ant * m, (a + ant) * m)
+    i0 = blk * rb
+    tvalid = min(rb, nout - i0)
+    win, reads, st = _pw_stage(y, i0, rb + w, tvalid + w - 1, m, off, vec)
+    tsm, tap_reads, tst = _pw_stage(hr, 0, w, w, m, off, vec)
+    words["stage"] += [st, tst]
+    sr, si = _pw_fir(win, tsm, m, words)
+    z = np.zeros(PW_OUTS, np.complex128)
+    e = np.arange(PW_OUTS // PW_STRIP)
+    for ss in range(PW_STRIP):
+        g = e // m * PW_STRIP + ss
+        slot = _w_fir_slot(g, e % m, m)
+        words["sums"].append(2 * slot)
+        z[slot] = sr[g, e % m] + 1j * si[g, e % m].astype(np.float64)
+    _, gl, q = _w_lanes(m)
+    for warp in range(PW_THREADS // 32):
+        g = warp * gw + gl
+        slots = [_w_fir_slot(g, q + q_ * mm, m) for mm in range(16)]
+        words["dft load"] += [2 * sl for sl in slots]
+        v = np.stack([z[sl] for sl in slots], 1)
+        out = _w_transform(v, z, g, q, m, words, "dft")
+        for i in range(16):
+            slot = _w_out_slot(g, _w_bin(i, q, m), m)
+            words["dft store"].append(2 * slot)
+            z[slot] = out[:, i]
+    idx, vals = [], []
+    lane = np.arange(32)
+    for warp in range(PW_THREADS // 32):
+        gw0 = warp * gw
+        valid = min(gw, tvalid - gw0) * m
+        for x0 in range(0, max(valid, 0), 128):
+            x = x0 + 4 * lane
+            live = x < valid
+            gg, k = gw0 + x // m, x % m
+            p0, p1 = _w_out_slot(gg, k, m), _w_out_slot(gg, k + 2, m)
+            words["copy-out"] += [np.where(live, 2 * p0, -1),
+                                  np.where(live, 2 * p1, -1)]
+            bins = np.stack([z[p0], z[p0 + 1], z[p1], z[p1 + 1]], 1)[live]
+            row = (i0 + gg[live]) * gm + k[live]
+            for c, part in ((off[0], bins.real), (off[1], bins.imag)):
+                idx.append((row + c)[:, None] + np.arange(4))
+                vals.append(part)
+    return ((sr[:tvalid], si[:tvalid]), np.concatenate(idx).reshape(-1),
+            np.concatenate(vals).reshape(-1), (reads, tap_reads))
+
+
+def _pw_kernel(y, hr, a, m, vec=True):
+    """Every block replayed; returns out (NaN where never written), the FIR
+    sums of every block as [nout, 2AM] lanes, out's flat indices written
+    and the reads of y and hr, block by block."""
+    w, gm = hr.shape
+    nout = y.shape[0] - (w - 1)
+    out = np.full((nout, gm), np.nan)
+    sums = np.full((nout, gm), np.nan, np.float32)
+    writes, reads = [], []
+    rb = _pw_rows(m)
+    for blk in range(-(-nout // rb)):
+        for ant in range(a):
+            (sr, si), idx, vals, rd = _pw_block(y, hr, blk, ant, a, m, vec)
+            out.reshape(-1)[idx] = vals
+            rows = slice(blk * rb, blk * rb + len(sr))
+            sums[rows, ant * m:(ant + 1) * m] = sr
+            sums[rows, (a + ant) * m:(a + ant + 1) * m] = si
+            writes.append(idx)
+            reads.append((blk, rd))
+    return out, sums, np.concatenate(writes), reads
+
+
+# (channels, antennas, taps a branch, output rows): every M at A = 1, 3
+# and 4 and W = 1 and 25, the rows ragged (two blocks and 7 rows, one and
+# 5) or short (20, fewer than a block)
+PW_CASES = [(m, a, w, nout(m)) for m in (32, 64, 128)
+            for a, w, nout in ((1, 25, lambda m: 2 * _pw_rows(m) + 7),
+                               (3, 1, lambda m: _pw_rows(m) + 5),
+                               (4, 25, lambda m: 20),
+                               (1, 1, lambda m: 20),
+                               (3, 25, lambda m: _pw_rows(m) + 5),
+                               (4, 1, lambda m: 2 * _pw_rows(m) + 7))]
+PW_IDS = [f"m{m}_a{a}_w{w}_n{n}" for m, a, w, n in PW_CASES]
+
+
+@pytest.mark.parametrize("m,a,w,nout", PW_CASES, ids=PW_IDS)
+def test_pfb_packed_wide_schedule_matches_plain(m, a, w, nout):
+    """A replay of pfb_packed_wide_kernel (the staging of the window and
+    the taps, the per-lane rotating window over W in strips of 16 for both
+    components, the sums overlaying the window at fir_slot, the two-pass
+    transform of each warp's tile, the copy-out from out_slot) gives the
+    plain form's outputs within 1e-5 × max|plain| on ragged and short last
+    blocks, W = 1 and 25, A = 1, 3 and 4.  Its sums, with every fmaf
+    modelled as one rounding, are bit for bit pfb_packed_kernel's chains
+    under the same model."""
+    y, hr, _, _ = _packed_inputs(nout, seed=40 + m + a + w, a=a, m=m,
+                                 ntaps0=w * m)
+    assert hr.shape[0] == w
+    got, sums, _, _ = _pw_kernel(y, hr, a, m)
+    want = hk.pfb_channelize_packed_plain(torch.from_numpy(y),
+                                          torch.from_numpy(hr), a, m)
+    assert not np.isnan(got).any()
+    close(got, want, REL_CPU)
+    assert np.array_equal(sums, _pk_first_sums(y, hr))
+
+
+@pytest.mark.parametrize("m,a,w,nout", PW_CASES[::2], ids=PW_IDS[::2])
+def test_pfb_packed_wide_reads_stay_inside(m, a, w, nout):
+    """Every block reads only inside y — the rows of its valid outputs'
+    reach (i0 .. i0 + tvalid + W - 2), its antenna's 2M columns — and its
+    antenna's 2M tap columns of every row of hr; together the blocks read
+    all of y and hr, and every output word is written exactly once."""
+    y, hr, _, _ = _packed_inputs(nout, seed=50 + m + a, a=a, m=m,
+                                 ntaps0=w * m)
+    gm = hr.shape[1]
+    _, _, writes, reads = _pw_kernel(y, hr, a, m, vec=False)
+    seen_y, seen_hr = [], []
+    rb = _pw_rows(m)
+    for blk, (ry, rh) in reads:
+        assert ry.min() >= 0 and ry.max() < y.size
+        rows = ry // gm
+        tvalid = min(rb, nout - blk * rb)
+        assert rows.min() == blk * rb
+        assert rows.max() == blk * rb + tvalid + w - 2
+        assert len(rh) == 2 * m * w
+        seen_y.append(ry)
+        seen_hr.append(rh)
+    assert np.array_equal(np.unique(np.concatenate(seen_y)), np.arange(y.size))
+    assert np.array_equal(np.unique(np.concatenate(seen_hr)),
+                          np.arange(hr.size))
+    assert np.array_equal(np.sort(writes), np.arange(nout * gm))
+
+
+@pytest.mark.parametrize("m", [32, 64, 128])
+@pytest.mark.parametrize("vec", [True, False], ids=["vec", "words"])
+def test_pfb_packed_wide_shared_memory_banks(m, vec):
+    """Every warp-wide shared-memory access of pfb_packed_wide_kernel is on
+    32 distinct banks: the staging's stores (16-byte cp.async in
+    quarter-warp phases, or words), the FIR's window and tap loads, the
+    sums' float2 stores at fir_slot, the transform's loads, exchange and
+    out_slot stores (half-warp phases), the copy-out's 16-byte loads; the
+    pass-1 table's entries broadcast.  The sums fit the window they
+    overlay, and the copy-out's (re, im) pairs sit at even slots."""
+    a = 3
+    y, hr, _, _ = _packed_inputs(_pw_rows(m) + 5, seed=60 + m, a=a, m=m,
+                                 ntaps0=25 * m)
+    words = collections.defaultdict(list)
+    _pw_block(y, hr, 1, 2, a, m, vec=vec, words=words)
+    assert set(words) == {"stage", "window", "taps", "sums", "dft load",
+                          "dft pass1 store", "dft pass2 load", "dft store",
+                          "dft table", "copy-out"}
+    for st, width in words.pop("stage"):
+        assert _pk_warps_conflict_free(st, width), "stage"
+    for wd in words.pop("copy-out"):
+        assert _pk_warps_conflict_free(wd, 4), "copy-out"
+        assert (wd[wd >= 0] % 4 == 0).all()
+    for kind, addrs in words.items():
+        width = 1 if kind in ("window", "taps") else 2
+        assert _banks_ok(addrs, width=width), kind
+    g, j = np.divmod(np.arange(PW_OUTS), m)    # the sums' slots fill the
+    assert sorted(_w_fir_slot(g, j, m)) == list(range(PW_OUTS))   # window's
+    assert 2 * PW_OUTS <= 2 * m * (_pw_rows(m) + 1)        # first RB rows
+
+
 H100_SMEM_OPTIN = 232448    # an H100's opt-in shared memory per block, B
 
 
@@ -1505,24 +1794,54 @@ def _pk_reg_smem_bytes(w):
     return 4 * PK_COLS * (PK_ROWS + w + PK_ROWS + w)
 
 
+def _pw_smem_bytes(m, w):
+    """pfb_packed_wide_kernel's block: a window of 4096/m + W rows (the
+    complex sums overlay it), W tap rows, 2m columns of float32, and the
+    pass-1 table of m float2 (the card test holds it to
+    clen_pfb_smem_bytes)."""
+    return 4 * 2 * m * (_pw_rows(m) + w) + 4 * 2 * m * w + 8 * m
+
+
+# the largest W whose block fits an H100's opt-in shared memory, by body
+# and M: pfb_packed_reg_kernel's (any M <= 16) and pfb_packed_wide_kernel's
+PK_MAX_W = {2: 195, 4: 195, 8: 195, 16: 195, 32: 389, 64: 194, 128: 97}
+
+
 def test_pfb_packed_body_by_shape():
-    """pfb_packed_reg_kernel at M in {2, 4, 8, 16} wherever its block fits
-    the opt-in shared memory (here an H100's 232,448 B: W <= 195),
-    pfb_packed_kernel at other M and past that size; pfb_packed_body names
-    a CUDA body only, and refuses m or w below 1 before it asks a card."""
+    """pfb_packed_reg_kernel at M in {2, 4, 8, 16} and
+    pfb_packed_wide_kernel at M in {32, 64, 128}, each wherever its block
+    fits the opt-in shared memory (here an H100's 232,448 B: W <= 195 for
+    the first, 389, 194 and 97 for the second), pfb_packed_kernel at other
+    M and past that size; the rows a block of each body; pfb_packed_body
+    names a CUDA body only, and refuses m or w below 1 before it asks a
+    card."""
     assert hk.PFB_PACKED_BODIES == ("pfb_packed_kernel",
-                                    "pfb_packed_reg_kernel")
+                                    "pfb_packed_reg_kernel",
+                                    "pfb_packed_wide_kernel")
     assert hk.PFB_REG_ROWS == PK_ROWS
+    assert hk.PFB_WIDE_M == (32, 64, 128) and hk.PFB_WIDE_OUTS == PW_OUTS
     optin = H100_SMEM_OPTIN
     assert _pk_reg_smem_bytes(25) == 4 * 128 * 114
     assert _pk_reg_smem_bytes(195) == optin
-    for m in (1, 2, 3, 4, 8, 16, 32, 64):
-        for w in (1, 25, 100, 195, 196):
-            want = ("pfb_packed_reg_kernel" if m in (2, 4, 8, 16) and w <= 195
+    for m, wmax in PK_MAX_W.items():
+        smem = _pk_reg_smem_bytes if m <= 16 else (
+            lambda w, m=m: _pw_smem_bytes(m, w))
+        assert smem(wmax) <= optin < smem(wmax + 1)
+    assert _pw_smem_bytes(64, 25) == 58880      # three blocks an SM
+    for m in (1, 2, 3, 4, 8, 16, 32, 48, 64, 128, 256):
+        for w in (1, 25, 97, 98, 100, 194, 195, 196, 389, 390):
+            fits = w <= PK_MAX_W.get(m, 0)
+            want = ("pfb_packed_reg_kernel" if m <= 16 and fits
+                    else "pfb_packed_wide_kernel" if fits
                     else "pfb_packed_kernel")
-            assert hk._pick_pfb_body(m, _pk_reg_smem_bytes(w), optin) == want
+            smem = (_pk_reg_smem_bytes(w) if m in hk.PFB_REG_M
+                    else _pw_smem_bytes(m, w) if m in hk.PFB_WIDE_M else 0)
+            assert hk._pick_pfb_body(m, smem, optin) == want, (m, w)
     for a, m in ((4, 16), (1, 2), (64, 2)):
         assert hk.pfb_packed_tile(a, m, 1) == PK_ROWS
+        assert hk.pfb_packed_tile(a, m, 0) == max(1, 4096 // (2 * a * m))
+    for a, m in ((4, 32), (1, 64), (3, 128)):
+        assert hk.pfb_packed_tile(a, m, 2) == _pw_rows(m)
         assert hk.pfb_packed_tile(a, m, 0) == max(1, 4096 // (2 * a * m))
     for m, w in ((0, 25), (16, 0)):
         with pytest.raises(ValueError):
@@ -1532,8 +1851,8 @@ def test_pfb_packed_body_by_shape():
 
 
 def test_pfb_ab_cli_arguments():
-    """The packed PFB variants tool's arguments; without a card it exits
-    non-zero."""
+    """The packed PFB variants tool's arguments, at M = 16 and at the wide
+    body's M = 32, 64 and 128; without a card it exits non-zero."""
     from clenabled_tpu_torch.tools import pfb_ab as cli
 
     args = cli.parse_args([])
@@ -1548,8 +1867,12 @@ def test_pfb_ab_cli_arguments():
          "pr1=first_body"], [1 << 17], 8, 3)
     assert set(cli.STAGE_PROBES.values()) == {"-DPFB_STOP_AFTER=1",
                                               "-DPFB_STOP_AFTER=2"}
+    for m in hk.PFB_WIDE_M:      # the wide body's shapes and its probes
+        args = cli.parse_args(["--m", str(m), "--samples", "8388608"])
+        assert (args.m, args.samples, args.variants) == (m, [1 << 23], [])
     if not torch.cuda.is_available():
         assert cli.main(["--samples", "4096"]) == 1
+        assert cli.main(["--m", "64", "--samples", "4096"]) == 1
 
 
 def test_step_ab_cli_arguments():

@@ -94,6 +94,24 @@ def test_planar_pipeline_matches_jax(ref):
         np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
 
 
+def test_planar_pipeline_64ch_matches_jax(ref):
+    """The planar step at 64 channels (the step's own 1600-tap prototype,
+    25 taps a branch: pfb_packed_wide_kernel's shape on a card) against
+    JAX's over two chained frames, tails bit-equal."""
+    cfg = CFG._replace(num_channels=64)
+    jfn, (_, _, jhr, jhi) = J.make_fx_pipeline_planar(cfg, use_pallas=False)
+    tfn, (_, _, thr, thi) = P.make_fx_pipeline_planar(cfg, device="cpu")
+    assert tfn.taps_rm.shape == (25, 64)
+    for xr, xi in _real_frames("float32", 11)[:2]:
+        jout = jfn(xr, xi, jhr, jhi)
+        tout = tfn(_t(xr), _t(xi), thr, thi)
+        for g, w in zip(tout[:3], jout[:3]):
+            close(g, w)
+        jhr, jhi, thr, thi = jout[3], jout[4], tout[3], tout[4]
+        np.testing.assert_array_equal(thr.numpy(), np.asarray(jhr))
+        np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
+
+
 def test_planar_use_kernel_on_cpu():
     tfn, args = P.make_fx_pipeline_planar(CFG, use_kernel=True, device="cpu")
     with pytest.raises(ValueError):
@@ -224,6 +242,28 @@ def test_fused_pipeline_on_card_matches_cpu(card, dt, channels):
             close(g, w)
         gtr, gti, ctr, cti = go[3], go[4], co[3], co[4]
         assert torch.equal(gtr.cpu(), ctr)
+
+
+@pytest.mark.cuda
+def test_planar_pipeline_64ch_kernel_on_card_matches_cpu(card):
+    """The 64-channel planar step on the card (pfb_packed_wide_kernel, one
+    launch a step) against its plain form on the CPU over 3 chained steps,
+    tails equal."""
+    from clenabled_tpu_torch.dsp import hopper_kernels as hk
+
+    cfg = CFG._replace(num_channels=64)
+    gfn, (_, _, ghr, ghi) = P.make_fx_pipeline_planar(cfg, device=card)
+    cfn, (_, _, chr_, chi) = P.make_fx_pipeline_planar(cfg, device="cpu")
+    assert hk.pfb_packed_body(64, 25, card) == "pfb_packed_wide_kernel"
+    before = hk.pfb_channelize_packed.launches
+    for xr, xi in _real_frames("float32", 12):
+        go = gfn(_t(xr, device=card), _t(xi, device=card), ghr, ghi)
+        co = cfn(_t(xr), _t(xi), chr_, chi)
+        for g, w in zip(go[:3], co[:3]):
+            close(g, w)
+        ghr, ghi, chr_, chi = go[3], go[4], co[3], co[4]
+        assert torch.equal(ghr.cpu(), chr_) and torch.equal(ghi.cpu(), chi)
+    assert hk.pfb_channelize_packed.launches == before + STEPS
 
 
 @pytest.mark.cuda
