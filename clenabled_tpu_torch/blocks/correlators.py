@@ -11,6 +11,7 @@ from clenabled_tpu_torch.blocks._legacy import strip_legacy_kwargs
 from clenabled_tpu_torch.dsp import planar
 from clenabled_tpu_torch.dsp import xcorr as dsp_xcorr
 from clenabled_tpu_torch.dsp import xengine as dsp_xengine
+from clenabled_tpu_torch.runtime import trace
 from clenabled_tpu_torch.streaming.block import Block
 
 # an integer type as wide as one (time, channel) cell of P raw samples
@@ -255,20 +256,29 @@ class XEngine(Block):
         scale lands on the Gram).  The bytes of one (time, channel) cell —
         P samples — move as one 2- or 4-byte integer to [F, T, S] order,
         and are decoded there: decoding is per sample, so it commutes with
-        the move, and whole cells move far faster than single bytes."""
+        the move, and whole cells move far faster than single bytes.
+
+        Traced as ``xengine.decode``; ``xengine.decode_bytes`` counts the
+        input bytes and the two planes' bytes, each once."""
         if self.data_type not in (5, 6):
             raise TypeError("int decode is only for IChar/PackedXY feeds")
-        raw = torch.stack([dsp_xengine._as_bytes(x, torch.int8)
-                           for x in streams])
-        cell = raw.shape[-1] // (self.integration * self.num_channels)
-        cells = raw.view(_CELL_TYPES[cell]).view(
-            len(streams), self.integration, self.num_channels)
-        fmaj = cells.permute(2, 1, 0).contiguous().view(torch.int8).view(
-            self.num_channels, self.integration, -1)
-        if self.data_type == 5:
-            re, im = dsp_xengine.unpack_char_int8(fmaj)
-            return re.contiguous(), im.contiguous()
-        return dsp_xengine.unpack_packed_4bit_int8(fmaj)
+        with trace.span("xengine.decode"):
+            raw = torch.stack([dsp_xengine._as_bytes(x, torch.int8)
+                               for x in streams])
+            cell = raw.shape[-1] // (self.integration * self.num_channels)
+            cells = raw.view(_CELL_TYPES[cell]).view(
+                len(streams), self.integration, self.num_channels)
+            fmaj = cells.permute(2, 1, 0).contiguous().view(torch.int8).view(
+                self.num_channels, self.integration, -1)
+            if self.data_type == 5:
+                re, im = dsp_xengine.unpack_char_int8(fmaj)
+                re, im = re.contiguous(), im.contiguous()
+            else:
+                re, im = dsp_xengine.unpack_packed_4bit_int8(fmaj)
+            if trace.enabled():
+                trace.count("xengine.decode_bytes",
+                            raw.nbytes + re.nbytes + im.nbytes)
+        return re, im
 
     def apply(self, state, inputs):
         if self.channel_major:

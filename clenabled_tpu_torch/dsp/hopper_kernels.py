@@ -83,6 +83,7 @@ import torch
 from clenabled_tpu_torch import exact_f32
 from clenabled_tpu_torch.dsp import (channelizer, demod, fft as dsp_fft,
                                      fir_filter, planar, xengine)
+from clenabled_tpu_torch.runtime import trace
 from clenabled_tpu_torch.runtime.device import per_device
 
 LANES = 128
@@ -299,29 +300,37 @@ def _launch_fx(xr, xi, tail_r, tail_i, taps_rm, a: int, m: int, fd_pairs,
                xe_pairs, body: str | None = None):
     """Launch ``csrc/fx_correlate.cu`` on CUDA tensors on ``body`` (default:
     the one ``fx_body`` names; tests and ``chip_smoke.py`` name another to
-    hold the bodies to each other); (fd_sum, gram)."""
-    dev = xr.device
-    taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
-    taps = taps.contiguous()
-    _require_cuda(xr, xi, tail_r, tail_i, taps)
-    w, n, h = _check_fx(xr, xi, tail_r, tail_i, taps, a, m)
-    fd, xe = _default_pairs(fd_pairs, xe_pairs, a)
-    nfd, nb = len(fd), len(xe)
-    fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
-    xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
-    name = body or fx_body(m, a, w, dev)
-    tile = fx_tile(m, name)             # output vectors per block
-    code = FX_BODIES.index(name)
-    nblk = -(-(n // m) // tile)
-    lib = _load()
-    partial = torch.empty((nblk, lib.clen_fx_partial_width(m, nfd, nb, code)),
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(nfd * m + 2 * nb * m, dtype=torch.float32, device=dev)
-    err = lib.clen_fx_correlate(
-        xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(), tail_i.data_ptr(),
-        _DTYPE_CODE[xr.dtype], taps.data_ptr(), _twiddles(m, dev).data_ptr(),
-        fdp.data_ptr(), nfd, xep.data_ptr(), nb, a, m, w, n, h, tile, code,
-        partial.data_ptr(), out.data_ptr(), _stream(dev))
+    hold the bodies to each other); (fd_sum, gram).  Traced as
+    ``fx.prepare`` (the checks, pair tables, body choice and buffers) and
+    ``fx.launch`` (the C call)."""
+    with trace.span("fx.prepare"):
+        dev = xr.device
+        taps = torch.as_tensor(taps_rm, dtype=torch.float32, device=dev)
+        taps = taps.contiguous()
+        _require_cuda(xr, xi, tail_r, tail_i, taps)
+        w, n, h = _check_fx(xr, xi, tail_r, tail_i, taps, a, m)
+        fd, xe = _default_pairs(fd_pairs, xe_pairs, a)
+        nfd, nb = len(fd), len(xe)
+        fdp = _pairs_on(tuple(fd.reshape(-1).tolist()), dev)
+        xep = _pairs_on(tuple(xe.reshape(-1).tolist()), dev)
+        name = body or fx_body(m, a, w, dev)
+        tile = fx_tile(m, name)             # output vectors per block
+        code = FX_BODIES.index(name)
+        nblk = -(-(n // m) // tile)
+        lib = _load()
+        partial = torch.empty(
+            (nblk, lib.clen_fx_partial_width(m, nfd, nb, code)),
+            dtype=torch.float32, device=dev)
+        out = torch.empty(nfd * m + 2 * nb * m, dtype=torch.float32,
+                          device=dev)
+        twiddles, stream = _twiddles(m, dev), _stream(dev)
+    with trace.span("fx.launch"):
+        err = lib.clen_fx_correlate(
+            xr.data_ptr(), xi.data_ptr(), tail_r.data_ptr(),
+            tail_i.data_ptr(), _DTYPE_CODE[xr.dtype], taps.data_ptr(),
+            twiddles.data_ptr(), fdp.data_ptr(), nfd, xep.data_ptr(), nb, a,
+            m, w, n, h, tile, code, partial.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         smem = lib.clen_fx_smem_bytes(a, m, w, tile, code)
         raise RuntimeError(f"fx_correlate launch failed ({name}): "

@@ -36,6 +36,7 @@ import torch
 
 from clenabled_tpu_torch import _tree
 from clenabled_tpu_torch.dsp import planar
+from clenabled_tpu_torch.runtime import trace
 from clenabled_tpu_torch.runtime.device import get_device
 
 # output_format codes (lib/clXEngine_impl.h:28-29)
@@ -297,7 +298,11 @@ def xengine_correlate_stacked(zr, zi, npol: int = 2,
     the triangular order is then two static-index takes from its block
     outputs.  Where S·P is not a multiple of 128 the kernel runs on lanes
     zero-padded up to one, which add nothing to any sum.  On a CPU tensor
-    the wrappers run their plain forms."""
+    the wrappers run their plain forms.
+
+    Traced as ``xengine.gram`` (the contraction, with the kernel's block
+    takes) and ``xengine.emit`` (the cast, the scale and the output
+    order)."""
     from clenabled_tpu_torch.dsp import hopper_kernels
 
     f, t, sp = zr.shape
@@ -307,47 +312,48 @@ def xengine_correlate_stacked(zr, zi, npol: int = 2,
     integer = not zr.dtype.is_floating_point
     if use_kernel is None:
         use_kernel = _stacked_use_kernel(zr, sp)
-    if use_kernel:
-        if sp % LANES:
-            zr, zi = (torch.nn.functional.pad(z, (0, -sp % LANES))
-                      for z in (zr, zi))
-        if output_format == CLXCORR_TRIANGULAR_ORDER:
+    taken = use_kernel and output_format == CLXCORR_TRIANGULAR_ORDER
+    with trace.span("xengine.gram"):
+        if use_kernel:
+            if sp % LANES:
+                zr, zi = (torch.nn.functional.pad(z, (0, -sp % LANES))
+                          for z in (zr, zi))
+        if taken:
             a_blk, gi_blk, _ = hopper_kernels.xengine_gram_stacked_tri(zr, zi)
             pa, pgi = _block_takes(s, npol, a_blk.device)
-            gr_t = a_blk.reshape(f, -1)[:, pa]
-            gi_t = gi_blk.reshape(f, -1)[:, pgi]
-            gr_t, gi_t = gr_t.float(), gi_t.float()
-            if scale != 1.0:
-                gr_t = gr_t * np.float32(scale)
-                gi_t = gi_t * np.float32(scale)
-            nb = num_baselines(s)
-            return planar.PC(gr_t.reshape(f, nb, npol * npol),
-                             gi_t.reshape(f, nb, npol * npol))
-        a, b = hopper_kernels.xengine_gram_stacked(zr, zi)
-        a, b = a[:, :sp, :sp], b[:, :sp, :sp]
-        gr = a.float()
-        gi = (b - b.transpose(-1, -2)).float()
-    else:
-        w = torch.cat([zr, zi], dim=-1)               # [F, T, 2·SP]
-        if integer:
-            w = w.to(torch.int64 if w.device.type == "cpu" else torch.float64)
+            gr = a_blk.reshape(f, -1)[:, pa]
+            gi = gi_blk.reshape(f, -1)[:, pgi]
+        elif use_kernel:
+            a, b = hopper_kernels.xengine_gram_stacked(zr, zi)
+            a, b = a[:, :sp, :sp], b[:, :sp, :sp]
+            gr, gi = a, b - b.transpose(-1, -2)
         else:
-            w = w.float()
-        with hopper_kernels._full_f32():
-            g2 = torch.einsum("ftk,ftl->fkl", w, w)
-        if integer:
-            g2 = g2.to(torch.int32)
-        rr, ri = g2[:, :sp, :sp], g2[:, :sp, sp:]
-        ir, ii = g2[:, sp:, :sp], g2[:, sp:, sp:]
-        gr = (rr + ii).float()
-        gi = (ir - ri).float()
-    if scale != 1.0:
-        gr = gr * np.float32(scale)
-        gi = gi * np.float32(scale)
-    g = planar.PC(gr, gi)
-    if output_format == CLXCORR_FULL_MATRIX:
-        return g
-    return _triangular(g, s, npol)
+            w = torch.cat([zr, zi], dim=-1)               # [F, T, 2·SP]
+            if integer:
+                w = w.to(torch.int64 if w.device.type == "cpu"
+                         else torch.float64)
+            else:
+                w = w.float()
+            with hopper_kernels._full_f32():
+                g2 = torch.einsum("ftk,ftl->fkl", w, w)
+            if integer:
+                g2 = g2.to(torch.int32)
+            rr, ri = g2[:, :sp, :sp], g2[:, :sp, sp:]
+            ir, ii = g2[:, sp:, :sp], g2[:, sp:, sp:]
+            gr, gi = rr + ii, ir - ri
+    with trace.span("xengine.emit"):
+        gr, gi = gr.float(), gi.float()
+        if scale != 1.0:
+            gr = gr * np.float32(scale)
+            gi = gi * np.float32(scale)
+        if taken:
+            nb = num_baselines(s)
+            return planar.PC(gr.reshape(f, nb, npol * npol),
+                             gi.reshape(f, nb, npol * npol))
+        g = planar.PC(gr, gi)
+        if output_format == CLXCORR_FULL_MATRIX:
+            return g
+        return _triangular(g, s, npol)
 
 
 # --------------------------------------------------------------------------
@@ -368,11 +374,12 @@ def _pipeline_emit(accum, corr, count: int, pipe: int):
 
     Returns (new_accum, new_count, out, ready): on the emitting call out is
     the sum and the accumulator and count restart at zero; otherwise out
-    is zeros and ready is False."""
-    accum = _tree.tree_map(torch.add, accum, corr)
-    count = count + 1
-    ready = count >= pipe
-    zeros = _tree.tree_map(torch.zeros_like, accum)
+    is zeros and ready is False.  Traced as ``xengine.emit``."""
+    with trace.span("xengine.emit"):
+        accum = _tree.tree_map(torch.add, accum, corr)
+        count = count + 1
+        ready = count >= pipe
+        zeros = _tree.tree_map(torch.zeros_like, accum)
     if ready:
         return zeros, 0, accum, True
     return accum, count, zeros, False

@@ -43,6 +43,7 @@ from clenabled_tpu_torch.dsp import channelizer as dsp_chan
 from clenabled_tpu_torch.dsp import firdes, hopper_kernels, planar
 from clenabled_tpu_torch.dsp import xcorr as dsp_xcorr
 from clenabled_tpu_torch.dsp import xengine as dsp_xengine
+from clenabled_tpu_torch.runtime import trace
 from clenabled_tpu_torch.runtime.device import get_device, mesh_device
 from clenabled_tpu_torch.sharding.collectives import (axis_index, axis_size,
                                                       broadcast, pmean, psum,
@@ -194,18 +195,25 @@ class FxPipelineFused(nn.Module):
         self.register_buffer("taps_rm", torch.as_tensor(taps_rm, device=device))
 
     def forward(self, xr, xi, tr, ti):
+        """One step, traced as ``fx.step`` with ``fx.finish`` around what
+        follows the kernel's wrapper (the mean, the shift, the Gram
+        planes and the tails)."""
         a, m, n = self.a, self.m, self.n
-        if xr.shape[-1] != n:
-            raise ValueError(f"frame length {xr.shape[-1]} != samples_per_step {n}")
-        # the kernel takes contiguous rows; a no-op for the usual frames
-        xr, xi, tr, ti = (t.contiguous() for t in (xr, xi, tr, ti))
-        fd_sum, gram = hopper_kernels.fx_correlate_streams_v2(
-            xr, xi, tr, ti, self.taps_rm, a, m, fd_pairs=self.fd_pairs,
-            xe_pairs=self.xe_pairs)
-        fd = torch.roll(fd_sum / (n // m), m // 2, dims=-1)
-        xre = gram[:, :m].T[:, :, None]
-        xim = gram[:, m:].T[:, :, None]
-        return fd, xre, xim, _tail(xr, self.tail_len), _tail(xi, self.tail_len)
+        with trace.span("fx.step"):
+            if xr.shape[-1] != n:
+                raise ValueError(
+                    f"frame length {xr.shape[-1]} != samples_per_step {n}")
+            # the kernel takes contiguous rows; a no-op for the usual frames
+            xr, xi, tr, ti = (t.contiguous() for t in (xr, xi, tr, ti))
+            fd_sum, gram = hopper_kernels.fx_correlate_streams_v2(
+                xr, xi, tr, ti, self.taps_rm, a, m, fd_pairs=self.fd_pairs,
+                xe_pairs=self.xe_pairs)
+            with trace.span("fx.finish"):
+                fd = torch.roll(fd_sum / (n // m), m // 2, dims=-1)
+                xre = gram[:, :m].T[:, :, None]
+                xim = gram[:, m:].T[:, :, None]
+                return (fd, xre, xim, _tail(xr, self.tail_len),
+                        _tail(xi, self.tail_len))
 
 
 def make_fx_pipeline_fused(cfg: FxPipelineConfig = FxPipelineConfig(),

@@ -1,5 +1,6 @@
 """Runtime core: device selection, the Hopper probe, the mesh context, the
-stream dtype codes and the frame-size policy (``runtime.config``)."""
+stream dtype codes, the frame-size policy (``runtime.config``) and the
+program's spans and counters (``runtime.trace``)."""
 
 from clenabled_tpu_torch.runtime.dtypes import (  # noqa: F401
     DTYPE_COMPLEX,

@@ -20,6 +20,9 @@ drives the step eagerly on the device named at ``compile(device=...)``:
   a debug block prints its item counts only.
 - ``refresh`` rebuilds the step closure where JAX re-traces and re-jits;
   ``set_taps`` retunes a filter live, migrating its carried state.
+- With the program's tracing on (``runtime.trace``) a dispatch is the
+  span ``runner.step``, each block's ``apply`` the span
+  ``block.<name>``, and the message delivery ``runner.deliver``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from clenabled_tpu_torch import _tree
+from clenabled_tpu_torch.runtime import trace
 from clenabled_tpu_torch.streaming.block import Block
 
 
@@ -275,6 +279,7 @@ class Flowgraph:
                 frames[(id(b), p)] = out
 
         taps = list(self._taps)
+        labels = [f"block.{b.name or type(b).__name__}" for b in order]
 
         def step(states: tuple, feeds: tuple):
             values: dict[tuple[int, int], Any] = {}
@@ -288,7 +293,8 @@ class Flowgraph:
                     else:
                         e = in_edges[id(b)][p]
                         ins.append(values[(id(e.src), e.src_port)])
-                st, outs, msgs = b.apply(states[i], ins)
+                with trace.span(labels[i]):
+                    st, outs, msgs = b.apply(states[i], ins)
                 new_states[i] = st
                 for p, v in enumerate(outs):
                     values[(id(b), p)] = v
@@ -421,18 +427,19 @@ class Runner:
         t0 = time.perf_counter()
         k = self.steps_per_dispatch
         states, step_fn = self.states, self._step_fn
-        try:
-            tapped, messages = torch.func.vmap(
-                lambda fs: step_fn(states, fs)[1:])(self._to_device(feeds))
-        except RuntimeError as e:
-            if "vmap" not in str(e):
-                raise
-            raise RuntimeError(
-                f"the vectorised {k}-frame dispatch cannot vmap this graph's "
-                f"step ({e}); compile with vectorize=False to run the frames "
-                f"one by one") from e
-        for j in range(k):
-            self._deliver(_tree.tree_map(lambda a, j=j: a[j], messages))
+        with trace.span("runner.step"):
+            try:
+                tapped, messages = torch.func.vmap(
+                    lambda fs: step_fn(states, fs)[1:])(self._to_device(feeds))
+            except RuntimeError as e:
+                if "vmap" not in str(e):
+                    raise
+                raise RuntimeError(
+                    f"the vectorised {k}-frame dispatch cannot vmap this "
+                    f"graph's step ({e}); compile with vectorize=False to run "
+                    f"the frames one by one") from e
+            for j in range(k):
+                self._deliver(_tree.tree_map(lambda a, j=j: a[j], messages))
         self.stats["steps"] += k
         self.stats["wall_s"] += time.perf_counter() - t0
         self.stats["samples"] += self.frame_size * k
@@ -446,14 +453,15 @@ class Runner:
         t0 = time.perf_counter()
         tapped_all, msgs_all = [], []
         states = self.states
-        for feeds in frame_feeds:
-            states, tapped, messages = self._step_fn(
-                states, self._to_device(feeds))
-            tapped_all.append(tapped)
-            msgs_all.append(messages)
-        self.states = states
-        for messages in msgs_all:
-            self._deliver(messages)
+        with trace.span("runner.step"):
+            for feeds in frame_feeds:
+                states, tapped, messages = self._step_fn(
+                    states, self._to_device(feeds))
+                tapped_all.append(tapped)
+                msgs_all.append(messages)
+            self.states = states
+            for messages in msgs_all:
+                self._deliver(messages)
         n = len(frame_feeds)
         self.stats["steps"] += n
         self.stats["wall_s"] += time.perf_counter() - t0
@@ -462,9 +470,10 @@ class Runner:
         return tapped_all if collect else tapped_all[0]
 
     def _deliver(self, messages: dict) -> None:
-        for key, val in messages.items():
-            for h in self._msg_handlers.get(key, ()):
-                h(val)
+        with trace.span("runner.deliver"):
+            for key, val in messages.items():
+                for h in self._msg_handlers.get(key, ()):
+                    h(val)
 
     def _debug_report(self, k: int) -> None:
         """Per-block item counts (the reference's setDebug +
